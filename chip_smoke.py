@@ -10,12 +10,15 @@ It imports nothing of JAX or of ``eavit_tpu``. Phases, each of which exits
 non-zero on failure:
 
 1. Build every kernel under ``eavit_tpu_torch/csrc`` with nvcc (sm_90a).
-2. Kernels: each kernel of the acting path at the shapes the path gives
-   it, against its plain torch version on the same inputs, with the
-   tolerance printed beside the error; times of the kernel, the plain
-   version and, where one exists, the PyTorch call that computes the same
-   function; the least time the card could take (``bound_ms``).
-3. Main path, shared-patch-stream mode: the flagship configuration of
+2. Kernels: each kernel at the shapes the paths give it (the acting shapes
+   of 64 frames, the training shapes of 256), against its plain torch
+   version on the same inputs, with the tolerance printed beside the
+   error; times of the kernel, the plain version and, where one exists, the
+   PyTorch call that computes the same function; the least time the card
+   could take (``bound_ms``). The backward kernels are also held to torch
+   autograd through the plain forward at rate 0.1, which proves that they
+   replay the forward's masks.
+3. Acting path, shared-patch-stream mode: the flagship configuration of
    ``bench.py:flagship_cfg`` (dim 256, depth 3, 8 heads x 32, MLP 1024,
    bf16, pallas_qkv attention, fused FFN) on 64 synthetic envs x 128 steps:
    ``RNDAgent`` on CUDA, obs-RMS seeding, ``RolloutCollector.collect`` and
@@ -23,7 +26,19 @@ non-zero on failure:
    read after it: K1f and K2f must each show 3 layers x 129 forwards. The
    network's output on a small input must agree with the same network run
    on the CPU, where the kernels take their plain versions.
-4. The same main path in the exact stacked mode (2B x 197 tokens).
+4. The same acting path in the exact stacked mode (2B x 197 tokens).
+5. Training path, shared stream, full width: ``train.train`` for two
+   iterations (64 x 128 rollout, then 4 epochs x 32 minibatches of Adam),
+   with the launch counts reset before and read after (per iteration 387 +
+   384 forwards and 384 backwards of each kernel). Then: every metric
+   finite, ``train/loss`` equal to the sum of its parts, the checkpoint
+   loaded into a fresh agent (policy and ``rnd_pred`` moved, ``rnd_target``
+   did not, ``global_step`` = 2 x 8,192), one more iteration in pieces for
+   the timing split, the gradient of the whole network on 8 frames against
+   a copy on the CPU (plain versions, same kernel seeds), and a short
+   greedy episode of ``eval.evaluate`` from the checkpoint.
+6. Training path, exact stacked mode: ``train.train`` for one iteration
+   with ``Epoch = 1`` (96 launches of each backward kernel).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -33,14 +48,18 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 DEPTH, NUM_ENVS, NUM_STEP = 3, 64, 128
+EPOCH, MINI_BATCH = 4, 32
+MB_FRAMES = NUM_ENVS * NUM_STEP // MINI_BATCH  # 256 frames in a minibatch
 SEED = 0  # of the random weights and the dropout streams
 
 
@@ -88,6 +107,15 @@ def check(ok: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _ffn_params(torch, dev, d, hid, seed):
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    params = tuple(p.to(dev) for p in (
+        1.0 + 0.1 * f(d), 0.1 * f(d), f(hid, d) / d ** 0.5, 0.1 * f(hid),
+        f(d, hid) / hid ** 0.5, 0.1 * f(d)))
+    return params, f
+
+
 def kernel_phase(torch, fq, ff, kp, dev):
     import torch.nn.functional as F
 
@@ -128,11 +156,7 @@ def kernel_phase(torch, fq, ff, kp, dev):
     # K2f at both act row counts; float32 is what the path feeds it
     d, hid = 256, 1024
     for r in (NUM_ENVS * 198, 2 * NUM_ENVS * 197):
-        g = torch.Generator().manual_seed(r)
-        f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-        params = tuple(p.to(dev) for p in (
-            1.0 + 0.1 * f(d), 0.1 * f(d), f(hid, d) / d ** 0.5, 0.1 * f(hid),
-            f(d, hid) / hid ** 0.5, 0.1 * f(d)))
+        params, f = _ffn_params(torch, dev, d, hid, r)
         x32 = f(r, d).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
@@ -201,18 +225,141 @@ def kernel_phase(torch, fq, ff, kp, dev):
     return rows
 
 
+def train_kernel_phase(torch, fq, ff, dev):
+    """K1b and K2b against their plain versions, and K1f / K2f timed again,
+    at the shapes one minibatch of 256 frames gives them."""
+    import torch.nn.functional as F
+
+    from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+    heads, dh, seeds = 8, 32, (0x1234ABCD, 0x0BADF00D)
+    rows = {}
+
+    for b, n, ns in ((MB_FRAMES, 198, 2), (2 * MB_FRAMES, 197, 0)):
+        g = torch.Generator().manual_seed(n + 1)
+        qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
+        do = torch.randn(b, n, heads * dh, generator=g).to(dev, torch.bfloat16)
+        # yardstick: the backward of SDPA alone (same mask, rate 0)
+        q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2).contiguous().requires_grad_()
+                   for t in qkv.split(heads * dh, dim=-1))
+        mask = dual_query_allowed(n, n, ns, dev) if ns else None
+        o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        do_lib = do.reshape(b, n, heads, dh).transpose(1, 2).contiguous()
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (q, k, v), do_lib, retain_graph=True), 20)
+        del o_lib, q, k, v
+        for rate in (0.0, 0.1):
+            args = (heads, dh, dh ** -0.5, ns, seeds, rate)
+            _, lse = fq.flash_qkv_fwd(qkv, *args)
+            dqkv = fq.flash_qkv_bwd(qkv, lse, do, *args)
+            plain = fq.flash_qkv_bwd_plain(qkv, lse, do, *args)
+            torch.cuda.synchronize()
+            err = (dqkv.float() - plain.float()).abs().max().item()
+            tol = 1e-2 + 8e-3 * plain.float().abs().max().item()  # one bf16 rounding
+            del plain
+            ms = time_ms(torch, lambda: fq.flash_qkv_bwd(qkv, lse, do, *args), 10)
+            plain_ms = time_ms(torch, lambda: fq.flash_qkv_bwd_plain(
+                qkv, lse, do, *args), 2, warmup=1)
+            fwd_ms = time_ms(torch, lambda: fq.flash_qkv_fwd(qkv, *args), 20)
+            nbytes = 2 * (2 * qkv.numel() + do.numel()) + 4 * lse.numel()
+            bms, by = bound_ms(nbytes, 10.0 * b * heads * n * n * dh, "bfloat16")
+            row = dict(kernel="flash_qkv_bwd", b=b, n=n, num_special=ns, rate=rate,
+                       dtype="bfloat16", max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       fwd_ms_at_this_shape=fwd_ms)
+            log("kernel", **row)
+            check(err <= tol, f"flash_qkv_bwd {row}")
+            rows[("flash_qkv_bwd", n, rate)] = row
+
+    # K2b; float32 is what the path feeds it. Weight gradients sum tens of
+    # thousands of rows, so each output is judged against its own maximum.
+    d, hid = 256, 1024
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+    for r, dtypes in ((MB_FRAMES * 198, (torch.float32, torch.bfloat16)),
+                      (2 * MB_FRAMES * 197, (torch.float32,))):
+        params, f = _ffn_params(torch, dev, d, hid, r + 1)
+        x32, dy32 = f(r, d).to(dev), f(r, d).to(dev)
+        for dtype in dtypes:
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            name = str(dtype).split(".")[-1]
+            for rate in (0.0, 0.1):
+                call = lambda: ff.fused_ffn_bwd(x, *params[:5], dy, seeds, rate)  # noqa: E731
+                out = call()
+                plain = ff.fused_ffn_bwd_plain(x, *params[:5], dy, seeds, rate)
+                torch.cuda.synchronize()
+                rel = {k: ((a.float() - p.float()).abs().max()
+                           / p.float().abs().max()).item()
+                       for k, a, p in zip(names, out, plain)}
+                # float32: 1e-4 of each output's maximum. bf16 input: one bf16
+                # rounding of dx; the float32 weight gradients see other
+                # roundings of dh and gd where a sum lands on a boundary
+                tol = {k: 1e-4 if dtype == torch.float32 else
+                       (1.2e-2 if k == "dx" else 2e-3) for k in names}
+                again = call()
+                same = all(torch.equal(a, b_) for a, b_ in zip(out, again))
+                err = (out[0].float() - plain[0].float()).abs().max().item()
+                del plain, again
+                ms = time_ms(torch, call, 5)
+                plain_ms = time_ms(torch, lambda: ff.fused_ffn_bwd_plain(
+                    x, *params[:5], dy, seeds, rate), 2, warmup=1)
+                fwd_ms = time_ms(torch, lambda: ff.fused_ffn_fwd(
+                    x, *params, seeds, rate), 10)
+                nbytes = 3 * x.numel() * x.element_size() + 4 * sum(
+                    t.numel() for t in params) + 4 * sum(t.numel() for t in out[1:])
+                # five products: fc1 recomputed, dW2, dgd, dW1, du (the fc2
+                # output is needed by no gradient)
+                bms, by = bound_ms(nbytes, 10.0 * r * d * hid, name)
+                row = dict(kernel="fused_ffn_bwd", rows=r, dtype=name, rate=rate,
+                           max_abs_err=err, max_rel_err=rel, rel_tol=tol,
+                           deterministic=same, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=bms, bound_by=by,
+                           fwd_ms_at_this_shape=fwd_ms)
+                log("kernel", **row)
+                check(all(rel[k] <= tol[k] for k in names) and same,
+                      f"fused_ffn_bwd {row}")
+                rows[("fused_ffn_bwd", r, name, rate)] = row
+
+    # explicit backward kernels against torch autograd through the PLAIN
+    # forward, float32, rate 0.1: the backward replays the forward's masks
+    g = torch.Generator().manual_seed(5)
+    qkv = torch.randn(4, 37, 3 * 4 * 16, generator=g).to(dev).requires_grad_()
+    do = torch.randn(4, 37, 4 * 16, generator=g).to(dev)
+    o, _ = fq.flash_qkv_fwd_plain(qkv, 4, 16, 0.25, 2, seeds, 0.1)
+    (ref,) = torch.autograd.grad(o, qkv, do)
+    x = qkv.detach().clone().requires_grad_()
+    fq.flash_mha_qkv(x, 4, 16, seeds=seeds, rate=0.1, num_special=2).backward(do)
+    err = (x.grad - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item()
+    log("autograd", kernel="flash_qkv_bwd", max_abs_err=err, tol=tol)
+    check(err <= tol, "flash_qkv: Function backward vs autograd of the plain forward")
+
+    params, f = _ffn_params(torch, dev, 64, 96, 9)
+    leaves = [f(130, 64).to(dev).requires_grad_()] + [p.requires_grad_() for p in params]
+    dy = f(130, 64).to(dev)
+    ref = torch.autograd.grad(ff.fused_ffn_fwd_plain(*leaves, seeds, 0.1), leaves, dy)
+    mine = [t.detach().clone().requires_grad_() for t in leaves]
+    ff.fused_ffn(*mine, seeds=seeds, rate=0.1).backward(dy)
+    rel = max(((a.grad - b_).abs().max() / b_.abs().max()).item()
+              for a, b_ in zip(mine, ref))
+    log("autograd", kernel="fused_ffn_bwd", max_rel_err=rel, tol=1e-4)
+    check(rel <= 1e-4, "fused_ffn: Function backward vs autograd of the plain forward")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the acting path
 # ---------------------------------------------------------------------------
 
 
 def flagship_cfg(shared: bool):
-    from eavit_tpu_torch.config import Config, TrainMethod
+    from eavit_tpu_torch.config import Config, EnvType, TrainMethod
 
-    # bench.py:flagship_cfg (bench.py:290-324) with the shared-stream flag
+    # bench.py:flagship_cfg (bench.py:290-324) with the shared-stream flag,
+    # on the synthetic host envs that bench.py builds itself
     return Config(
-        train_method=TrainMethod.ORIGINAL_RND, num_step=NUM_STEP,
-        num_env_per_process=NUM_ENVS, epoch=4, mini_batch=32, obs_norm_step=0,
+        train_method=TrainMethod.ORIGINAL_RND, env_type=EnvType.SYNTHETIC,
+        sticky_action=False, num_step=NUM_STEP,
+        num_env_per_process=NUM_ENVS, epoch=EPOCH, mini_batch=MINI_BATCH, obs_norm_step=0,
         max_step_per_episode=4500, shared_patch_stream=shared, async_env_pool=False,
         attention_impl="pallas_qkv", fused_ffn=True, seed=SEED,
     )
@@ -315,6 +462,248 @@ def main_path(torch, fq, ff, dev, shared: bool):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: the training path
+# ---------------------------------------------------------------------------
+
+FWD, BWD = ("flash_qkv_fwd", "fused_ffn_fwd"), ("flash_qkv_bwd", "fused_ffn_bwd")
+LOSS_PARTS = ("train/actor_loss", "train/critic_loss", "train/entropy_loss",
+              "train/rnd_loss")
+
+
+def _counts(fq, ff):
+    return {**fq.launches, **ff.launches}
+
+
+def _reset(fq, ff):
+    fq.reset_launches()
+    ff.reset_launches()
+
+
+def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float):
+    """Loss and gradients of the whole network and the RND predictor on one
+    minibatch of 8 frames, kernels on the card against a copy on the CPU
+    (plain versions). Kernel dropout is live at rate 0.1 with the same seed
+    words on both sides (the device Philox equals the plain one). The 16-bit
+    dropout layers outside the kernels draw from the device's own generator,
+    which no CPU generator reproduces, so they are switched off in both
+    copies; ``UpdateProportion = 1`` takes the RND mask out the same way."""
+    import numpy as np
+
+    from eavit_tpu_torch.models.layers import Dropout16, Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
+
+    cfg = flagship_cfg(shared).replace(update_proportion=1.0, compute_dtype=compute_dtype)
+    agents = {"cuda": RNDAgent(cfg, 5), "cpu": RNDAgent(cfg, 5, device="cpu")}
+    state = agents["cuda"].init_state(SEED)
+    agents["cpu"].load_state_dict(agents["cuda"].state_dict(state))
+    rng_np = np.random.default_rng(SEED)
+    n = 8
+    host = dict(
+        states=torch.from_numpy(rng_np.integers(0, 256, (n, 4, 84, 84), dtype=np.uint8)),
+        actions=torch.from_numpy(rng_np.integers(0, 5, n)),
+        old_policy=torch.from_numpy(rng_np.standard_normal((n, 5)).astype(np.float32)),
+        adv=torch.from_numpy(rng_np.standard_normal(n).astype(np.float32)),
+        ext_target=torch.from_numpy(rng_np.standard_normal(n).astype(np.float32)),
+        int_target=torch.from_numpy(rng_np.standard_normal(n).astype(np.float32)),
+        rnd_in=torch.from_numpy(rng_np.standard_normal((n, 1, 84, 84)).astype(np.float32)),
+    )
+    losses, grads = {}, {}
+    for where, agent in agents.items():
+        for m in agent.network.modules():
+            if isinstance(m, Dropout16):
+                m.rate = 0.0
+        batch = TrainBatch(**{k: v.to(agent.device) for k, v in host.items()})
+        loss, _ = agent._loss(batch, torch.arange(n, device=agent.device),
+                              Rng(SEED + 7, agent.device))
+        loss.backward()
+        losses[where] = float(loss.detach())
+        grads[where] = torch.cat([p.grad.float().reshape(-1).cpu()
+                                  for p in agent.trainable_parameters()])
+    rel = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    loss_tol = tol * max(1.0, abs(losses["cpu"]))
+    log("grad_check", mode="shared" if shared else "stacked", compute_dtype=compute_dtype,
+        frames=n, loss_cuda=losses["cuda"], loss_cpu=losses["cpu"], loss_err=loss_err,
+        loss_tol=loss_tol, grad_rel_err=rel, grad_rel_tol=tol,
+        grad_elements=grads["cpu"].numel())
+    check(loss_err <= loss_tol and rel <= tol,
+          f"gradient of the whole network, {compute_dtype}: CUDA kernels vs CPU plain")
+
+
+def _kernel_name(key: str) -> str:
+    """A device kernel's function name without return type, namespaces of
+    this file's kind, template arguments and parameters."""
+    name = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
+
+
+def profile_minibatches(torch, agent, state, rollout, rng, steps: int = 8):
+    """``torch.profiler`` over ``steps`` minibatch steps: the device time by
+    kernel, and the share of the traced window in which the card ran something.
+    Returns ``{}`` when the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = agent.cfg
+    _, batch, _ = agent.prepare_batch(state, rollout)
+    n = batch.adv.shape[0]
+    params = agent.trainable_parameters()
+    idxs = agent._permutation(rng, n).reshape(cfg.mini_batch, n // cfg.mini_batch)[:steps]
+    agent._minibatch_step(batch, idxs[0], rng, params)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for idx in idxs:
+            agent._minibatch_step(batch, idx, rng, params)
+        torch.cuda.synchronize()
+    def on_card(e, name):
+        # kernels and copies, not the ranges that annotate them ("Optimizer.step#...";
+        # a kernel's own name has "#" only inside its template arguments)
+        return str(e.device_type).endswith("CUDA") and "#" not in _kernel_name(name)
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if on_card(e, e.name))
+    if not spans:
+        return {}
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    by_kernel = {}
+    for e in prof.key_averages():
+        if on_card(e, e.key):
+            name = _kernel_name(e.key)
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    out = dict(minibatch_steps=steps, window_ms_per_minibatch=window / 1e3 / steps,
+               window_busy_share=busy / window,
+               device_ms_per_minibatch=sum(by_kernel.values()),
+               top_kernels_ms_per_minibatch=dict(top))
+    log("profile", **out)
+    return out
+
+
+def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
+                  workdir: str):
+    """``train.train`` at full width, then what its checkpoint holds."""
+    from eavit_tpu_torch import train as port_train
+    from eavit_tpu_torch.eval import evaluate
+    from eavit_tpu_torch.envs.builders import make_vector_env
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.rollout import RolloutCollector
+    from eavit_tpu_torch.utils.checkpoint import load_checkpoint
+
+    mode = "shared" if shared else "stacked"
+    cfg = flagship_cfg(shared).replace(
+        epoch=epochs, obs_norm_step=1, save_ckpt_every=updates, log_name=f"smoke_{mode}",
+        save_model_path=os.path.join(workdir, "ckpt"))
+    frames = cfg.num_step * cfg.num_env_per_process
+    per_update = cfg.vit.depth * epochs * cfg.mini_batch
+    per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+
+    torch.cuda.synchronize()
+    _reset(fq, ff)
+    t0 = time.perf_counter()
+    metrics = port_train.train(cfg, total_updates=updates,
+                               log_dir=os.path.join(workdir, "logs"))  # CUDA by default
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts(fq, ff)  # the main path ends here
+
+    expect = {**{k: updates * (per_rollout + per_update) for k in FWD},
+              **{k: updates * per_update for k in BWD}}
+    finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
+    parts = sum(metrics[k] for k in LOSS_PARTS)
+    log("train", mode=mode, updates=updates, epochs=epochs, train_s=train_s,
+        frames_per_s=updates * frames / train_s, launches=counts,
+        expected_launches=expect, finite=finite, metrics=metrics, loss_parts_sum=parts)
+    check(all(counts[k] == v for k, v in expect.items()),
+          f"{mode}: launches {counts}, expected {expect}")
+    check(finite, f"{mode}: finite metrics")
+    check(abs(metrics["train/loss"] - parts) <= 1e-4 * max(1.0, abs(parts)),
+          f"{mode}: train/loss {metrics['train/loss']} != sum of parts {parts}")
+
+    # the checkpoint, loaded into a fresh agent
+    path = os.path.join(cfg.save_model_path, cfg.log_name)
+    with open(path + ".json") as fh:
+        meta = json.load(fh)
+    check(meta["global_update"] == updates and meta["global_step"] == updates * frames,
+          f"{mode}: sidecar counters {meta['global_update']}, {meta['global_step']}")
+    agent = RNDAgent(cfg, 5)
+    agent.init_state(cfg.seed)  # the weights train() started from
+    start = {k: copy.deepcopy(m.state_dict()) for k, m in agent._modules().items()}
+    state, _ = load_checkpoint(path, agent)
+    check(state.global_step == updates * frames and state.global_update == updates,
+          f"{mode}: loaded counters")
+    moved = {k: sum(not torch.equal(v, start[k][n]) for n, v in m.state_dict().items())
+             for k, m in agent._modules().items()}
+    total = {k: len(v) for k, v in start.items()}
+    log("checkpoint", mode=mode, path=path + ".pt", bytes=os.path.getsize(path + ".pt"),
+        tensors_moved=moved, tensors=total, global_step=state.global_step)
+    check(moved["policy"] == total["policy"] and moved["rnd_pred"] == total["rnd_pred"],
+          f"{mode}: every policy and rnd_pred tensor moved ({moved} of {total})")
+    check(moved["rnd_target"] == 0, f"{mode}: rnd_target did not move")
+    if not shared:
+        return counts, {}
+
+    # one more iteration in pieces, for the split of the time
+    env = make_vector_env(cfg)
+    collector = RolloutCollector(cfg, agent, env)
+    rng = Rng(SEED + 3, agent.device)
+    states = env.reset()
+    _reset(fq, ff)
+    t0 = time.perf_counter()
+    rollout, states = collector.collect(states, rng)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    collect_counts = _counts(fq, ff)
+    t0 = time.perf_counter()
+    agent.prepare_batch(state, rollout)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    _reset(fq, ff)
+    t0 = time.perf_counter()
+    state, m2 = agent.update(state, rollout, rng)
+    loss = float(m2["train/loss"])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_counts = _counts(fq, ff)
+    check(all(collect_counts[k] == per_rollout for k in FWD)
+          and all(collect_counts[k] == 0 for k in BWD),
+          f"collect launched {collect_counts}")
+    check(all(update_counts[k] == per_update for k in FWD + BWD),
+          f"one update launched {update_counts}, expected {per_update} each")
+    check(loss == loss, "finite loss in the timed update")
+    timing = dict(collect_s=collect_s, prepare_batch_s=prepare_s, update_s=update_s,
+                  sgd_s=update_s - prepare_s, iteration_s=collect_s + update_s,
+                  frames_per_s=frames / (collect_s + update_s),
+                  launches_per_update=update_counts, launches_per_rollout=collect_counts,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # the card's busy share of an update: the kernels' own durations under the
+    # profiler over the step time measured without it (tracing slows the host,
+    # so the profiled window itself is longer than a step is)
+    prof = profile_minibatches(torch, agent, state, rollout, rng)
+    step_ms = (update_s - prepare_s) / (epochs * cfg.mini_batch) * 1e3
+    timing["minibatch_step_ms"] = step_ms
+    timing["device_busy_share"] = (prof["device_ms_per_minibatch"] / step_ms
+                                   if prof else None)  # None: not measured
+
+    # a short greedy episode from the checkpoint
+    t0 = time.perf_counter()
+    out = evaluate(cfg.replace(load_model_path=path, max_step_per_episode=96,
+                               log_name=f"smoke_{mode}"), num_episodes=1, greedy=True,
+                   log_dir=os.path.join(workdir, "logs"))
+    log("eval", seconds=time.perf_counter() - t0, **out)
+    check(out["episodes"] == 1 and out["intrinsic_trace_len"] == 96
+          and out["mean_return"] == out["mean_return"], f"evaluate returned {out}")
+    return counts, timing
+
+
 def main() -> int:
     import torch
 
@@ -344,32 +733,61 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
-    launches = main_path(torch, fq, ff, dev, shared=True)
+    rows.update(train_kernel_phase(torch, fq, ff, dev))
+    act_launches = main_path(torch, fq, ff, dev, shared=True)
     main_path(torch, fq, ff, dev, shared=False)
 
-    tpu = {
-        "flash_qkv_fwd": "eavit_tpu/ops/flash_qkv.py:531",
-        "flash_qkv_bits": "eavit_tpu/ops/flash_qkv.py:715",
-        "fused_ffn_fwd": "eavit_tpu/ops/fused_ffn.py:288",
-        "fused_ffn_bits": "eavit_tpu/ops/fused_ffn.py:455",
+    grad_check(torch, dev, True, "float32", 2e-3)   # other sum orders only
+    grad_check(torch, dev, True, "bfloat16", 5e-2)  # bf16 Dense layers on both sides
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches, timing = training_path(
+            torch, fq, ff, dev, shared=True, epochs=EPOCH, updates=2, workdir=workdir)
+        training_path(torch, fq, ff, dev, shared=False, epochs=1, updates=1,
+                      workdir=os.path.join(workdir, "stacked"))
+
+    # the kernels of the flagship iteration (shared stream): launch counts of
+    # the two iterations train() ran, times at the shapes of its minibatches
+    # (K1f / K2f also run at a quarter of them when acting: "act_ms")
+    sources = {
+        "flash_qkv_fwd": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
+        "flash_qkv_bwd": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
+        "flash_qkv_bits": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:715"),
+        "fused_ffn_fwd": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:288"),
+        "fused_ffn_bwd": ("fused_ffn_bwd", "eavit_tpu/ops/fused_ffn.py:321"),
+        "fused_ffn_bits": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:455"),
     }
     main_rows = {
         "flash_qkv_fwd": rows[("flash_qkv_fwd", 198, 0.1)],
+        "flash_qkv_bwd": rows[("flash_qkv_bwd", 198, 0.1)],
         "fused_ffn_fwd": rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
+        "fused_ffn_bwd": rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
         "flash_qkv_bits": rows["flash_qkv_bits"],
         "fused_ffn_bits": rows["fused_ffn_bits"],
     }
     kernels = []
     for name, row in main_rows.items():
-        src = "flash_qkv" if name.startswith("flash") else "fused_ffn"
-        kernels.append({
+        src, replaces = sources[name]
+        entry = {
             "name": name, "route": "cuda", "source": f"eavit_tpu_torch/csrc/{src}.cu",
-            "replaces": tpu[name], "launches": launches[name],
+            "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "on_main_path": name.endswith("_fwd"),
-        })
+            "on_main_path": not name.endswith("_bits"),
+        }
+        if name.endswith("_fwd"):  # ms above is at the acting shape
+            bwd = main_rows[name.replace("_fwd", "_bwd")]
+            entry["act_launches_per_rollout"] = act_launches[name]
+            entry["train_shape_ms"] = bwd["fwd_ms_at_this_shape"]
+        kernels.append(entry)
+    by_name = {k["name"]: k for k in kernels}
+    per_update = timing["launches_per_update"]
+    kernel_s = sum(per_update[n] * (by_name[n].get("train_shape_ms", by_name[n]["ms"]))
+                   for n in FWD + BWD) / 1e3
+    log("main_path", mode="shared", path="train", envs=NUM_ENVS, steps=NUM_STEP,
+        frames=NUM_ENVS * NUM_STEP, epochs=EPOCH, mini_batch=MINI_BATCH,
+        kernel_s_per_update=kernel_s, kernel_share_of_update=kernel_s / timing["update_s"],
+        **timing)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

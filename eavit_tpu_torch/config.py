@@ -15,8 +15,9 @@ Keys that name TPU choices are still parsed. :func:`attention_route` and
   yet and raise ``NotImplementedError`` when a model is built.
 - ``FusedFFN = true`` runs the CUDA kernel of ``ops/fused_ffn.py``.
 - ``ComputeDtype`` keeps its meaning (the dtype of the Dense layers).
-- ``PrngImpl``, ``EncoderRemat`` and ``DataAxisSize`` are parsed and not
-  read by the acting path.
+- ``PrngImpl`` is parsed and not read. ``EncoderRemat`` other than
+  ``none`` and ``DataAxisSize > 1`` are parsed and raise
+  ``NotImplementedError`` in ``update`` / ``train``.
 
 Divergences from the reference (documented, intentional):
 
@@ -165,7 +166,7 @@ class Config:
     # steps): a documented divergence knob, not the parity default
     minibatch_merge: int = 1
     # encoder rematerialization in the update's backward: "none" | "full" |
-    # "dots" (eavit_tpu/config.py:161-168; parsed, not read by acting)
+    # "dots" (eavit_tpu/config.py:161-168); only "none" is ported
     encoder_remat: str = "none"
     learning_rate: float = 1e-4
     ppo_eps: float = 0.1
@@ -531,6 +532,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_params", action="store_true", default=False)
     # accepted for reference-CLI parity
     p.add_argument("--gpu_id", type=int, default=None)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device of the run; default: CUDA, and an error "
+                        "without a GPU (pass 'cpu' for the plain CPU path)")
     p.add_argument("--profile_updates", type=int, default=0,
                    help="trace this many updates with the profiler then exit "
                         "(reference --pytorch_profiling / --scalene_profiling)")

@@ -1,4 +1,4 @@
-"""Load a JAX agent's parameter tree into the port's modules.
+"""Load a JAX agent's parameters and training state into the port's agent.
 
 The JAX package keeps parameters as nested dicts (flax trees); the port's
 modules mirror their names (``feature.transformer.attn_0.to_qkv`` ...), so
@@ -13,6 +13,14 @@ the mapping is by path, with these conversions:
 
 Every parameter of the module must be covered and every shape must match,
 or :func:`load_flax_tree` raises.
+
+:func:`load_jax_state` carries a whole ``eavit_tpu`` ``AgentState`` over:
+parameters, the normalisers and counters, and the optax Adam moments
+(``mu``, ``nu`` and ``count`` of ``ScaleByAdamState``, which sit under the
+same tree paths as the parameters and are transposed like them), so that the
+port can continue a JAX run. The state comes in as numpy arrays (the caller
+converts, e.g. ``jax.tree_util.tree_map(np.asarray, state)``); this module
+imports neither JAX nor optax and finds the Adam state by its field names.
 """
 
 from __future__ import annotations
@@ -51,24 +59,39 @@ def _to_torch(path: str, value: np.ndarray) -> tuple:
     return path, value
 
 
-@torch.no_grad()
-def load_flax_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
-    """Copy a flax param tree (numpy or jax arrays) into ``module``."""
+def flax_tree_to_torch(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax param tree as ``{torch parameter name: array in torch layout}``."""
+    return dict(_to_torch(path, value) for path, value in _flatten(tree).items())
+
+
+def _matched(module: nn.Module, tree: Mapping[str, Any]):
+    """``(parameter, converted array)`` pairs; raises unless the tree covers
+    every parameter of ``module`` with the right shapes."""
     params = dict(module.named_parameters())
-    seen = set()
-    for path, value in _flatten(tree).items():
-        name, value = _to_torch(path, value)
-        if name not in params:
-            raise KeyError(f"no torch parameter for flax leaf {path!r} ({name!r})")
+    arrays = flax_tree_to_torch(tree)
+    unknown = sorted(set(arrays) - set(params))
+    if unknown:
+        raise KeyError(f"no torch parameter for flax leaves {unknown}")
+    missing = sorted(set(params) - set(arrays))
+    if missing:
+        raise KeyError(f"torch parameters not in the flax tree: {missing}")
+    for name, value in arrays.items():
         p = params[name]
         if tuple(p.shape) != tuple(value.shape):
             raise ValueError(f"{name}: torch shape {tuple(p.shape)} != "
                              f"converted flax shape {tuple(value.shape)}")
-        p.copy_(torch.from_numpy(np.array(value, copy=True)).to(p.dtype))
-        seen.add(name)
-    missing = sorted(set(params) - seen)
-    if missing:
-        raise KeyError(f"torch parameters not in the flax tree: {missing}")
+        yield p, value
+
+
+def _tensor_like(p: torch.Tensor, value: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, copy=True)).to(p.device, p.dtype)
+
+
+@torch.no_grad()
+def load_flax_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
+    """Copy a flax param tree (numpy or jax arrays) into ``module``."""
+    for p, value in _matched(module, tree):
+        p.copy_(_tensor_like(p, value))
 
 
 def load_jax_params(agent, params_np: Mapping[str, Any],
@@ -82,3 +105,60 @@ def load_jax_params(agent, params_np: Mapping[str, Any],
         if rnd_target_np is None:
             raise ValueError("an RND agent needs the JAX rnd_target tree too")
         load_flax_tree(agent.rnd_target, rnd_target_np)
+
+
+def _find_adam_state(opt_state: Any) -> Optional[Any]:
+    """The ``ScaleByAdamState`` inside an optax chain state (nested tuples),
+    recognised by its ``count`` / ``mu`` / ``nu`` fields."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _f32(x: Any, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+
+def load_jax_state(agent, state_np: Any):
+    """Load a whole ``eavit_tpu`` ``AgentState`` (as numpy) into ``agent``
+    and its optimizer; returns the port's ``AgentState`` (module doc)."""
+    from eavit_tpu_torch.rl import normalizer as norm
+    from eavit_tpu_torch.rl.agent import AgentState
+
+    load_jax_params(agent, state_np.params, state_np.rnd_target)
+    adam = _find_adam_state(state_np.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    trees = [(agent.network, "policy")]
+    if agent.use_rnd:
+        trees.append((agent.rnd_pred, "rnd_pred"))
+    agent.optimizer = agent._make_optimizer()
+    step = float(np.asarray(adam.count))
+    for module, key in trees:
+        moments = zip(_matched(module, adam.mu[key]), _matched(module, adam.nu[key]))
+        for (p, mu), (_, nu) in moments:
+            agent.optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": _tensor_like(p, mu),
+                "exp_avg_sq": _tensor_like(p, nu),
+            }
+    dev = agent.device
+
+    def rms(s):
+        return norm.RMSState(*(_f32(x, dev) for x in s))
+
+    hi, lo = (int(v) for v in np.asarray(state_np.global_step))
+    return AgentState(
+        obs_rms=None if state_np.obs_rms is None else rms(state_np.obs_rms),
+        reward_rms=rms(state_np.reward_rms),
+        reward_filter=norm.RewardFilterState(
+            rewems=_f32(state_np.reward_filter.rewems, dev)),
+        global_update=int(np.asarray(state_np.global_update)),
+        # the JAX counter is a [hi, lo] pair in base 2**30 (agent.py:52-61)
+        global_step=hi * (1 << 30) + lo,
+    )

@@ -1,6 +1,6 @@
 """Random Network Distillation predictor/target pair.
 
-Counterpart of ``eavit_tpu/models/rnd.py`` (lines 1-116; reference
+Counterpart of ``eavit_tpu/models/rnd.py`` (lines 1-134; reference
 model.py:357-461):
 
 ``original_RND``: a conv trunk over the last raw frame [B, 1, 84, 84] --
@@ -11,7 +11,9 @@ single-linear target. The ``modified_RND`` MLP trunk (rnd.py:68-79) comes
 with its slice (ROADMAP.md Queue 1, item 5).
 
 All weights orthogonal(sqrt(2)) with zero biases, all float32. The
-intrinsic reward is the feature-mean squared error (rnd.py:112-116).
+intrinsic reward is the feature-mean squared error (rnd.py:112-116); the
+predictor's loss is the same error over a random ``UpdateProportion`` of the
+samples (rnd.py:119-134).
 """
 
 from __future__ import annotations
@@ -83,3 +85,13 @@ class RNDTarget(nn.Module):
 def intrinsic_reward(target_feat: torch.Tensor, pred_feat: torch.Tensor) -> torch.Tensor:
     """[B, F] x2 -> [B]; MSE over the feature dim (reference agents.py:216)."""
     return torch.mean(torch.square(target_feat - pred_feat), dim=-1)
+
+
+def rnd_loss(target_feat: torch.Tensor, pred_feat: torch.Tensor,
+             mask_uniform: torch.Tensor, update_proportion: float) -> torch.Tensor:
+    """Masked predictor MSE (reference agents.py:331-338): samples with
+    ``mask_uniform < update_proportion`` contribute and the sum is divided
+    by ``max(num_selected, 1)``. The target is detached."""
+    per_sample = torch.mean(torch.square(pred_feat - target_feat.detach()), dim=-1)
+    mask = (mask_uniform < update_proportion).float()
+    return (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,4 @@
-"""Attention straight from the raw qkv projection: K1f and K1r.
+"""Attention straight from the raw qkv projection: K1f, K1b and K1r.
 
 Counterpart of ``eavit_tpu/ops/flash_qkv.py``: ``flash_mha_qkv`` (lines
 638-675) computes ``dropout(softmax(q k^T * scale)) v`` per head from the
@@ -8,7 +8,11 @@ kernel's (``_masked_scores`` 199-212, ``_head_fwd`` 223-239): f32 scores,
 the dual-query mask when ``num_special > 0`` (``ops/attention.py``),
 softmax, probability dropout on the normalised sigma, sigma rounded to the
 input dtype, then ``sigma v`` with f32 accumulation. The forward also
-returns the row log-sum-exp ``[B, H, N]`` that a backward needs.
+returns the row log-sum-exp ``[B, H, N]`` that the backward needs. The
+backward is ``_head_bwd`` (266-302): from ``qkv``, ``lse`` and ``dO`` it
+regenerates the mask, recomputes sigma and returns one merged ``dqkv``; its
+two roundings to the input dtype (of the dropped probabilities before
+``dv`` and of ``ds`` before ``dq`` / ``dk``) are part of the function.
 
 Dropout bits follow ``ops/kernel_prng.py``: Philox on the logical index
 ``((b*H + h)*N + i)*N + j`` of the ``[B, H, N, N]`` mask, stream 0, keyed by
@@ -16,18 +20,19 @@ two seed words per call. ``rate == 0`` draws nothing.
 
 Two versions of each function:
 
-- :func:`flash_qkv_fwd_plain` / :func:`flash_qkv_bits_plain`: plain torch,
-  the oracle;
+- :func:`flash_qkv_fwd_plain` / :func:`flash_qkv_bwd_plain` /
+  :func:`flash_qkv_bits_plain`: plain torch, the oracle;
 - the CUDA kernels of ``csrc/flash_qkv.cu`` (K1f ``flash_qkv_fwd``, which
   replaces ``_fwd_kernel`` at flash_qkv.py:242 launched at line 531, and K1r
   ``flash_qkv_bits``, which replaces ``_bits_kernel`` at line 683 launched
-  at line 715).
+  at line 715) and of ``csrc/flash_qkv_bwd.cu`` (K1b ``flash_qkv_bwd``,
+  which replaces ``_bwd_kernel`` at line 305 launched at line 580).
 
-:func:`flash_qkv_fwd` and :func:`flash_qkv_bits` take the plain version for
-a tensor on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor
-the kernel does not take raises, and so does one that needs a gradient
-(the backward kernel is the next slice). ``launches`` counts kernel
-launches.
+:func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
+the plain version for a tensor on the CPU and launch the kernel for a CUDA
+tensor; a CUDA tensor the kernel does not take raises. :func:`flash_mha_qkv`
+is differentiable through one ``torch.autograd.Function`` whose backward is
+:func:`flash_qkv_bwd`. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -36,18 +41,14 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops.attention import dual_query_allowed
-from eavit_tpu_torch.ops.kernel_prng import (
-    inv_keep_scale,
-    keep_mask,
-    keep_threshold,
-    raw_bits24,
-)
+from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
-launches = {"flash_qkv_fwd": 0, "flash_qkv_bits": 0}
+launches = {"flash_qkv_fwd": 0, "flash_qkv_bwd": 0, "flash_qkv_bits": 0}
 
 _DIM_HEADS = (16, 32, 64)
 _SMEM_LIMIT = 227 * 1024
@@ -56,6 +57,19 @@ _SMEM_LIMIT = 227 * 1024
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _bwd_lib():
+    lib = _build.library("flash_qkv_bwd")
+    if not getattr(lib, "_eavit_typed", False):
+        vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+        lib.eavit_flash_qkv_bwd.argtypes = [
+            vp, vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
+        lib.eavit_flash_qkv_bwd.restype = i
+        lib.eavit_flash_qkv_bwd_smem.argtypes = [i, i]
+        lib.eavit_flash_qkv_bwd_smem.restype = ctypes.c_size_t
+        lib._eavit_typed = True
+    return lib
 
 
 def _lib():
@@ -73,15 +87,6 @@ def _lib():
     return lib
 
 
-def _dropout_args(seeds, rate) -> Tuple[Optional[int], float, Tuple[int, int]]:
-    if rate <= 0.0:
-        return None, 1.0, (0, 0)
-    if seeds is None:
-        raise ValueError("rate > 0 requires seeds")
-    thresh = keep_threshold(rate)
-    return thresh, inv_keep_scale(thresh), (int(seeds[0]), int(seeds[1]))
-
-
 def flash_qkv_fwd_plain(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     num_special: int = 0, seeds=None, rate: float = 0.0,
@@ -89,7 +94,7 @@ def flash_qkv_fwd_plain(
     """Plain torch K1f: returns ``(o [B, N, H*Dh], lse [B, H, N])``."""
     b, n, _ = qkv.shape
     inner = heads * dim_head
-    thresh, inv_keep, seeds = _dropout_args(seeds, rate)
+    thresh, inv_keep, seeds = dropout_args(seeds, rate)
     q, k, v = (
         t.reshape(b, n, heads, dim_head).permute(0, 2, 1, 3)
         for t in qkv.float().split(inner, dim=-1)
@@ -110,6 +115,20 @@ def flash_qkv_fwd_plain(
     return o, (m + torch.log(l))[..., 0]
 
 
+def _check_kernel_args(what: str, qkv: torch.Tensor, heads: int, dim_head: int) -> None:
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qkv.device}")
+    if qkv.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {qkv.dtype} (float32 or bfloat16)")
+    if qkv.dim() != 3 or qkv.shape[-1] != 3 * heads * dim_head:
+        raise ValueError(f"{what}: qkv shape {tuple(qkv.shape)} is not "
+                         f"[B, N, 3*{heads}*{dim_head}]")
+    if dim_head not in _DIM_HEADS:
+        raise ValueError(f"{what}: dim_head {dim_head} not in {_DIM_HEADS}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{what}: qkv must be contiguous")
+
+
 def flash_qkv_fwd(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     num_special: int = 0, seeds=None, rate: float = 0.0,
@@ -117,26 +136,12 @@ def flash_qkv_fwd(
     """K1f: ``(o, lse)``; plain version on the CPU, the kernel on CUDA."""
     if qkv.device.type == "cpu":
         return flash_qkv_fwd_plain(qkv, heads, dim_head, scale, num_special, seeds, rate)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_qkv_fwd: unsupported device {qkv.device}")
-    if qkv.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"flash_qkv_fwd: dtype {qkv.dtype} (float32 or bfloat16)")
-    if qkv.dim() != 3 or qkv.shape[-1] != 3 * heads * dim_head:
-        raise ValueError(f"flash_qkv_fwd: qkv shape {tuple(qkv.shape)} is not "
-                         f"[B, N, 3*{heads}*{dim_head}]")
-    if dim_head not in _DIM_HEADS:
-        raise ValueError(f"flash_qkv_fwd: dim_head {dim_head} not in {_DIM_HEADS}")
-    if not qkv.is_contiguous():
-        raise ValueError("flash_qkv_fwd: qkv must be contiguous")
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError(
-            "flash_qkv_fwd has no backward kernel yet (K1b, ROADMAP.md Queue 2); "
-            "call it under torch.no_grad()")
+    _check_kernel_args("flash_qkv_fwd", qkv, heads, dim_head)
     b, n, _ = qkv.shape
     lib = _lib()
     if lib.eavit_flash_qkv_fwd_smem(n, dim_head) > _SMEM_LIMIT:
         raise ValueError(f"flash_qkv_fwd: N={n} does not fit in shared memory")
-    thresh, inv_keep, (s0, s1) = _dropout_args(seeds, rate)
+    thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     o = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     err = lib.eavit_flash_qkv_fwd(
@@ -148,6 +153,103 @@ def flash_qkv_fwd(
     _build.check(err, "flash_qkv_fwd")
     launches["flash_qkv_fwd"] += 1
     return o, lse
+
+
+def flash_qkv_bwd_plain(
+    qkv: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, heads: int,
+    dim_head: int, scale: float, num_special: int = 0, seeds=None,
+    rate: float = 0.0,
+) -> torch.Tensor:
+    """Plain torch K1b: ``dqkv [B, N, 3*H*Dh]`` in qkv's dtype, written as the
+    explicit formulas of ``_head_bwd`` with the forward's mask replayed."""
+    b, n, _ = qkv.shape
+    inner = heads * dim_head
+    dt = qkv.dtype
+    thresh, inv_keep, seeds = dropout_args(seeds, rate)
+
+    def split_heads(t):
+        return t.reshape(b, n, heads, dim_head).permute(0, 2, 1, 3)
+
+    q, k, v = (split_heads(t) for t in qkv.float().split(inner, dim=-1))
+    g = split_heads(do.float())
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale  # f32 [B, H, N, N]
+    sigma = torch.exp(s - lse.float()[..., None])
+    if num_special:
+        allowed = dual_query_allowed(n, n, num_special, device=qkv.device)
+        sigma = torch.where(allowed, sigma, torch.zeros_like(sigma))
+    dpd = torch.matmul(g, v.transpose(-1, -2))
+    if thresh is not None:
+        keep = keep_mask((b, heads, n, n), seeds, 0, thresh, device=qkv.device)
+        zero = torch.zeros_like(sigma)
+        pd = torch.where(keep, sigma * inv_keep, zero)
+        dsigma = torch.where(keep, dpd * inv_keep, zero)
+    else:
+        pd, dsigma = sigma, dpd
+    dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), g)
+    rowsum = (dsigma * sigma).sum(dim=-1, keepdim=True)
+    ds = (sigma * (dsigma - rowsum) * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    merged = [t.permute(0, 2, 1, 3).reshape(b, n, inner) for t in (dq, dk, dv)]
+    return torch.cat(merged, dim=-1).to(dt)
+
+
+def flash_qkv_bwd(
+    qkv: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, heads: int,
+    dim_head: int, scale: float, num_special: int = 0, seeds=None,
+    rate: float = 0.0,
+) -> torch.Tensor:
+    """K1b: ``dqkv``; plain version on the CPU, the kernel on CUDA."""
+    if qkv.device.type == "cpu":
+        return flash_qkv_bwd_plain(qkv, lse, do, heads, dim_head, scale, num_special,
+                                   seeds, rate)
+    _check_kernel_args("flash_qkv_bwd", qkv, heads, dim_head)
+    b, n, _ = qkv.shape
+    for name, t, shape, dtype in (("lse", lse, (b, heads, n), torch.float32),
+                                  ("do", do, (b, n, heads * dim_head), qkv.dtype)):
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != qkv.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_qkv_bwd: {name} must be contiguous {dtype} "
+                             f"{shape} on {qkv.device}")
+    if b > 65535:
+        raise ValueError(f"flash_qkv_bwd: batch {b} exceeds the grid limit 65535")
+    lib = _bwd_lib()
+    if lib.eavit_flash_qkv_bwd_smem(n, dim_head) > _SMEM_LIMIT:
+        raise ValueError(f"flash_qkv_bwd: N={n} with dim_head={dim_head} does not "
+                         f"fit in shared memory")
+    thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
+    dqkv = torch.empty_like(qkv)
+    err = lib.eavit_flash_qkv_bwd(
+        _build.ptr(qkv), _build.ptr(lse), _build.ptr(do), _build.ptr(dqkv), b, n,
+        heads, dim_head, _build.DTYPE_CODES[qkv.dtype], float(scale),
+        int(num_special), thresh or 0, float(inv_keep), s0, s1,
+        int(thresh is not None), _build.stream_ptr(qkv),
+    )
+    _build.check(err, "flash_qkv_bwd")
+    launches["flash_qkv_bwd"] += 1
+    return dqkv
+
+
+class _FlashQKV(torch.autograd.Function):
+    """K1f forward, K1b backward. ``o`` is not saved: the backward
+    recomputes sigma from ``qkv`` and ``lse``."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head, scale, num_special, seeds, rate):
+        o, lse = flash_qkv_fwd(qkv, heads, dim_head, scale, num_special, seeds, rate)
+        ctx.save_for_backward(qkv, lse)
+        ctx.args = (heads, dim_head, scale, num_special,
+                    None if seeds is None else (int(seeds[0]), int(seeds[1])), rate)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        qkv, lse = ctx.saved_tensors
+        dqkv = flash_qkv_bwd(qkv, lse, do.contiguous(), *ctx.args)
+        return (dqkv,) + (None,) * 6
 
 
 def flash_mha_qkv(
@@ -168,8 +270,7 @@ def flash_mha_qkv(
         )
     if scale is None:
         scale = dim_head ** -0.5
-    o, _ = flash_qkv_fwd(qkv, heads, dim_head, scale, num_special, seeds, rate)
-    return o
+    return _FlashQKV.apply(qkv, heads, dim_head, scale, num_special, seeds, rate)
 
 
 def flash_qkv_bits_plain(b: int, heads: int, n: int, seeds, device=None) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Fused pre-norm transformer FFN: K2f and K2r.
+"""Fused pre-norm transformer FFN: K2f, K2b and K2r.
 
 Counterpart of ``eavit_tpu/ops/fused_ffn.py``: ``fused_ffn`` (lines
 389-425) computes ``drop2(fc2(drop1(gelu(fc1(LN(x))))))`` over the
@@ -6,7 +6,11 @@ flattened rows of ``x``. The math is the TPU kernel's (``_layernorm``
 91-97, ``_erf`` 100-115, ``_recompute_fwd`` 128-157): LayerNorm in f32,
 the LN output and both weight matrices rounded to the input dtype, f32
 accumulation, exact GELU through the Abramowitz-Stegun erf, mask1 on the
-hidden activations before mask2 on the output.
+hidden activations before mask2 on the output. The backward is
+``_bwd_kernel`` (180-251): the forward recomputed, both masks regenerated,
+``dx`` in x's dtype and the six parameter gradients in float32, with
+``dy0``, ``gd`` and ``dh`` rounded to the input dtype where they enter a
+product.
 
 Dropout bits follow ``ops/kernel_prng.py``: Philox on the logical index of
 each mask, ``r*hidden + j`` on stream 0 for mask1 and ``r*dim + c`` on
@@ -17,17 +21,20 @@ Weights use the torch layout: ``w1 [hidden, dim]`` and ``w2 [dim, hidden]``
 
 Two versions of each function:
 
-- :func:`fused_ffn_fwd_plain` / :func:`fused_ffn_bits_plain`: plain torch;
+- :func:`fused_ffn_fwd_plain` / :func:`fused_ffn_bwd_plain` /
+  :func:`fused_ffn_bits_plain`: plain torch;
 - the CUDA kernels of ``csrc/fused_ffn.cu`` (K2f ``fused_ffn_fwd``, which
   replaces ``_fwd_kernel`` at fused_ffn.py:160 launched at line 288, and K2r
   ``fused_ffn_bits``, which replaces ``_masks_kernel`` at line 433 launched
-  at line 455).
+  at line 455) and of ``csrc/fused_ffn_bwd.cu`` (K2b ``fused_ffn_bwd``, which
+  replaces ``_bwd_kernel`` at line 180 launched at line 321).
 
-:func:`fused_ffn` and :func:`fused_ffn_bits` take the plain version for a
-tensor on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor
-the kernel does not take raises, and so does one that needs a gradient
-(the backward kernel is the next slice). ``launches`` counts kernel
-launches.
+:func:`fused_ffn_fwd`, :func:`fused_ffn_bwd` and :func:`fused_ffn_bits` take
+the plain version for a tensor on the CPU and launch the kernel for a CUDA
+tensor; a CUDA tensor the kernel does not take raises. :func:`fused_ffn` is
+differentiable through one ``torch.autograd.Function`` whose backward is
+:func:`fused_ffn_bwd`. ``launches`` counts kernel launches (one per call of
+a wrapper; K2b's entry starts its four ``__global__`` functions itself).
 """
 
 from __future__ import annotations
@@ -37,16 +44,18 @@ import math
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from eavit_tpu_torch.ops import _build
-from eavit_tpu_torch.ops.kernel_prng import (
-    inv_keep_scale,
-    keep_mask,
-    keep_threshold,
-    raw_bits24,
-)
+from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 
-launches = {"fused_ffn_fwd": 0, "fused_ffn_bits": 0}
+launches = {"fused_ffn_fwd": 0, "fused_ffn_bwd": 0, "fused_ffn_bits": 0}
+
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+# row slices of K2b's weight-gradient kernel: 32 hidden chunks x 16 slices
+# fill the 132 SMs of an H100 about four times over
+_BWD_SLICES = 16
+_ROW_TILE = 32  # rows per block of csrc/fused_ffn_bwd.cu (kTR)
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -71,6 +80,18 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.library("fused_ffn_bwd")
+    if not getattr(lib, "_eavit_typed", False):
+        vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+        lib.eavit_fused_ffn_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i, i,
+            f, u, f, u, u, i, vp]
+        lib.eavit_fused_ffn_bwd.restype = i
+        lib._eavit_typed = True
+    return lib
+
+
 def erf_as(x: torch.Tensor) -> torch.Tensor:
     """Abramowitz-Stegun 7.1.26 rational erf, |error| <= 1.5e-7
     (eavit_tpu/ops/fused_ffn.py:100-115)."""
@@ -88,6 +109,13 @@ def gelu_exact(h: torch.Tensor) -> torch.Tensor:
     return 0.5 * h * (1.0 + erf_as(h * _INV_SQRT2))
 
 
+def gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """d gelu / dh with the same erf (eavit_tpu/ops/fused_ffn.py:122-125)."""
+    phi = torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
+    cdf = 0.5 * (1.0 + erf_as(h * _INV_SQRT2))
+    return cdf + h * phi
+
+
 def fused_ffn_fwd_plain(
     x2: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2, seeds=None, rate: float = 0.0,
     eps: float = 1e-5,
@@ -102,37 +130,36 @@ def fused_ffn_fwd_plain(
     u = (xc * rstd * ln_w.float() + ln_b.float()).to(dt).float()
     h = torch.matmul(u, w1.to(dt).float().t()) + b1.float()
     g = gelu_exact(h)
-    if rate > 0.0:
-        thresh = keep_threshold(rate)
-        inv_keep = inv_keep_scale(thresh)
+    thresh, inv_keep, seeds = dropout_args(seeds, rate)
+    if thresh is not None:
         m1 = keep_mask(g.shape, seeds, 0, thresh, device=x2.device)
         g = torch.where(m1, g * inv_keep, torch.zeros_like(g))
     y = torch.matmul(g.to(dt).float(), w2.to(dt).float().t()) + b2.float()
-    if rate > 0.0:
+    if thresh is not None:
         m2 = keep_mask(y.shape, seeds, 1, thresh, device=x2.device)
         y = torch.where(m2, y * inv_keep, torch.zeros_like(y))
     return y.to(dt)
 
 
-def _check_kernel_args(x2, params) -> None:
+def _check_kernel_args(what: str, x2, params) -> None:
     if x2.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"fused_ffn_fwd: dtype {x2.dtype} (float32 or bfloat16)")
+        raise TypeError(f"{what}: dtype {x2.dtype} (float32 or bfloat16)")
     if not x2.is_contiguous():
-        raise ValueError("fused_ffn_fwd: x must be contiguous")
-    ln_w, ln_b, w1, b1, w2, b2 = params
+        raise ValueError(f"{what}: x must be contiguous")
+    w1 = params[2]
     dim = x2.shape[1]
     hidden = w1.shape[0]
     if dim % 32 or dim > 256 or hidden % 32:
-        raise ValueError(f"fused_ffn_fwd: dim {dim} (a multiple of 32, <= 256) and "
+        raise ValueError(f"{what}: dim {dim} (a multiple of 32, <= 256) and "
                          f"hidden {hidden} (a multiple of 32)")
-    shapes = {"ln_w": (ln_w, (dim,)), "ln_b": (ln_b, (dim,)),
-              "w1": (w1, (hidden, dim)), "b1": (b1, (hidden,)),
-              "w2": (w2, (dim, hidden)), "b2": (b2, (dim,))}
-    for name, (t, shape) in shapes.items():
+    # the backward passes no b2: it enters no gradient
+    shapes = (("ln_w", (dim,)), ("ln_b", (dim,)), ("w1", (hidden, dim)),
+              ("b1", (hidden,)), ("w2", (dim, hidden)), ("b2", (dim,)))
+    for (name, shape), t in zip(shapes, params):
         if tuple(t.shape) != shape:
-            raise ValueError(f"fused_ffn_fwd: {name} shape {tuple(t.shape)} != {shape}")
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != {shape}")
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x2.device:
-            raise ValueError(f"fused_ffn_fwd: {name} must be contiguous float32 "
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
                              f"on {x2.device}")
 
 
@@ -146,18 +173,8 @@ def fused_ffn_fwd(
     if x2.device.type != "cuda":
         raise ValueError(f"fused_ffn_fwd: unsupported device {x2.device}")
     params = (ln_w, ln_b, w1, b1, w2, b2)
-    _check_kernel_args(x2, params)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x2, *params)):
-        raise NotImplementedError(
-            "fused_ffn_fwd has no backward kernel yet (K2b, ROADMAP.md Queue 2); "
-            "call it under torch.no_grad()")
-    if rate > 0.0:
-        if seeds is None:
-            raise ValueError("rate > 0 requires seeds")
-        thresh = keep_threshold(rate)
-        inv_keep, (s0, s1) = inv_keep_scale(thresh), (int(seeds[0]), int(seeds[1]))
-    else:
-        thresh, inv_keep, s0, s1 = None, 1.0, 0, 0
+    _check_kernel_args("fused_ffn_fwd", x2, params)
+    thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     rows, dim = x2.shape
     y = torch.empty_like(x2)
     err = _lib().eavit_fused_ffn_fwd(
@@ -169,6 +186,116 @@ def fused_ffn_fwd(
     _build.check(err, "fused_ffn_fwd")
     launches["fused_ffn_fwd"] += 1
     return y
+
+
+def fused_ffn_bwd_plain(
+    x2: torch.Tensor, ln_w, ln_b, w1, b1, w2, dy: torch.Tensor, seeds=None,
+    rate: float = 0.0, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain torch K2b on rows: ``(dx, dln_w, dln_b, dw1, db1, dw2, db2)``,
+    written as the explicit formulas of ``_bwd_kernel`` with both masks
+    replayed. ``dx`` is in x's dtype, the parameter gradients float32."""
+    dt = x2.dtype
+    thresh, inv_keep, seeds = dropout_args(seeds, rate)
+    xf = x2.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    u = (xhat * ln_w.float() + ln_b.float()).to(dt).float()
+    w1d, w2d = w1.to(dt).float(), w2.to(dt).float()
+    h = torch.matmul(u, w1d.t()) + b1.float()
+    g = gelu_exact(h)
+    dy0 = dy.float()
+    if thresh is not None:
+        m1 = keep_mask(g.shape, seeds, 0, thresh, device=x2.device)
+        m2 = keep_mask(dy0.shape, seeds, 1, thresh, device=x2.device)
+        g = torch.where(m1, g * inv_keep, torch.zeros_like(g))
+        dy0 = torch.where(m2, dy0 * inv_keep, torch.zeros_like(dy0))
+    gd = g.to(dt).float()
+    dy0d = dy0.to(dt).float()
+    dw2 = torch.matmul(dy0d.t(), gd)  # [dim, hidden]
+    db2 = dy0.sum(dim=0)
+    dg = torch.matmul(dy0d, w2d)
+    if thresh is not None:
+        dg = torch.where(m1, dg * inv_keep, torch.zeros_like(dg))
+    dh = gelu_grad(h) * dg
+    dhd = dh.to(dt).float()
+    dw1 = torch.matmul(dhd.t(), u)  # [hidden, dim]
+    db1 = dh.sum(dim=0)
+    du = torch.matmul(dhd, w1d)
+    dln_w = (du * xhat).sum(dim=0)
+    dln_b = du.sum(dim=0)
+    t = du * ln_w.float()
+    dx = (t - t.mean(dim=-1, keepdim=True)
+          - xhat * (t * xhat).mean(dim=-1, keepdim=True)) * rstd
+    return dx.to(dt), dln_w, dln_b, dw1, db1, dw2, db2
+
+
+def fused_ffn_bwd(
+    x2: torch.Tensor, ln_w, ln_b, w1, b1, w2, dy: torch.Tensor, seeds=None,
+    rate: float = 0.0, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, ...]:
+    """K2b on rows: ``(dx, dln_w, dln_b, dw1, db1, dw2, db2)``; plain on the
+    CPU, the kernel on CUDA. The parameter gradients are views of one flat
+    buffer; every sum has a fixed order, so two calls give equal bits."""
+    if x2.device.type == "cpu":
+        return fused_ffn_bwd_plain(x2, ln_w, ln_b, w1, b1, w2, dy, seeds, rate, eps)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused_ffn_bwd: unsupported device {x2.device}")
+    _check_kernel_args("fused_ffn_bwd", x2, (ln_w, ln_b, w1, b1, w2))
+    if (dy.shape != x2.shape or dy.dtype != x2.dtype or dy.device != x2.device
+            or not dy.is_contiguous()):
+        raise ValueError(f"fused_ffn_bwd: dy must be contiguous {x2.dtype} "
+                         f"{tuple(x2.shape)} on {x2.device}")
+    rows, dim = x2.shape
+    hidden = w1.shape[0]
+    if rows < 1:
+        raise ValueError("fused_ffn_bwd: no rows")
+    thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
+    tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
+    slices = min(_BWD_SLICES, tiles)
+    wide = 2 * hidden * dim + hidden
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    dx = torch.empty_like(x2)
+    grads = torch.empty(wide + 3 * dim, **f32)
+    part_dx = torch.empty((tiles, 3 * dim), **f32)
+    part_dw = torch.empty((slices, wide), **f32)
+    err = _bwd_lib().eavit_fused_ffn_bwd(
+        *(_build.ptr(t) for t in (x2, ln_w, ln_b, w1, b1, w2, dy, dx, grads, part_dx,
+                                  part_dw)),
+        rows, dim, hidden, slices, _build.DTYPE_CODES[x2.dtype], float(eps),
+        thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
+        _build.stream_ptr(x2),
+    )
+    _build.check(err, "fused_ffn_bwd")
+    launches["fused_ffn_bwd"] += 1
+    dw1, dw2, db1, dln_w, dln_b, db2 = grads.split(
+        [hidden * dim, dim * hidden, hidden, dim, dim, dim])
+    return (dx, dln_w, dln_b, dw1.view(hidden, dim), db1, dw2.view(dim, hidden), db2)
+
+
+class _FusedFFN(torch.autograd.Function):
+    """K2f forward, K2b backward; the backward recomputes the forward from
+    ``x2`` and the parameters, so no intermediate is saved."""
+
+    @staticmethod
+    def forward(ctx, x2, ln_w, ln_b, w1, b1, w2, b2, seeds, rate, eps):
+        y = fused_ffn_fwd(x2, ln_w, ln_b, w1, b1, w2, b2, seeds, rate, eps)
+        ctx.save_for_backward(x2, ln_w, ln_b, w1, b1, w2)
+        ctx.args = (None if seeds is None else (int(seeds[0]), int(seeds[1])),
+                    rate, eps)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        if not any(ctx.needs_input_grad[:7]):
+            return (None,) * 10
+        x2, ln_w, ln_b, w1, b1, w2 = ctx.saved_tensors
+        grads = fused_ffn_bwd(x2, ln_w, ln_b, w1, b1, w2, dy.contiguous(), *ctx.args)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:7])) + (None,) * 3
 
 
 def fused_ffn(
@@ -187,7 +314,7 @@ def fused_ffn(
     if rate > 0.0 and seeds is None:
         raise ValueError("dropout rate > 0 requires seeds")
     lead, dim = x.shape[:-1], x.shape[-1]
-    y = fused_ffn_fwd(x.reshape(-1, dim), ln_w, ln_b, w1, b1, w2, b2, seeds, rate, eps)
+    y = _FusedFFN.apply(x.reshape(-1, dim), ln_w, ln_b, w1, b1, w2, b2, seeds, rate, eps)
     return y.reshape(*lead, dim)
 
 

@@ -22,7 +22,7 @@ carried in int64).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +42,17 @@ def inv_keep_scale(thresh: int) -> float:
     """Unbiased inverse-keep scale; 0.0 at rate=1.0 (thresh=0: everything
     is dropped and the scale is never applied)."""
     return float((1 << 24) / thresh) if thresh else 0.0
+
+
+def dropout_args(seeds, rate: float) -> Tuple[Optional[int], float, Tuple[int, int]]:
+    """What one kernel call needs for its masks: ``(thresh, inv_keep, (s0,
+    s1))``, with ``thresh`` None at ``rate == 0`` (nothing is drawn then)."""
+    if rate <= 0.0:
+        return None, 1.0, (0, 0)
+    if seeds is None:
+        raise ValueError("rate > 0 requires seeds")
+    thresh = keep_threshold(rate)
+    return thresh, inv_keep_scale(thresh), (int(seeds[0]), int(seeds[1]))
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,7 @@
-"""The RND/PPO agent: modules, normaliser state, act and the pre-SGD batch.
+"""The RND/PPO agent: modules, optimizer, normaliser state, act and update.
 
 Counterpart of ``eavit_tpu/rl/agent.py`` (reference agents.py:30-624 and
-train.py:580-870). This slice ports the acting half:
+train.py:580-870):
 
 - :meth:`RNDAgent.act` -- policy forward and sampling, one call per env
   step (agent.py:211-260); dropout is live unless ``deterministic_model``.
@@ -16,26 +16,48 @@ train.py:580-870). This slice ports the acting half:
   input normalised with the POST-update ``obs_rms`` (reference
   train.py:662-673 vs 772-779).
 
-The SGD loop of ``update`` (agent.py:448-614) is the next slice.
+- :meth:`RNDAgent.update` -- ``prepare_batch`` and then step 5
+  (agent.py:448-614): ``Epoch`` passes of ``MiniBatch`` Adam steps over one
+  permutation each, dropout live, loss ``actor + 0.5 * critic - Entropy *
+  entropy + rnd``, the metrics averaged over minibatches and then epochs
+  under the JAX names.
 
-Parameters live in the agent's modules on ``self.device``; the
-normalisers live in an :class:`AgentState`. The agent runs on CUDA unless
-the caller passes ``device="cpu"``; with no GPU and no device it raises.
+Parameters live in the agent's modules on ``self.device`` and are updated
+in place by the agent's ``torch.optim.Adam`` (the JAX package threads
+params and the optax state through ``AgentState``); the normalisers and
+counters live in an :class:`AgentState`. Gradient clipping follows
+``optax.clip_by_global_norm``. ``EncoderRemat`` other than ``none`` raises
+in ``update``: a recompute would redraw the kernels' dropout seeds. The
+agent runs on CUDA unless the caller passes ``device="cpu"``; with no GPU
+and no device it raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from eavit_tpu_torch.config import Config, RepresentationMethod, TrainMethod
 from eavit_tpu_torch.models.layers import Rng, init_module
 from eavit_tpu_torch.models.policy import ActionSpaceType, ActorCritic
-from eavit_tpu_torch.models.rnd import RNDPredictor, RNDTarget, intrinsic_reward
+from eavit_tpu_torch.models.rnd import (
+    RNDPredictor,
+    RNDTarget,
+    intrinsic_reward,
+    rnd_loss,
+)
 from eavit_tpu_torch.ops.gae import make_train_data
 from eavit_tpu_torch.rl import normalizer as norm
-from eavit_tpu_torch.rl.ppo import sample_categorical
+from eavit_tpu_torch.rl.ppo import (
+    categorical_entropy,
+    categorical_log_prob,
+    clip_by_global_norm_,
+    global_grad_norm,
+    ppo_surrogate,
+    sample_categorical,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,6 +79,7 @@ class AgentState(NamedTuple):
     reward_rms: norm.RMSState
     reward_filter: norm.RewardFilterState
     global_update: int  # updates done (the int_coef decay reads it)
+    global_step: int = 0  # env frames consumed
 
 
 class Rollout(NamedTuple):
@@ -114,26 +137,42 @@ class RNDAgent:
             in_hw = (cfg.pre_proc_height, cfg.pre_proc_width)
             self.rnd_pred = RNDPredictor(in_hw)
             self.rnd_target = RNDTarget(in_hw).requires_grad_(False)
-        for m in self._modules():
+        for m in self._modules().values():
             m.to(self.device)
+        self.optimizer = self._make_optimizer()
 
-    def _modules(self):
-        return [m for m in (self.network, self.rnd_pred, self.rnd_target) if m is not None]
+    def _modules(self) -> Dict[str, nn.Module]:
+        named = {"policy": self.network, "rnd_pred": self.rnd_pred,
+                 "rnd_target": self.rnd_target}
+        return {k: m for k, m in named.items() if m is not None}
+
+    def trainable_parameters(self) -> List[nn.Parameter]:
+        """Policy then ``rnd_pred`` parameters: what the optimizer steps."""
+        params = list(self.network.parameters())
+        if self.use_rnd:
+            params += list(self.rnd_pred.parameters())
+        return params
+
+    def _make_optimizer(self) -> torch.optim.Adam:
+        # torch.optim.Adam defaults with StableEps as eps (agent.py:148-163)
+        return torch.optim.Adam(self.trainable_parameters(), lr=self.cfg.learning_rate,
+                                betas=(0.9, 0.999), eps=self.cfg.stable_eps)
 
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
 
     def init_state(self, seed: int) -> AgentState:
-        """Initialise every module from ``seed`` and return fresh
-        normalisers (agent.py:165-205)."""
+        """Initialise every module from ``seed``, reset the optimizer and
+        return fresh normalisers (agent.py:165-205)."""
         cfg = self.cfg
         gen = torch.Generator("cpu")
         gen.manual_seed(seed)
-        for m in self._modules():
+        for m in self._modules().values():
             m.to("cpu")
             init_module(m, gen)
             m.to(self.device)
+        self.optimizer = self._make_optimizer()
         obs_rms = None
         if self.use_rnd:
             obs_rms = norm.rms_init((1, cfg.pre_proc_height, cfg.pre_proc_width),
@@ -143,6 +182,45 @@ class RNDAgent:
             reward_rms=norm.rms_init((), device=self.device),
             reward_filter=norm.reward_filter_init(cfg.num_env_per_process, self.device),
             global_update=0,
+            global_step=0,
+        )
+
+    # ------------------------------------------------------------------
+    # everything a checkpoint holds
+    # ------------------------------------------------------------------
+
+    def state_dict(self, state: AgentState) -> Dict[str, Any]:
+        """Modules, optimizer and ``state`` as one dict of tensors and plain
+        Python numbers (what ``utils/checkpoint.py`` saves)."""
+        out: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
+        out["optimizer"] = self.optimizer.state_dict()
+        out["agent_state"] = {
+            "obs_rms": None if state.obs_rms is None else tuple(state.obs_rms),
+            "reward_rms": tuple(state.reward_rms),
+            "reward_filter": tuple(state.reward_filter),
+            "global_update": int(state.global_update),
+            "global_step": int(state.global_step),
+        }
+        return out
+
+    def load_state_dict(self, payload: Dict[str, Any]) -> AgentState:
+        """Inverse of :meth:`state_dict`: loads modules and optimizer in
+        place and returns the ``AgentState`` on the agent's device."""
+        for k, m in self._modules().items():
+            m.load_state_dict(payload[k])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        st = payload["agent_state"]
+
+        def on_device(ts):
+            return [t.to(self.device) for t in ts]
+
+        obs_rms = st["obs_rms"]
+        return AgentState(
+            obs_rms=None if obs_rms is None else norm.RMSState(*on_device(obs_rms)),
+            reward_rms=norm.RMSState(*on_device(st["reward_rms"])),
+            reward_filter=norm.RewardFilterState(*on_device(st["reward_filter"])),
+            global_update=int(st["global_update"]),
+            global_step=int(st["global_step"]),
         )
 
     def _obs(self, obs_u8) -> torch.Tensor:
@@ -245,7 +323,7 @@ class RNDAgent:
                 frac = min(max(1.0 - state.global_update / cfg.int_coef_decay_updates,
                                0.0), 1.0)
                 int_coef = cfg.int_coef * frac
-                metrics["train/int_coef"] = torch.tensor(int_coef)
+                metrics["train/int_coef"] = torch.tensor(int_coef, device=self.device)
             total_adv = int_adv * int_coef + ext_adv * cfg.ext_coef
             int_target = int_tgt.reshape(-1)
         else:
@@ -272,3 +350,122 @@ class RNDAgent:
             reward_filter=new_reward_filter)
         return new_state, batch, metrics
 
+    # ------------------------------------------------------------------
+    # step 5: the SGD loop
+    # ------------------------------------------------------------------
+
+    def _permutation(self, rng: Rng, n: int) -> torch.Tensor:
+        """One epoch's sample order, drawn on the agent's device."""
+        return torch.randperm(n, generator=rng.device, device=self.device)
+
+    def _loss(self, batch: TrainBatch, idx: torch.Tensor,
+              rng: Rng) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Loss of the minibatch ``idx`` with dropout live (``loss_fn``,
+        agent.py:453-522)."""
+        cfg = self.cfg
+        obs = batch.states[idx].float() / 255.0
+        out = self.network(obs, rng)
+        actions = batch.actions[idx]
+        ppo = ppo_surrogate(
+            categorical_log_prob(out.policy, actions),
+            categorical_log_prob(batch.old_policy[idx], actions),
+            batch.adv[idx], out.value_ext, batch.ext_target[idx],
+            categorical_entropy(out.policy), cfg.ppo_eps,
+            out.value_int if self.use_rnd else None,
+            batch.int_target[idx] if self.use_rnd else None,
+        )
+        critic_loss = ppo.critic_ext_loss + ppo.critic_int_loss
+        rl = torch.zeros((), device=self.device)
+        if self.use_rnd:
+            x = batch.rnd_in[idx]
+            with torch.no_grad():
+                target = self.rnd_target(x)
+            mask_u = torch.rand(x.shape[0], generator=rng.device, device=self.device)
+            rl = rnd_loss(target, self.rnd_pred(x), mask_u, cfg.update_proportion)
+        loss = ppo.actor_loss + 0.5 * critic_loss - cfg.entropy_coef * ppo.entropy + rl
+        aux = {
+            "train/loss": loss,
+            "train/actor_loss": ppo.actor_loss,
+            "train/critic_loss": 0.5 * critic_loss,
+            "train/critic_ext_loss": 0.5 * ppo.critic_ext_loss,
+            "train/critic_int_loss": 0.5 * ppo.critic_int_loss,
+            "train/entropy": ppo.entropy,
+            "train/entropy_loss": -cfg.entropy_coef * ppo.entropy,
+            "train/approx_kl": ppo.approx_kl,
+            "train/max_kl": ppo.max_kl,
+            "train/clipfrac": ppo.clipfrac,
+            "train/rnd_loss": rl,
+            # the SSL methods are not ported: the term is always zero
+            "train/representation_loss": torch.zeros((), device=self.device),
+        }
+        return loss, {k: v.detach() for k, v in aux.items()}
+
+    def _minibatch_step(self, batch: TrainBatch, idx: torch.Tensor, rng: Rng,
+                        params: List[nn.Parameter]) -> Dict[str, torch.Tensor]:
+        """One Adam step on the minibatch ``idx`` (``minibatch_step``,
+        agent.py:553-571)."""
+        cfg = self.cfg
+        for p in params:
+            p.grad = None
+        loss, aux = self._loss(batch, idx, rng)
+        loss.backward()
+        for p in params:  # a parameter the loss does not reach gets zeros
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if cfg.freeze_shared_backbone:
+            for p in self.network.feature.parameters():
+                p.grad.zero_()
+        grads = [p.grad for p in params]
+        norm_unclipped = global_grad_norm(grads)
+        aux["train/grad_norm_unclipped"] = norm_unclipped
+        if cfg.use_grad_clipping:
+            clip_by_global_norm_(grads, norm_unclipped, cfg.max_grad_norm)
+        self.optimizer.step()
+        return aux
+
+    def _named_grads(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        out = {"policy": {n: p.grad.clone() for n, p in self.network.named_parameters()}}
+        if self.use_rnd:
+            out["rnd_pred"] = {n: p.grad.clone()
+                               for n, p in self.rnd_pred.named_parameters()}
+        return out
+
+    def update(self, state: AgentState, rollout: Rollout,
+               rng: Rng) -> Tuple[AgentState, Dict[str, Any]]:
+        """Everything between two rollouts (``_update_impl``,
+        agent.py:329-614): :meth:`prepare_batch`, then ``Epoch`` x
+        ``MiniBatch`` Adam steps. The modules and the optimizer are updated
+        in place; returns the new ``AgentState`` and the metrics (0-dim
+        tensors on the device; ``_grads`` holds the last minibatch's
+        gradients under ``verbose_logging``)."""
+        cfg = self.cfg
+        if cfg.encoder_remat != "none":
+            raise NotImplementedError(
+                f"EncoderRemat = {cfg.encoder_remat} is not ported to the torch "
+                "package yet (ROADMAP.md Queue 1, item 10)")
+        state, batch, metrics = self.prepare_batch(state, rollout)
+        num_samples = batch.adv.shape[0]
+        merge = max(1, cfg.minibatch_merge)
+        if cfg.mini_batch % merge:
+            raise ValueError(f"MiniBatch {cfg.mini_batch} is not a multiple of "
+                             f"MiniBatchMerge {merge}")
+        n_mb = cfg.mini_batch // merge
+        batch_size = num_samples // n_mb
+        params = self.trainable_parameters()
+
+        epoch_means: List[Dict[str, torch.Tensor]] = []
+        for _ in range(cfg.epoch):
+            perm = self._permutation(rng, num_samples)[: n_mb * batch_size]
+            auxs = [self._minibatch_step(batch, idx, rng, params)
+                    for idx in perm.reshape(n_mb, batch_size)]
+            epoch_means.append({k: torch.stack([a[k] for a in auxs]).mean()
+                                for k in auxs[0]})
+        if epoch_means:
+            metrics.update({k: torch.stack([e[k] for e in epoch_means]).mean()
+                            for k in epoch_means[0]})
+            if cfg.verbose_logging:
+                metrics["_grads"] = self._named_grads()
+        new_state = state._replace(
+            global_step=state.global_step + num_samples,
+            global_update=state.global_update + 1)
+        return new_state, metrics

@@ -21,8 +21,8 @@ from eavit_tpu_torch.rl.agent import AgentState, RNDAgent, Rollout
 
 
 class EpisodeStats:
-    """Rolling episode bookkeeping (rollout.py:22-80; reference
-    train.py:570-578, 651-654)."""
+    """Rolling episode bookkeeping with its checkpoint snapshot
+    (rollout.py:22-80; reference train.py:570-578, 651-654)."""
 
     def __init__(self, window: int = 100):
         self.window = window
@@ -46,6 +46,24 @@ class EpisodeStats:
         self.returns = self.returns[-self.window:]
         self.lengths = self.lengths[-self.window:]
         self.rooms_per_episode = self.rooms_per_episode[-self.window:]
+
+    def to_state(self) -> Dict[str, Any]:
+        """Serializable snapshot (checkpointed like the reference's metric
+        deques and room sets, train.py:926-956)."""
+        return {
+            "returns": list(self.returns),
+            "lengths": list(self.lengths),
+            "rooms_per_episode": list(self.rooms_per_episode),
+            "total_visited_rooms": sorted(self.total_visited_rooms),
+            "num_episodes": self.num_episodes,
+        }
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        self.returns = [float(x) for x in state.get("returns", [])]
+        self.lengths = [int(x) for x in state.get("lengths", [])]
+        self.rooms_per_episode = [int(x) for x in state.get("rooms_per_episode", [])]
+        self.total_visited_rooms = set(state.get("total_visited_rooms", []))
+        self.num_episodes = int(state.get("num_episodes", 0))
 
     def summary(self) -> Dict[str, float]:
         out: Dict[str, float] = {"data/num_episodes": float(self.num_episodes)}

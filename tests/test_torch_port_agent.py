@@ -37,6 +37,11 @@ from eavit_tpu_torch.rl import normalizer as norm
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
 from eavit_tpu_torch.rl.rollout import RolloutCollector
 
+# One intra-op thread: the suite runs several test processes on one host, and
+# torch's thread pools spinning against each other (and against XLA's) make
+# these many small ops an order of magnitude slower than one thread does.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 # one layer: the model parity at depth 2 is test_torch_port_vit's
 TINY = dict(dim=48, patch_size=12, depth=1, heads=4, dim_head=12, mlp_dim=96)

@@ -8,9 +8,15 @@ configures JAX):
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: the replay kernels must equal the plain Philox bit for bit;
-K1f and K2f in bf16 may differ from the plain version by one bf16 rounding
-of the output (2^-8 relative) because they sum in another order; K2f in
-float32 by 1e-4 of the output's scale; lse by 1e-4.
+K1f, K2f and K1b in bf16 may differ from the plain version by one bf16
+rounding of the output (2^-8 relative) because they sum in another order;
+K2f in float32 by 1e-4 of the output's scale; lse by 1e-4. K2b's seven
+outputs are judged each against its own maximum (float32 1e-4; bf16 input:
+one bf16 rounding of dx, 2e-3 for the float32 parameter gradients, where a
+sum that lands on a rounding boundary of dh or gd flips the operand). The
+backward kernels are also held to torch autograd through the plain forward
+(float32, 1e-4), and two identical calls must give equal bits: neither
+kernel sums with atomics.
 """
 
 import math
@@ -21,6 +27,7 @@ import torch
 
 from eavit_tpu_torch.ops import flash_qkv as fq
 from eavit_tpu_torch.ops import fused_ffn as ff
+from eavit_tpu_torch.ops.kernel_prng import keep_threshold
 
 
 @pytest.fixture
@@ -78,10 +85,17 @@ def test_flash_qkv_kernel_rejects_what_it_does_not_take(cuda):
         fq.flash_qkv_fwd(x, 2, 24, 0.2)  # dim_head 24 has no kernel
     with pytest.raises(TypeError):
         fq.flash_qkv_fwd(x.half(), 2, 24, 0.2)
-    # no backward kernel yet: a tensor that needs a gradient is refused
-    with pytest.raises(NotImplementedError):
-        fq.flash_qkv_fwd(torch.zeros(2, 5, 3 * 2 * 32, device=cuda, requires_grad=True),
-                         2, 32, 0.2)
+    # the backward has the same limits, and more shared memory per token
+    ok = torch.zeros(2, 5, 3 * 2 * 32, device=cuda)
+    lse, do = torch.zeros(2, 2, 5, device=cuda), torch.zeros(2, 5, 2 * 32, device=cuda)
+    with pytest.raises(ValueError):
+        fq.flash_qkv_bwd(ok, lse, do.half(), 2, 32, 0.2)  # dO in another dtype
+    with pytest.raises(ValueError):
+        fq.flash_qkv_bwd(ok, lse[:, :1], do, 2, 32, 0.2)  # lse of another shape
+    long = torch.zeros(1, 700, 3 * 2 * 64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fq.flash_qkv_bwd(long, torch.zeros(1, 2, 700, device=cuda),
+                         torch.zeros(1, 700, 2 * 64, device=cuda), 2, 64, 0.2)
 
 
 def _ffn_inputs(rows, dim, hidden, device, dtype):
@@ -109,17 +123,136 @@ def test_fused_ffn_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     assert _max_err(y, p) <= tol
 
 
-def test_fused_ffn_kernel_refuses_a_gradient(cuda):
+def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
     x, params = _ffn_inputs(8, 64, 96, cuda, torch.float32)
-    with pytest.raises(NotImplementedError):
-        ff.fused_ffn(x.requires_grad_(), *params)
     with torch.no_grad():
         assert ff.fused_ffn(x, *params).shape == x.shape
+    with pytest.raises(ValueError):
+        ff.fused_ffn_bwd(x, *params[:5], torch.zeros(8, 32, device=cuda))  # dy shape
+    with pytest.raises(ValueError):
+        ff.fused_ffn_bwd(x, *params[:5], torch.zeros_like(x).cpu())  # dy on the CPU
+    x48, params48 = _ffn_inputs(8, 48, 96, cuda, torch.float32)
+    with pytest.raises(ValueError):
+        ff.fused_ffn(x48.requires_grad_(), *params48)  # dim 48 has no kernel
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,num_special,dim_head,dtype", [
+    (256, 198, 2, 32, torch.bfloat16),  # shared-patch-stream minibatch
+    (64, 197, 0, 32, torch.bfloat16),   # exact stacked mode, an eighth of a minibatch
+    (3, 37, 2, 16, torch.float32),
+    (2, 70, 0, 64, torch.bfloat16),
+    (2, 198, 2, 32, torch.float32),
+])
+def test_flash_qkv_bwd_kernel_matches_plain(cuda, b, n, num_special, dim_head, dtype, rate):
+    heads, seeds = 8, (123, 456)
+    x = _qkv(b, n, heads, dim_head, cuda, dtype)
+    do = torch.randn(b, n, heads * dim_head,
+                     generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
+    args = (heads, dim_head, dim_head ** -0.5, num_special, seeds, rate)
+    _, lse = fq.flash_qkv_fwd(x, *args)
+    before = fq.launches["flash_qkv_bwd"]
+    d = fq.flash_qkv_bwd(x, lse, do, *args)
+    p = fq.flash_qkv_bwd_plain(x, lse, do, *args)
+    torch.cuda.synchronize()
+    assert fq.launches["flash_qkv_bwd"] == before + 1
+    assert d.dtype == dtype and d.shape == x.shape
+    tol = _bf16_tol(p) if dtype == torch.bfloat16 else 1e-4 * p.abs().max().item()
+    assert _max_err(d, p) <= tol
+    assert torch.equal(d, fq.flash_qkv_bwd(x, lse, do, *args))  # deterministic
+
+
+K2B_NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dim,hidden", [
+    (256 * 198, 256, 1024),  # shared-patch-stream minibatch
+    (37, 64, 96),            # fewer rows than one tile and a half
+    (130, 32, 64),
+    (1000, 256, 512),
+])
+def test_fused_ffn_bwd_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
+    x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
+    dy = torch.randn(rows, dim, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = ff.launches["fused_ffn_bwd"]
+    out = ff.fused_ffn_bwd(x, *params[:5], dy, (5, 6), rate)
+    plain = ff.fused_ffn_bwd_plain(x, *params[:5], dy, (5, 6), rate)
+    torch.cuda.synchronize()
+    assert ff.launches["fused_ffn_bwd"] == before + 1
+    assert out[0].dtype == dtype and all(t.dtype == torch.float32 for t in out[1:])
+    for name, a, p in zip(K2B_NAMES, out, plain):
+        assert a.shape == p.shape, name
+        if dtype == torch.float32:
+            tol = 1e-4
+        else:
+            tol = 1.2e-2 if name == "dx" else 2e-3
+        assert _max_err(a, p) <= tol * p.float().abs().max().item(), name
+    again = ff.fused_ffn_bwd(x, *params[:5], dy, (5, 6), rate)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # deterministic
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_flash_qkv_function_matches_autograd_of_plain_forward(cuda, num_special):
+    heads, dh, seeds, rate = 4, 16, (9, 10), 0.1
+    x = _qkv(3, 45, heads, dh, cuda, torch.float32)
+    do = torch.randn(3, 45, heads * dh, generator=torch.Generator().manual_seed(1)).to(cuda)
+    ref_in = x.clone().requires_grad_()
+    o, _ = fq.flash_qkv_fwd_plain(ref_in, heads, dh, dh ** -0.5, num_special, seeds, rate)
+    o.backward(do)
+    mine = x.clone().requires_grad_()
+    before = dict(fq.launches)
+    fq.flash_mha_qkv(mine, heads, dh, seeds=seeds, rate=rate,
+                     num_special=num_special).backward(do)
+    assert fq.launches["flash_qkv_fwd"] == before["flash_qkv_fwd"] + 1
+    assert fq.launches["flash_qkv_bwd"] == before["flash_qkv_bwd"] + 1
+    assert _max_err(mine.grad, ref_in.grad) <= 1e-4 * ref_in.grad.abs().max().item()
+
+
+def test_fused_ffn_function_matches_autograd_of_plain_forward(cuda):
+    x, params = _ffn_inputs(130, 64, 96, cuda, torch.float32)
+    dy = torch.randn(130, 64, generator=torch.Generator().manual_seed(2)).to(cuda)
+    ref_in = [t.clone().requires_grad_() for t in (x, *params)]
+    ff.fused_ffn_fwd_plain(*ref_in, (5, 6), 0.1).backward(dy)
+    mine = [t.clone().requires_grad_() for t in (x, *params)]
+    before = dict(ff.launches)
+    ff.fused_ffn(mine[0].reshape(2, 65, 64), *mine[1:], seeds=(5, 6),
+                 rate=0.1).backward(dy.reshape(2, 65, 64))
+    assert ff.launches["fused_ffn_fwd"] == before["fused_ffn_fwd"] + 1
+    assert ff.launches["fused_ffn_bwd"] == before["fused_ffn_bwd"] + 1
+    for a, b in zip(mine, ref_in):
+        assert _max_err(a.grad, b.grad) <= 1e-4 * b.grad.abs().max().item()
+    # only what needs a gradient gets one
+    only_x = [x.clone().requires_grad_(), *params]
+    ff.fused_ffn(*only_x).sum().backward()
+    assert only_x[0].grad is not None and all(p.grad is None for p in only_x[1:])
+
+
+def test_backward_runs_on_the_current_stream(cuda):
+    """The launch takes the stream current at the call, also on autograd's
+    thread inside a ``torch.cuda.stream`` block."""
+    x, params = _ffn_inputs(64, 64, 96, cuda, torch.float32)
+    ref = [t.clone().requires_grad_() for t in (x, *params)]
+    ff.fused_ffn(*ref).square().sum().backward()
+    side = torch.cuda.Stream()
+    mine = [t.clone().requires_grad_() for t in (x, *params)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ff.fused_ffn(*mine).square().sum().backward()
+    side.synchronize()
+    for a, b in zip(mine, ref):
+        assert torch.equal(a.grad, b.grad)
 
 
 def test_kernel_keep_rate(cuda):
     # 4 sigma of a binomial keep count at rate 0.1
-    thresh = ff.keep_threshold(0.1)
+    thresh = keep_threshold(0.1)
     m1, _ = ff.fused_ffn_bits(4096, 256, 1024, (1, 2), cuda)
     keep = (m1 < thresh).double().mean().item()
     p = thresh / (1 << 24)

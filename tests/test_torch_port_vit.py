@@ -32,6 +32,11 @@ from eavit_tpu_torch.convert import load_flax_tree
 from eavit_tpu_torch.models.policy import ActorCritic
 from eavit_tpu_torch.models.vit import DualTokenViT, patchify
 
+# One intra-op thread: the suite runs several test processes on one host, and
+# torch's thread pools spinning against each other (and against XLA's) make
+# these many small ops an order of magnitude slower than one thread does.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(dim=48, patch_size=12, depth=2, heads=4, dim_head=12, mlp_dim=96)
 IMG, CH = 84, 4
