@@ -39,6 +39,26 @@ non-zero on failure:
    greedy episode of ``eval.evaluate`` from the checkpoint.
 6. Training path, exact stacked mode: ``train.train`` for one iteration
    with ``Epoch = 1`` (96 launches of each backward kernel).
+7. Flash kernels of ``AttentionImpl = pallas``: K4f / K4b (``ops/flash``,
+   rate 0) and K3f / K3b (``ops/flash_dropout``, rate 0.1) at the acting
+   shapes ``[64, 8, 198, 32]`` / ``[128, 8, 197, 32]`` and the training
+   shapes ``[256, 8, 198, 32]`` / ``[512, 8, 197, 32]`` in bf16, and once in
+   float32, against their plain versions; the backward kernels also against
+   torch autograd through the plain forward and for equal bits twice; K3r
+   bit for bit against the plain Philox. Times beside the bound and beside
+   ``F.scaled_dot_product_attention`` (forward, and its backward) with the
+   same boolean mask at rate 0, timed as a yardstick and never called by
+   the port.
+8. The acting path of phases 3-4 with ``AttentionImpl = pallas``: K3f 387
+   launches per rollout (dropout is live at act time), K1f and K4f none.
+9. Training with ``AttentionImpl = pallas``: the whole-network gradient
+   check (float32 and bf16); ``train.train`` for one shared iteration with
+   ``Epoch = 4`` (K3f 387 + 384, K3b 384, K4 none), the checkpoint, one
+   iteration in pieces for the timing split, and ``evaluate``, whose
+   deterministic forwards run K4f (3 per step) and no K3f; one stacked
+   iteration with ``Epoch = 1``.
+10. Training at ``ViTlucidrains_dropout = 0`` with ``AttentionImpl =
+    pallas``, shared, ``Epoch = 1``: K4f 387 + 96, K4b 96, K3 none.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -61,6 +81,7 @@ DEPTH, NUM_ENVS, NUM_STEP = 3, 64, 128
 EPOCH, MINI_BATCH = 4, 32
 MB_FRAMES = NUM_ENVS * NUM_STEP // MINI_BATCH  # 256 frames in a minibatch
 SEED = 0  # of the random weights and the dropout streams
+KERNEL_SEEDS = (0x1234ABCD, 0x0BADF00D)  # seed words of the kernel comparisons
 
 
 def log(kind: str, **fields) -> None:
@@ -121,7 +142,7 @@ def kernel_phase(torch, fq, ff, kp, dev):
 
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
-    heads, dh, seeds = 8, 32, (0x1234ABCD, 0x0BADF00D)
+    heads, dh, seeds = 8, 32, KERNEL_SEEDS
     rows = {}
 
     # K1f at both act shapes, rate 0 and 0.1 (the act path runs 0.1)
@@ -232,7 +253,7 @@ def train_kernel_phase(torch, fq, ff, dev):
 
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
-    heads, dh, seeds = 8, 32, (0x1234ABCD, 0x0BADF00D)
+    heads, dh, seeds = 8, 32, KERNEL_SEEDS
     rows = {}
 
     for b, n, ns in ((MB_FRAMES, 198, 2), (2 * MB_FRAMES, 197, 0)):
@@ -347,11 +368,173 @@ def train_kernel_phase(torch, fq, ff, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: the acting path
+# phase 7: the flash kernels of AttentionImpl = pallas
 # ---------------------------------------------------------------------------
 
 
-def flagship_cfg(shared: bool):
+def flash_kernel_phase(torch, fl, fd, kp, dev):
+    """K4f, K4b, K3f, K3b at the pallas path's shapes against their plain
+    versions, timed; K3r bit for bit; the backward Functions against torch
+    autograd through the plain forwards."""
+    import torch.nn.functional as F
+
+    from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+    heads, dh, seeds, rate = 8, 32, KERNEL_SEEDS, 0.1
+    scale = dh ** -0.5
+    rows = {}
+
+    def err_tol(out, ref, dtype):
+        err = (out.float() - ref.float()).abs().max().item()
+        big = ref.float().abs().max().item()
+        # bf16: one rounding of the output (2^-8); f32: another sum order
+        tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
+        return err, tol
+
+    shapes = (("act", NUM_ENVS, 198, 2, torch.bfloat16),
+              ("act", 2 * NUM_ENVS, 197, 0, torch.bfloat16),
+              ("train", MB_FRAMES, 198, 2, torch.bfloat16),
+              ("train", 2 * MB_FRAMES, 197, 0, torch.bfloat16),
+              ("act", NUM_ENVS, 198, 2, torch.float32))
+    for use, b, n, ns, dtype in shapes:
+        g = torch.Generator().manual_seed(b + n)
+        q, k, v, do = (torch.randn(b, heads, n, dh, generator=g).to(dev, dtype)
+                       for _ in range(4))
+        dname = str(dtype).split(".")[-1]
+        timed = dtype == torch.bfloat16
+        mask = dual_query_allowed(n, n, ns, dev) if ns else None
+        bhn, numel, esize = b * heads * n, q.numel(), q.element_size()
+        nn_flops = 2.0 * b * heads * n * n * dh  # one [N, N] x [N, Dh] product
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 20) if timed else None
+        fwds = {
+            "flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
+                          lambda: fl.flash_fwd_plain(q, k, v, scale, ns), 0.0),
+            "flash_dropout_fwd": (
+                lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
+                lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns), rate),
+        }
+        saved = {}
+        for name, (fwd, plain, r) in fwds.items():
+            o, lse = fwd()
+            po, plse = plain()
+            torch.cuda.synchronize()
+            err, tol = err_tol(o, po, dtype)
+            lse_err = (lse - plse).abs().max().item()
+            del po, plse
+            saved[name] = (o, lse)
+            # q, k, v read once, o written once, lse f32
+            bms, by = bound_ms(4 * numel * esize + 4 * bhn, 2 * nn_flops, dname)
+            row = dict(kernel=name, use=use, b=b, n=n, num_special=ns, rate=r,
+                       dtype=dname, max_abs_err=err, tol=tol, lse_err=lse_err,
+                       lse_tol=1e-4, bound_ms=bms, bound_by=by, library_ms=lib_fwd)
+            if timed:
+                row.update(ms=time_ms(torch, fwd, 20),
+                           plain_ms=time_ms(torch, plain, 3, warmup=1))
+            log("kernel", **row)
+            check(err <= tol and lse_err <= 1e-4, f"{name} {row}")
+            rows[(name, use, n, dname)] = row
+        if use == "act" and timed:
+            continue
+
+        lib_bwd = None
+        if timed:  # yardstick: the backward of SDPA alone (same mask, rate 0)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, leaves, do, retain_graph=True), 10)
+            del o_lib, leaves
+        o4, lse4 = saved["flash_fwd"]
+        lse3 = saved["flash_dropout_fwd"][1]
+        bwds = {
+            # q, k, v, o, dO and lse read, dq, dk, dv written
+            "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns),
+                          lambda: fl.flash_bwd_plain(q, k, v, o4, lse4, do, scale, ns),
+                          0.0, 8),
+            # no O: q, k, v, dO and lse read, dq, dk, dv written
+            "flash_dropout_bwd": (
+                lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, rate, scale, ns),
+                lambda: fd.flash_dropout_bwd_plain(q, k, v, lse3, do, seeds, rate, scale, ns),
+                rate, 7),
+        }
+        for name, (bwd, plain, r, tensors) in bwds.items():
+            out = bwd()
+            ref = plain()
+            again = bwd()
+            torch.cuda.synchronize()
+            errs = [err_tol(a, p, dtype) for a, p in zip(out, ref)]
+            same = all(torch.equal(a, b_) for a, b_ in zip(out, again))
+            del ref, again
+            # five products: scores recomputed, dV, dP, dQ, dK
+            bms, by = bound_ms(tensors * numel * esize + 4 * bhn, 5 * nn_flops, dname)
+            row = dict(kernel=name, use=use, b=b, n=n, num_special=ns, rate=r,
+                       dtype=dname, max_abs_err=max(e for e, _ in errs),
+                       errs_dq_dk_dv=[e for e, _ in errs], tols_dq_dk_dv=[t for _, t in errs],
+                       deterministic=same, bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+            if timed:
+                row.update(ms=time_ms(torch, bwd, 10),
+                           plain_ms=time_ms(torch, plain, 2, warmup=1))
+            log("kernel", **row)
+            check(all(e <= t for e, t in errs) and same, f"{name} {row}")
+            rows[(name, use, n, dname)] = row
+        del q, k, v, do, saved, o4, lse4, lse3
+
+    # K3r: bit for bit, and the keep rate at 0.1 within 4 sigma
+    b, n = NUM_ENVS, 198
+    thresh = kp.keep_threshold(rate)
+    p_keep = thresh / (1 << 24)
+    bits = fd.dropout_raw_bits(b, heads, n, seeds, dev)
+    plain_bits = kp.raw_bits24(b * heads * n * n, seeds, 0, dev).reshape(b, heads, n, n)
+    equal = bool(torch.equal(bits, plain_bits))
+    keep = (bits < thresh).double().mean().item()
+    keep_good = abs(keep - p_keep) < 4 * (p_keep * (1 - p_keep) / bits.numel()) ** 0.5
+    bms, by = bound_ms(4 * bits.numel(), 0.0, "bfloat16")
+    row = dict(kernel="flash_dropout_bits", b=b, n=n, equal=equal, keep=keep,
+               max_abs_err=0.0 if equal else float("nan"),
+               ms=time_ms(torch, lambda: fd.dropout_raw_bits(b, heads, n, seeds, dev), 20),
+               plain_ms=time_ms(torch, lambda: fd.dropout_raw_bits_plain(
+                   b, heads, n, seeds, dev), 3),
+               library_ms=None, bound_ms=bms, bound_by=by)
+    log("kernel", **row)
+    check(equal and keep_good, f"flash_dropout_bits {row}")
+    rows["flash_dropout_bits"] = row
+    del bits, plain_bits
+
+    # the Functions' backward kernels against autograd through the PLAIN
+    # forward, float32: K3b replays the forward's mask, K4b uses its O
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(4, 4, 37, 16, generator=g).to(dev) for _ in range(4))
+    for r, (name, plain_fwd) in {
+        0.0: ("flash_bwd", lambda *t: fl.flash_fwd_plain(*t, 0.25, 2)),
+        rate: ("flash_dropout_bwd",
+               lambda *t: fd.flash_dropout_fwd_plain(*t, seeds, rate, 0.25, 2)),
+    }.items():
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(plain_fwd(*ref_in)[0], ref_in, do)
+        mine = [t.clone().requires_grad_() for t in (q, k, v)]
+        fd.flash_attention_dropout(*mine, seeds, r, scale=0.25, num_special=2).backward(do)
+        err = max((a.grad - b_).abs().max().item() for a, b_ in zip(mine, ref))
+        tol = 1e-4 * max(b_.abs().max().item() for b_ in ref)
+        log("autograd", kernel=name, max_abs_err=err, tol=tol)
+        check(err <= tol, f"{name}: Function backward vs autograd of the plain forward")
+
+    # the longest sequence each kernel takes at each head width
+    libs = {"flash_fwd": fl._lib().eavit_flash_fwd_smem,
+            "flash_bwd": fl._lib().eavit_flash_bwd_smem,
+            "flash_dropout_fwd": fd._lib().eavit_flash_dropout_fwd_smem,
+            "flash_dropout_bwd": fd._lib().eavit_flash_dropout_bwd_smem}
+    max_n = {name: {d: max(m for m in range(1, 4096) if smem(m, d) <= fl.SMEM_LIMIT)
+                    for d in fl.DIM_HEADS} for name, smem in libs.items()}
+    log("max_n", smem_limit=fl.SMEM_LIMIT, **max_n)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4 and 8: the acting path
+# ---------------------------------------------------------------------------
+
+
+def flagship_cfg(shared: bool, attention: str = "pallas_qkv"):
     from eavit_tpu_torch.config import Config, EnvType, TrainMethod
 
     # bench.py:flagship_cfg (bench.py:290-324) with the shared-stream flag,
@@ -361,11 +544,34 @@ def flagship_cfg(shared: bool):
         sticky_action=False, num_step=NUM_STEP,
         num_env_per_process=NUM_ENVS, epoch=EPOCH, mini_batch=MINI_BATCH, obs_norm_step=0,
         max_step_per_episode=4500, shared_patch_stream=shared, async_env_pool=False,
-        attention_impl="pallas_qkv", fused_ffn=True, seed=SEED,
+        attention_impl=attention, fused_ffn=True, seed=SEED,
     )
 
 
-def main_path(torch, fq, ff, dev, shared: bool):
+def attention_kernels(attention: str, dropout: bool):
+    """The (forward, backward) attention kernels a flagship model runs."""
+    if attention == "pallas_qkv":
+        return "flash_qkv_fwd", "flash_qkv_bwd"
+    return ("flash_dropout_fwd", "flash_dropout_bwd") if dropout else ("flash_fwd", "flash_bwd")
+
+
+def _counts(mods):
+    return {k: v for m in mods for k, v in m.launches.items()}
+
+
+def _reset(mods):
+    for m in mods:
+        m.reset_launches()
+
+
+def check_counts(counts, expect, what: str) -> None:
+    """Every kernel launched exactly as often as ``expect`` says, the rest
+    never."""
+    check(all(counts[k] == expect.get(k, 0) for k in counts),
+          f"{what}: launches {counts}, expected {expect} and 0 of the rest")
+
+
+def main_path(torch, mods, dev, shared: bool, attention: str = "pallas_qkv"):
     import numpy as np
 
     from eavit_tpu_torch.envs.synthetic import SyntheticVectorEnv
@@ -374,7 +580,7 @@ def main_path(torch, fq, ff, dev, shared: bool):
     from eavit_tpu_torch.rl.rollout import RolloutCollector
 
     mode = "shared" if shared else "stacked"
-    cfg = flagship_cfg(shared)
+    cfg = flagship_cfg(shared, attention)
     check(cfg.vit.depth == DEPTH and cfg.vit.dim == 256 and cfg.compute_dtype == "bfloat16",
           "flagship width")
     env = SyntheticVectorEnv(cfg.num_env_per_process, seed=42,
@@ -398,13 +604,12 @@ def main_path(torch, fq, ff, dev, shared: bool):
                   for k in ("policy", "value_ext", "value_int", "features"))
     feat_scale = ref.features.abs().max().item()
     ref_tol = 2e-2 * max(1.0, feat_scale)  # bf16 Dense layers, other sum order
-    log("reference", mode=mode, max_abs_err=ref_err, tol=ref_tol)
+    log("reference", mode=mode, attention=attention, max_abs_err=ref_err, tol=ref_tol)
     check(ref_err <= ref_tol, f"{mode}: network on CUDA vs CPU plain path")
     del cpu_net
 
     torch.cuda.synchronize()
-    fq.reset_launches()
-    ff.reset_launches()
+    _reset(mods)
     t0 = time.perf_counter()
     rollout, states = collector.collect(states, rng)
     torch.cuda.synchronize()
@@ -425,7 +630,7 @@ def main_path(torch, fq, ff, dev, shared: bool):
     new_state, batch, metrics = agent.prepare_batch(state, rollout)
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
-    counts = {**fq.launches, **ff.launches}  # the main path ends here
+    counts = _counts(mods)  # the main path ends here
 
     # where a collect step goes: the act call alone (device work waited
     # for) and the host env step alone, each averaged over 20 calls
@@ -442,8 +647,10 @@ def main_path(torch, fq, ff, dev, shared: bool):
     finite = bool(torch.isfinite(batch.adv).all() and torch.isfinite(batch.ext_target).all()
                   and torch.isfinite(batch.int_target).all()
                   and torch.isfinite(batch.rnd_in).all() and torch.isfinite(int_r).all())
-    expect = cfg.vit.depth * (cfg.num_step + 1)
-    log("main_path", mode=mode, envs=cfg.num_env_per_process, steps=cfg.num_step,
+    per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+    expect = {attention_kernels(attention, cfg.vit.dropout > 0)[0]: per_rollout,
+              "fused_ffn_fwd": per_rollout}
+    log("main_path", mode=mode, attention=attention, envs=cfg.num_env_per_process, steps=cfg.num_step,
         frames=frames, collect_s=collect_s, frames_per_s=frames / collect_s,
         step_ms=collect_s / (cfg.num_step + 1) * 1e3, act_ms=act_ms,
         env_step_ms=env_step_ms, intrinsic_first_s=intrinsic_first_s,
@@ -456,8 +663,7 @@ def main_path(torch, fq, ff, dev, shared: bool):
     check(finite, f"{mode}: finite advantages and targets")
     check(tuple(batch.adv.shape) == (frames,) and tuple(batch.ext_target.shape) == (frames,)
           and tuple(batch.int_target.shape) == (frames,), f"{mode}: shapes")
-    check(counts["flash_qkv_fwd"] == expect and counts["fused_ffn_fwd"] == expect,
-          f"{mode}: K1f/K2f launched {counts}, expected {expect} each")
+    check_counts(counts, expect, f"{mode}, {attention}: collect")
     check(int(new_state.obs_rms.count) > int(state.obs_rms.count), f"{mode}: obs_rms moved")
     return counts
 
@@ -466,21 +672,12 @@ def main_path(torch, fq, ff, dev, shared: bool):
 # phases 5-6: the training path
 # ---------------------------------------------------------------------------
 
-FWD, BWD = ("flash_qkv_fwd", "fused_ffn_fwd"), ("flash_qkv_bwd", "fused_ffn_bwd")
 LOSS_PARTS = ("train/actor_loss", "train/critic_loss", "train/entropy_loss",
               "train/rnd_loss")
 
 
-def _counts(fq, ff):
-    return {**fq.launches, **ff.launches}
-
-
-def _reset(fq, ff):
-    fq.reset_launches()
-    ff.reset_launches()
-
-
-def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float):
+def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float,
+               attention: str = "pallas_qkv"):
     """Loss and gradients of the whole network and the RND predictor on one
     minibatch of 8 frames, kernels on the card against a copy on the CPU
     (plain versions). Kernel dropout is live at rate 0.1 with the same seed
@@ -493,7 +690,8 @@ def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float):
     from eavit_tpu_torch.models.layers import Dropout16, Rng
     from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
 
-    cfg = flagship_cfg(shared).replace(update_proportion=1.0, compute_dtype=compute_dtype)
+    cfg = flagship_cfg(shared, attention).replace(update_proportion=1.0,
+                                                  compute_dtype=compute_dtype)
     agents = {"cuda": RNDAgent(cfg, 5), "cpu": RNDAgent(cfg, 5, device="cpu")}
     state = agents["cuda"].init_state(SEED)
     agents["cpu"].load_state_dict(agents["cuda"].state_dict(state))
@@ -523,7 +721,8 @@ def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float):
     rel = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
     loss_err = abs(losses["cuda"] - losses["cpu"])
     loss_tol = tol * max(1.0, abs(losses["cpu"]))
-    log("grad_check", mode="shared" if shared else "stacked", compute_dtype=compute_dtype,
+    log("grad_check", mode="shared" if shared else "stacked", attention=attention,
+        compute_dtype=compute_dtype,
         frames=n, loss_cuda=losses["cuda"], loss_cpu=losses["cpu"], loss_err=loss_err,
         loss_tol=loss_tol, grad_rel_err=rel, grad_rel_tol=tol,
         grad_elements=grads["cpu"].numel())
@@ -587,9 +786,13 @@ def profile_minibatches(torch, agent, state, rollout, rng, steps: int = 8):
     return out
 
 
-def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
-                  workdir: str):
-    """``train.train`` at full width, then what its checkpoint holds."""
+def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
+                  workdir: str, attention: str = "pallas_qkv", dropout=None,
+                  pieces: bool = False):
+    """``train.train`` at full width, then what its checkpoint holds; with
+    ``pieces`` one more iteration timed in pieces, and ``evaluate``."""
+    import dataclasses
+
     from eavit_tpu_torch import train as port_train
     from eavit_tpu_torch.eval import evaluate
     from eavit_tpu_torch.envs.builders import make_vector_env
@@ -599,34 +802,39 @@ def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
     from eavit_tpu_torch.utils.checkpoint import load_checkpoint
 
     mode = "shared" if shared else "stacked"
-    cfg = flagship_cfg(shared).replace(
+    cfg = flagship_cfg(shared, attention).replace(
         epoch=epochs, obs_norm_step=1, save_ckpt_every=updates, log_name=f"smoke_{mode}",
         save_model_path=os.path.join(workdir, "ckpt"))
+    if dropout is not None:
+        cfg = cfg.replace(vit=dataclasses.replace(cfg.vit, dropout=dropout))
+    what = f"{mode}, {attention}, dropout {cfg.vit.dropout}"
     frames = cfg.num_step * cfg.num_env_per_process
     per_update = cfg.vit.depth * epochs * cfg.mini_batch
     per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+    attn_fwd, attn_bwd = attention_kernels(attention, cfg.vit.dropout > 0)
+    fwd, bwd = (attn_fwd, "fused_ffn_fwd"), (attn_bwd, "fused_ffn_bwd")
 
     torch.cuda.synchronize()
-    _reset(fq, ff)
+    _reset(mods)
     t0 = time.perf_counter()
     metrics = port_train.train(cfg, total_updates=updates,
                                log_dir=os.path.join(workdir, "logs"))  # CUDA by default
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    counts = _counts(fq, ff)  # the main path ends here
+    counts = _counts(mods)  # the main path ends here
 
-    expect = {**{k: updates * (per_rollout + per_update) for k in FWD},
-              **{k: updates * per_update for k in BWD}}
+    expect = {**{k: updates * (per_rollout + per_update) for k in fwd},
+              **{k: updates * per_update for k in bwd}}
     finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
     parts = sum(metrics[k] for k in LOSS_PARTS)
-    log("train", mode=mode, updates=updates, epochs=epochs, train_s=train_s,
+    log("train", mode=mode, attention=attention, dropout=cfg.vit.dropout,
+        updates=updates, epochs=epochs, train_s=train_s,
         frames_per_s=updates * frames / train_s, launches=counts,
         expected_launches=expect, finite=finite, metrics=metrics, loss_parts_sum=parts)
-    check(all(counts[k] == v for k, v in expect.items()),
-          f"{mode}: launches {counts}, expected {expect}")
-    check(finite, f"{mode}: finite metrics")
+    check_counts(counts, expect, f"{what}: train")
+    check(finite, f"{what}: finite metrics")
     check(abs(metrics["train/loss"] - parts) <= 1e-4 * max(1.0, abs(parts)),
-          f"{mode}: train/loss {metrics['train/loss']} != sum of parts {parts}")
+          f"{what}: train/loss {metrics['train/loss']} != sum of parts {parts}")
 
     # the checkpoint, loaded into a fresh agent
     path = os.path.join(cfg.save_model_path, cfg.log_name)
@@ -648,7 +856,7 @@ def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
     check(moved["policy"] == total["policy"] and moved["rnd_pred"] == total["rnd_pred"],
           f"{mode}: every policy and rnd_pred tensor moved ({moved} of {total})")
     check(moved["rnd_target"] == 0, f"{mode}: rnd_target did not move")
-    if not shared:
+    if not pieces:
         return counts, {}
 
     # one more iteration in pieces, for the split of the time
@@ -656,28 +864,25 @@ def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
     collector = RolloutCollector(cfg, agent, env)
     rng = Rng(SEED + 3, agent.device)
     states = env.reset()
-    _reset(fq, ff)
+    _reset(mods)
     t0 = time.perf_counter()
     rollout, states = collector.collect(states, rng)
     torch.cuda.synchronize()
     collect_s = time.perf_counter() - t0
-    collect_counts = _counts(fq, ff)
+    collect_counts = _counts(mods)
     t0 = time.perf_counter()
     agent.prepare_batch(state, rollout)
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
-    _reset(fq, ff)
+    _reset(mods)
     t0 = time.perf_counter()
     state, m2 = agent.update(state, rollout, rng)
     loss = float(m2["train/loss"])
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
-    update_counts = _counts(fq, ff)
-    check(all(collect_counts[k] == per_rollout for k in FWD)
-          and all(collect_counts[k] == 0 for k in BWD),
-          f"collect launched {collect_counts}")
-    check(all(update_counts[k] == per_update for k in FWD + BWD),
-          f"one update launched {update_counts}, expected {per_update} each")
+    update_counts = _counts(mods)
+    check_counts(collect_counts, {k: per_rollout for k in fwd}, f"{what}: collect")
+    check_counts(update_counts, {k: per_update for k in fwd + bwd}, f"{what}: one update")
     check(loss == loss, "finite loss in the timed update")
     timing = dict(collect_s=collect_s, prepare_batch_s=prepare_s, update_s=update_s,
                   sgd_s=update_s - prepare_s, iteration_s=collect_s + update_s,
@@ -693,15 +898,56 @@ def training_path(torch, fq, ff, dev, shared: bool, epochs: int, updates: int,
     timing["device_busy_share"] = (prof["device_ms_per_minibatch"] / step_ms
                                    if prof else None)  # None: not measured
 
-    # a short greedy episode from the checkpoint
+    # a short greedy episode from the checkpoint: deterministic forwards, so
+    # the attention runs without dropout (K4f on the pallas route)
+    _reset(mods)
     t0 = time.perf_counter()
     out = evaluate(cfg.replace(load_model_path=path, max_step_per_episode=96,
                                log_name=f"smoke_{mode}"), num_episodes=1, greedy=True,
                    log_dir=os.path.join(workdir, "logs"))
-    log("eval", seconds=time.perf_counter() - t0, **out)
+    eval_counts = _counts(mods)
+    per_step = cfg.vit.depth * out["intrinsic_trace_len"]
+    log("eval", attention=attention, seconds=time.perf_counter() - t0,
+        launches=eval_counts, **out)
     check(out["episodes"] == 1 and out["intrinsic_trace_len"] == 96
           and out["mean_return"] == out["mean_return"], f"evaluate returned {out}")
+    check_counts(eval_counts, {attention_kernels(attention, False)[0]: per_step,
+                               "fused_ffn_fwd": per_step}, f"{what}: evaluate")
     return counts, timing
+
+
+SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
+    "flash_qkv_fwd": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
+    "flash_qkv_bwd": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
+    "flash_qkv_bits": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:715"),
+    "fused_ffn_fwd": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:288"),
+    "fused_ffn_bwd": ("fused_ffn_bwd", "eavit_tpu/ops/fused_ffn.py:321"),
+    "fused_ffn_bits": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:455"),
+    "flash_fwd": ("flash", "eavit_tpu/ops/flash.py:125"),
+    "flash_bwd": ("flash", "eavit_tpu/ops/flash.py:217"),
+    "flash_dropout_fwd": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:225"),
+    "flash_dropout_bwd": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:254"),
+    "flash_dropout_bits": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:349"),
+}
+
+
+def kernel_entry(name, row, launches, **extra):
+    src, replaces = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": f"eavit_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "on_main_path": not name.endswith("_bits"), **extra}
+
+
+def log_split(attention, timing, kernel_ms, counts_per_update):
+    """The ``main_path`` line of one flagship iteration timed in pieces."""
+    kernel_s = sum(counts_per_update[n] * ms for n, ms in kernel_ms.items()) / 1e3
+    log("main_path", mode="shared", path="train", attention=attention, envs=NUM_ENVS,
+        steps=NUM_STEP, frames=NUM_ENVS * NUM_STEP, epochs=EPOCH, mini_batch=MINI_BATCH,
+        kernel_s_per_update=kernel_s, kernel_share_of_update=kernel_s / timing["update_s"],
+        **timing)
 
 
 def main() -> int:
@@ -712,11 +958,14 @@ def main() -> int:
         return 2
     try:
         from eavit_tpu_torch.ops import _build, kernel_prng
+        from eavit_tpu_torch.ops import flash as fl
+        from eavit_tpu_torch.ops import flash_dropout as fd
         from eavit_tpu_torch.ops import flash_qkv as fq
         from eavit_tpu_torch.ops import fused_ffn as ff
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
+    mods = (fq, ff, fl, fd)
 
     # comparisons in full float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -734,60 +983,75 @@ def main() -> int:
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
-    act_launches = main_path(torch, fq, ff, dev, shared=True)
-    main_path(torch, fq, ff, dev, shared=False)
+    rows.update(flash_kernel_phase(torch, fl, fd, kernel_prng, dev))
+    act_launches = main_path(torch, mods, dev, shared=True)
+    main_path(torch, mods, dev, shared=False)
+    pallas_act = main_path(torch, mods, dev, shared=True, attention="pallas")
+    main_path(torch, mods, dev, shared=False, attention="pallas")
 
-    grad_check(torch, dev, True, "float32", 2e-3)   # other sum orders only
-    grad_check(torch, dev, True, "bfloat16", 5e-2)  # bf16 Dense layers on both sides
+    for attention in ("pallas_qkv", "pallas"):
+        grad_check(torch, dev, True, "float32", 2e-3, attention)   # other sum orders only
+        grad_check(torch, dev, True, "bfloat16", 5e-2, attention)  # bf16 Dense layers
     with tempfile.TemporaryDirectory() as workdir:
-        train_launches, timing = training_path(
-            torch, fq, ff, dev, shared=True, epochs=EPOCH, updates=2, workdir=workdir)
-        training_path(torch, fq, ff, dev, shared=False, epochs=1, updates=1,
-                      workdir=os.path.join(workdir, "stacked"))
+        def run(tag, **kw):
+            return training_path(torch, mods, dev, workdir=os.path.join(workdir, tag), **kw)
+
+        train_launches, timing = run("qkv", shared=True, epochs=EPOCH, updates=2,
+                                     pieces=True)
+        run("qkv_stacked", shared=False, epochs=1, updates=1)
+        pallas_launches, pallas_timing = run("pallas", shared=True, epochs=EPOCH,
+                                             updates=1, attention="pallas", pieces=True)
+        run("pallas_stacked", shared=False, epochs=1, updates=1, attention="pallas")
+        zero_launches, _ = run("pallas_dropout0", shared=True, epochs=1, updates=1,
+                               attention="pallas", dropout=0.0)
 
     # the kernels of the flagship iteration (shared stream): launch counts of
-    # the two iterations train() ran, times at the shapes of its minibatches
-    # (K1f / K2f also run at a quarter of them when acting: "act_ms")
-    sources = {
-        "flash_qkv_fwd": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
-        "flash_qkv_bwd": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
-        "flash_qkv_bits": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:715"),
-        "fused_ffn_fwd": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:288"),
-        "fused_ffn_bwd": ("fused_ffn_bwd", "eavit_tpu/ops/fused_ffn.py:321"),
-        "fused_ffn_bits": ("fused_ffn", "eavit_tpu/ops/fused_ffn.py:455"),
-    }
-    main_rows = {
-        "flash_qkv_fwd": rows[("flash_qkv_fwd", 198, 0.1)],
-        "flash_qkv_bwd": rows[("flash_qkv_bwd", 198, 0.1)],
-        "fused_ffn_fwd": rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
-        "fused_ffn_bwd": rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
-        "flash_qkv_bits": rows["flash_qkv_bits"],
-        "fused_ffn_bits": rows["fused_ffn_bits"],
-    }
-    kernels = []
-    for name, row in main_rows.items():
-        src, replaces = sources[name]
-        entry = {
-            "name": name, "route": "cuda", "source": f"eavit_tpu_torch/csrc/{src}.cu",
-            "replaces": replaces, "launches": train_launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "on_main_path": not name.endswith("_bits"),
-        }
-        if name.endswith("_fwd"):  # ms above is at the acting shape
-            bwd = main_rows[name.replace("_fwd", "_bwd")]
-            entry["act_launches_per_rollout"] = act_launches[name]
-            entry["train_shape_ms"] = bwd["fwd_ms_at_this_shape"]
-        kernels.append(entry)
+    # the training runs that use them, times at the acting shape ("ms" of the
+    # forward kernels, which run there too) and at the minibatch shape
+    def train_ms(name):
+        return rows[(name, "train", 198, "bfloat16")]["ms"]
+
+    kernels = [
+        kernel_entry("flash_qkv_fwd", rows[("flash_qkv_fwd", 198, 0.1)],
+                     train_launches["flash_qkv_fwd"],
+                     act_launches_per_rollout=act_launches["flash_qkv_fwd"],
+                     train_shape_ms=rows[("flash_qkv_bwd", 198, 0.1)]["fwd_ms_at_this_shape"]),
+        kernel_entry("flash_qkv_bwd", rows[("flash_qkv_bwd", 198, 0.1)],
+                     train_launches["flash_qkv_bwd"]),
+        kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
+        kernel_entry("fused_ffn_fwd", rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
+                     train_launches["fused_ffn_fwd"],
+                     act_launches_per_rollout=act_launches["fused_ffn_fwd"],
+                     train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)][
+                         "fwd_ms_at_this_shape"]),
+        kernel_entry("fused_ffn_bwd", rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
+                     train_launches["fused_ffn_bwd"]),
+        kernel_entry("fused_ffn_bits", rows["fused_ffn_bits"], train_launches["fused_ffn_bits"]),
+        # K4 runs on the pallas route at dropout 0 (and in evaluate); K3 while
+        # dropout is live
+        kernel_entry("flash_fwd", rows[("flash_fwd", "act", 198, "bfloat16")],
+                     zero_launches["flash_fwd"], train_shape_ms=train_ms("flash_fwd")),
+        kernel_entry("flash_bwd", rows[("flash_bwd", "train", 198, "bfloat16")],
+                     zero_launches["flash_bwd"]),
+        kernel_entry("flash_dropout_fwd", rows[("flash_dropout_fwd", "act", 198, "bfloat16")],
+                     pallas_launches["flash_dropout_fwd"],
+                     act_launches_per_rollout=pallas_act["flash_dropout_fwd"],
+                     train_shape_ms=train_ms("flash_dropout_fwd")),
+        kernel_entry("flash_dropout_bwd", rows[("flash_dropout_bwd", "train", 198, "bfloat16")],
+                     pallas_launches["flash_dropout_bwd"]),
+        kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
+                     pallas_launches["flash_dropout_bits"]),
+    ]
     by_name = {k["name"]: k for k in kernels}
-    per_update = timing["launches_per_update"]
-    kernel_s = sum(per_update[n] * (by_name[n].get("train_shape_ms", by_name[n]["ms"]))
-                   for n in FWD + BWD) / 1e3
-    log("main_path", mode="shared", path="train", envs=NUM_ENVS, steps=NUM_STEP,
-        frames=NUM_ENVS * NUM_STEP, epochs=EPOCH, mini_batch=MINI_BATCH,
-        kernel_s_per_update=kernel_s, kernel_share_of_update=kernel_s / timing["update_s"],
-        **timing)
+    log_split("pallas_qkv", timing, {n: by_name[n].get("train_shape_ms", by_name[n]["ms"])
+                                     for n in ("flash_qkv_fwd", "fused_ffn_fwd",
+                                               "flash_qkv_bwd", "fused_ffn_bwd")},
+              timing["launches_per_update"])
+    log_split("pallas", pallas_timing,
+              {n: by_name[n].get("train_shape_ms", by_name[n]["ms"])
+               for n in ("flash_dropout_fwd", "fused_ffn_fwd", "flash_dropout_bwd",
+                         "fused_ffn_bwd")},
+              pallas_timing["launches_per_update"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ Keys that name TPU choices are still parsed. :func:`attention_route` and
 :func:`ffn_route` map them onto the port's own choices:
 
 - ``AttentionImpl = pallas_qkv`` runs the CUDA kernel of
-  ``ops/flash_qkv.py``; ``xla`` (or empty with
-  ``UsePallasAttention = False``) runs the plain path of
-  ``ops/attention.py``. ``pallas`` and ``pallas_stream`` are not ported
-  yet and raise ``NotImplementedError`` when a model is built.
+  ``ops/flash_qkv.py``; ``pallas`` (or empty with
+  ``UsePallasAttention = True``) those of ``ops/flash.py`` and
+  ``ops/flash_dropout.py``; ``xla`` (or empty with
+  ``UsePallasAttention = False``) the plain path of ``ops/attention.py``.
+  ``pallas_stream`` is not ported yet and raises ``NotImplementedError``
+  when a model is built.
 - ``FusedFFN = true`` runs the CUDA kernel of ``ops/fused_ffn.py``.
 - ``ComputeDtype`` keeps its meaning (the dtype of the Dense layers).
 - ``PrngImpl`` is parsed and not read. ``EncoderRemat`` other than
@@ -298,21 +300,21 @@ class Config:
 # ---------------------------------------------------------------------------
 
 # What each ported attention implementation runs: "kernel" is the CUDA
-# kernel of ops/flash_qkv.py, "plain" the torch path of ops/attention.py.
-_ATTENTION_ROUTES = {"pallas_qkv": "kernel", "xla": "plain"}
+# kernel of ops/flash_qkv.py, "flash" those of ops/flash.py and
+# ops/flash_dropout.py, "plain" the torch path of ops/attention.py.
+_ATTENTION_ROUTES = {"pallas_qkv": "kernel", "pallas": "flash", "xla": "plain"}
 # Names the JAX package accepts that the port has not ported yet, with the
 # ROADMAP.md item that ports them.
 _UNPORTED_ATTENTION = {
-    "pallas": "ROADMAP.md Queue 2, K4 (ops/flash.py) and K3 (ops/flash_dropout.py)",
     "pallas_stream": "ROADMAP.md Queue 2, K5 (ops/flash_stream.py)",
 }
 
 
 def attention_route(cfg: Config) -> str:
     """The attention implementation a model built from ``cfg`` runs:
-    ``"kernel"`` (``AttentionImpl = pallas_qkv``) or ``"plain"`` (``xla``).
-    The empty name derives from ``UsePallasAttention`` as in
-    ``eavit_tpu/models/policy.py:56-58``."""
+    ``"kernel"`` (``AttentionImpl = pallas_qkv``), ``"flash"`` (``pallas``)
+    or ``"plain"`` (``xla``). The empty name derives from
+    ``UsePallasAttention`` as in ``eavit_tpu/models/policy.py:56-58``."""
     impl = cfg.attention_impl or ("pallas" if cfg.use_pallas_attention else "xla")
     if impl in _UNPORTED_ATTENTION:
         raise NotImplementedError(

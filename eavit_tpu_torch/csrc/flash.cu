@@ -1,0 +1,42 @@
+// K4f flash_fwd and K4b flash_bwd: flash attention on [B, H, N, Dh] with the
+// dual-query mask and no dropout.
+//
+// Replaces the TPU kernels eavit_tpu/ops/flash.py `_fwd_kernel` (line 74,
+// launched by `_fwd` at line 125) and `_bwd_kernel` (line 147, launched by
+// `_bwd` at line 217). The kernels themselves are the DROPOUT = false
+// instantiations of flash_attn.cuh, which documents the math and the design.
+//
+// What bounds them on an H100: bytes. At the flagship minibatch ([256, 8, 198,
+// 32] bf16) the forward must move 105 MB (q, k, v read once, o and lse written
+// once) against 5.1 GFLOP, the backward 209 MB (q, k, v, o, dO, lse read,
+// dq, dk, dv written) against 12.8 GFLOP of five products: far below the 295
+// FLOP/byte where the bf16 tensor cores would be the limit. The design keeps
+// scores and probabilities out of device memory and reads each input once per
+// block. This first version computes on the CUDA cores in f32 (no tensor
+// cores); see PERF.md for its measured time.
+#include "flash_attn.cuh"
+
+extern "C" {
+
+// Shared-memory bytes each kernel needs for a sequence of N tokens.
+size_t eavit_flash_fwd_smem(int N, int DH) { return fwd_smem_bytes(N, DH); }
+size_t eavit_flash_bwd_smem(int N, int DH) { return bwd_smem_bytes(N, DH, false); }
+
+// Each returns the cudaError_t of its launch (0 on success). BH = B * H.
+int eavit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                    int BH, int N, int DH, int dtype, float scale, int num_special,
+                    void* stream) {
+  FwdArgs a{q, k, v, o, static_cast<float*>(lse), N, scale, num_special, 0u, 1.f, 0u, 0u};
+  return launch<false>(dtype, DH, BH, a, stream);
+}
+
+int eavit_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                    int BH, int N, int DH, int dtype, float scale, int num_special,
+                    void* stream) {
+  BwdArgs a{q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,
+            N, scale, num_special, 0u, 1.f, 0u, 0u};
+  return launch<false>(dtype, DH, BH, a, stream);
+}
+
+}  // extern "C"

@@ -18,9 +18,11 @@ stream, the FFN and the final norm stay float32 while qkv, attention and
 the output projection run in the compute dtype.
 
 Implementation routes (``config.attention_route`` / ``ffn_route``):
-``"kernel"`` runs ``ops/flash_qkv`` (K1f) and ``ops/fused_ffn`` (K2f),
-``"plain"`` the torch layers. The modules' parameter names mirror the flax
-tree, so ``convert.load_jax_params`` maps one onto the other by name.
+``"kernel"`` runs ``ops/flash_qkv`` (K1) and ``ops/fused_ffn`` (K2),
+``"flash"`` runs ``ops/attention.mha(impl="pallas")`` on the split heads
+(K3 while dropout is live, else K4), ``"plain"`` the torch layers. The
+modules' parameter names mirror the flax tree (the same on every route), so
+``convert.load_jax_params`` maps one onto the other by name.
 ``DualTokenViTHG`` (vit.py:430-536) is not ported yet.
 
 A forward with ``rng=None`` is deterministic (the JAX ``deterministic=True``);
@@ -80,13 +82,19 @@ class MultiHeadAttention(nn.Module):
                 num_special=self.num_special,
             )
         else:
-            q, k, v = (
-                t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-                for t in qkv.chunk(3, dim=-1)
-            )
+            # [B, N, 3*H*Dh] -> q, k, v [B, H, N, Dh]
+            heads = qkv.reshape(b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
+            flash = self.route == "flash"
+            if flash:
+                # the kernels take contiguous heads: one layout copy, as the
+                # JAX package pays at the pallas_call boundary
+                heads = heads.contiguous()
+            q, k, v = heads
             out = mha(q, k, v, num_special=self.num_special,
                       dropout_rate=self.dropout if training else 0.0,
-                      gen=rng.device if training else None)
+                      gen=rng.device if training and not flash else None,
+                      impl="pallas" if flash else "xla",
+                      seeds=rng.seeds() if training and flash else None)
             out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         if self.project_out:
             out = self.out_drop(self.to_out(out), rng)

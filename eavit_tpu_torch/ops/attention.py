@@ -6,12 +6,13 @@ Counterpart of ``eavit_tpu/ops/attention.py``:
   With ``num_special`` special tokens first in the sequence, patch rows
   attend only to patch columns and special row ``i`` attends to itself and
   the patches, never to the other special tokens.
-- :func:`mha` (lines 56-108, ``impl="xla"``): ``softmax(q k^T * scale) v``
-  on ``[B, H, N, Dh]`` with f32 scores, probabilities cast to ``v``'s dtype
-  (``_softmax_cast``, lines 111-135), optional probability dropout, and
-  the product in ``v``'s dtype. This is what ``AttentionImpl = xla`` runs.
-  The JAX package's ``pallas`` and ``pallas_stream`` kernels are not ported
-  yet (``config.attention_route`` raises for them).
+- :func:`mha` (lines 56-108): ``softmax(q k^T * scale) v`` on
+  ``[B, H, N, Dh]``. ``impl="xla"`` runs the plain path with f32 scores,
+  probabilities cast to ``v``'s dtype (``_softmax_cast``, lines 111-135),
+  optional 16-bit probability dropout, and the product in ``v``'s dtype.
+  ``impl="pallas"`` runs the flash kernels: ``ops/flash_dropout`` (K3)
+  while dropout is live, with the two seed words of the call, else
+  ``ops/flash`` (K4). ``impl="pallas_stream"`` (K5) is not ported yet.
 - :func:`dropout16` (lines 157-196): dropout from 16-bit random integers,
   keep probability ``thresh / 65536`` with the exact inverse scale, drawn
   from an explicit ``torch.Generator`` on the tensor's device.
@@ -19,7 +20,7 @@ Counterpart of ``eavit_tpu/ops/attention.py``:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,10 +61,30 @@ def mha(
     num_special: int = 0,
     dropout_rate: float = 0.0,
     gen: Optional[torch.Generator] = None,
+    impl: str = "xla",
+    seeds: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Softmax attention -> ``[B, H, N, Dh]`` in ``v``'s dtype."""
+    """Softmax attention -> ``[B, H, N, Dh]`` in ``v``'s dtype. Dropout
+    draws from ``gen`` on the ``xla`` path and from ``seeds`` on the
+    ``pallas`` path; without them the forward is deterministic."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if impl == "pallas":
+        # imported here: both kernel modules import this one
+        if dropout_rate > 0.0 and seeds is not None:
+            from eavit_tpu_torch.ops.flash_dropout import flash_attention_dropout
+
+            return flash_attention_dropout(q, k, v, seeds, dropout_rate, scale=scale,
+                                           num_special=num_special)
+        from eavit_tpu_torch.ops.flash import flash_attention
+
+        return flash_attention(q, k, v, scale=scale, num_special=num_special)
+    if impl == "pallas_stream":
+        raise NotImplementedError(
+            "attention impl pallas_stream is not ported to the torch package yet "
+            "(ROADMAP.md Queue 2, K5: ops/flash_stream.py)")
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl: {impl!r}")
     dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if num_special:
         allowed = dual_query_allowed(q.shape[2], k.shape[2], num_special, q.device)

@@ -1,0 +1,202 @@
+"""Flash attention on ``[B, H, N, Dh]``: K4f and K4b.
+
+Counterpart of ``eavit_tpu/ops/flash.py``: :func:`flash_attention` computes
+``softmax(q k^T * scale) v`` per head with the dual-query mask when
+``num_special > 0`` (``ops/attention.py``) and no dropout; it is what the
+``AttentionImpl = pallas`` route runs for deterministic forwards and at
+dropout 0. The math is the TPU kernels': the forward (``_fwd_kernel``,
+lines 74-104) takes f32 scores, ``p = exp(s - m)``, ``o = (p v) / l`` with
+``p`` unrounded, ``o`` cast to the input dtype, and the row log-sum-exp
+``lse = m + log l`` as f32 ``[B, H, N]``. The backward (``_bwd_kernel``,
+147-189) recomputes ``p = exp(s - lse)``, takes ``delta = sum(dO * O)`` per
+row from the forward's O, ``ds = p (dO v^T - delta) scale``, and writes
+``dq``, ``dk`` and ``dv`` (f32 sums) once each in the input dtype.
+
+Two versions of each function:
+
+- :func:`flash_fwd_plain` / :func:`flash_bwd_plain`: plain torch, the oracle;
+- the CUDA kernels of ``csrc/flash.cu`` (K4f ``flash_fwd``, which replaces
+  ``_fwd_kernel`` launched at flash.py:125, and K4b ``flash_bwd``, which
+  replaces ``_bwd_kernel`` launched at line 217).
+
+:func:`flash_fwd` and :func:`flash_bwd` take the plain version for a tensor
+on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the kernel
+does not take (another dtype or layout, ``Dh`` not in 16 / 32 / 64, or N
+past what fits in shared memory) raises. :func:`flash_attention` is
+differentiable through one ``torch.autograd.Function`` that saves
+``(q, k, v, o, lse)`` as ``_flash_fwd`` does (line 244). ``launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from eavit_tpu_torch.ops import _build
+from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+# launches of each kernel since the last reset (chip_smoke.py reads them)
+launches = {"flash_fwd": 0, "flash_bwd": 0}
+
+DIM_HEADS = (16, 32, 64)
+SMEM_LIMIT = 227 * 1024
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    lib = _build.library("flash")
+    if not getattr(lib, "_eavit_typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.eavit_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, f, i, vp]
+        lib.eavit_flash_fwd.restype = i
+        lib.eavit_flash_bwd.argtypes = [vp] * 9 + [i, i, i, i, f, i, vp]
+        lib.eavit_flash_bwd.restype = i
+        for name in ("eavit_flash_fwd_smem", "eavit_flash_bwd_smem"):
+            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).restype = ctypes.c_size_t
+        lib._eavit_typed = True
+    return lib
+
+
+def masked_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+                  num_special: int) -> torch.Tensor:
+    """f32 ``q k^T * scale`` ``[B, H, N, N]``, -inf where the dual-query mask
+    forbids the edge."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if num_special:
+        n = q.shape[2]
+        s = s.masked_fill(~dual_query_allowed(n, n, num_special, q.device), float("-inf"))
+    return s
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    num_special: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K4f: ``(o [B, H, N, Dh] in q's dtype, lse [B, H, N] f32)``."""
+    s = masked_scores(q, k, scale, num_special)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor, scale: float,
+                    num_special: int = 0) -> Tuple[torch.Tensor, ...]:
+    """Plain torch K4b: ``(dq, dk, dv)`` in q's dtype, as the explicit
+    formulas of ``_bwd_kernel``."""
+    g = do.float()
+    p = torch.exp(masked_scores(q, k, scale, num_special) - lse.float()[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    delta = (g * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def check_kernel_args(what: str, q: torch.Tensor, *like_q: torch.Tensor,
+                      lse: Optional[torch.Tensor] = None) -> None:
+    """Raise unless q (and every tensor of ``like_q``) is a contiguous CUDA
+    ``[B, H, N, Dh]`` tensor the kernels take, and ``lse`` f32 ``[B, H, N]``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {q.dtype} (float32 or bfloat16)")
+    if q.dim() != 4:
+        raise ValueError(f"{what}: shape {tuple(q.shape)} is not [B, H, N, Dh]")
+    if q.shape[-1] not in DIM_HEADS:
+        raise ValueError(f"{what}: dim_head {q.shape[-1]} not in {DIM_HEADS}")
+    for t in (q, *like_q):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: inputs must be contiguous {q.dtype} "
+                             f"{tuple(q.shape)} tensors on {q.device}")
+    if lse is not None and (tuple(lse.shape) != tuple(q.shape[:3])
+                            or lse.dtype != torch.float32 or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"{what}: lse must be contiguous float32 "
+                         f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def check_smem(what: str, need: int, n: int, dim_head: int) -> None:
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{what}: N={n} with dim_head={dim_head} needs {need} bytes "
+                         f"of shared memory, more than {SMEM_LIMIT}")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              num_special: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4f: ``(o, lse)``; plain version on the CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale, num_special)
+    check_kernel_args("flash_fwd", q, k, v)
+    b, h, n, dh = q.shape
+    lib = _lib()
+    check_smem("flash_fwd", lib.eavit_flash_fwd_smem(n, dh), n, dh)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    err = lib.eavit_flash_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), _build.ptr(lse),
+        b * h, n, dh, _build.DTYPE_CODES[q.dtype], float(scale), int(num_special),
+        _build.stream_ptr(q))
+    _build.check(err, "flash_fwd")
+    launches["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              lse: torch.Tensor, do: torch.Tensor, scale: float,
+              num_special: int = 0) -> Tuple[torch.Tensor, ...]:
+    """K4b: ``(dq, dk, dv)``; plain version on the CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
+    check_kernel_args("flash_bwd", q, k, v, o, do, lse=lse)
+    b, h, n, dh = q.shape
+    lib = _lib()
+    check_smem("flash_bwd", lib.eavit_flash_bwd_smem(n, dh), n, dh)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    err = lib.eavit_flash_bwd(
+        *(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv)),
+        b * h, n, dh, _build.DTYPE_CODES[q.dtype], float(scale), int(num_special),
+        _build.stream_ptr(q))
+    _build.check(err, "flash_bwd")
+    launches["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """K4f forward, K4b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, num_special):
+        o, lse = flash_fwd(q, k, v, scale, num_special)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, num_special)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        if not any(ctx.needs_input_grad[:3]):
+            return (None,) * 5
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.args) + (None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None, num_special: int = 0) -> torch.Tensor:
+    """``softmax(q k^T * scale) v`` on ``[B, H, N, Dh]`` with the flash
+    backward (``eavit_tpu/ops/flash.py:252-268``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _Flash.apply(q, k, v, float(scale), int(num_special))

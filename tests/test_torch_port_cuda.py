@@ -16,7 +16,10 @@ one bf16 rounding of dx, 2e-3 for the float32 parameter gradients, where a
 sum that lands on a rounding boundary of dh or gd flips the operand). The
 backward kernels are also held to torch autograd through the plain forward
 (float32, 1e-4), and two identical calls must give equal bits: neither
-kernel sums with atomics.
+kernel sums with atomics. K3 and K4 (flash attention on [B, H, N, Dh]) are
+held to their plain versions at one bf16 rounding of each output in bf16 and
+1e-4 of its scale in float32, K3r bit for bit; their backward kernels also
+to autograd through the plain forward, and give equal bits twice.
 """
 
 import math
@@ -25,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from eavit_tpu_torch.ops import flash as fl
+from eavit_tpu_torch.ops import flash_dropout as fd
 from eavit_tpu_torch.ops import flash_qkv as fq
 from eavit_tpu_torch.ops import fused_ffn as ff
 from eavit_tpu_torch.ops.kernel_prng import keep_threshold
@@ -257,3 +262,127 @@ def test_kernel_keep_rate(cuda):
     keep = (m1 < thresh).double().mean().item()
     p = thresh / (1 << 24)
     assert abs(keep - p) < 4 * np.sqrt(p * (1 - p) / m1.numel())
+
+
+# ---------------------------------------------------------------------------
+# K4 (ops/flash) and K3 (ops/flash_dropout): [B, H, N, Dh] flash attention
+# ---------------------------------------------------------------------------
+
+
+def _heads(b, h, n, dh, device, dtype, count=4, seed=0):
+    g = torch.Generator().manual_seed(seed * 1000 + n * 10 + dh)
+    return [torch.randn(b, h, n, dh, generator=g).to(device, dtype) for _ in range(count)]
+
+
+def _tol(ref, dtype):
+    if dtype == torch.bfloat16:
+        return _bf16_tol(ref)
+    return 1e-4 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", [37, 197, 198])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_match_plain(cuda, rate, n, num_special, dim_head, dtype):
+    """K4f / K4b at rate 0, K3f / K3b at rate 0.1, forward and backward."""
+    q, k, v, do = _heads(2, 3, n, dim_head, cuda, dtype)
+    scale, seeds = dim_head ** -0.5, (31, 41)
+    if rate:
+        fwd = lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, num_special)  # noqa: E731
+        o, lse = fwd()
+        po, plse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, num_special)
+        bwd = lambda: fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale,  # noqa: E731
+                                           num_special)
+        plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, num_special)
+        count, name = fd.launches, "flash_dropout_bwd"
+    else:
+        o, lse = fl.flash_fwd(q, k, v, scale, num_special)
+        po, plse = fl.flash_fwd_plain(q, k, v, scale, num_special)
+        bwd = lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)  # noqa: E731
+        plain = fl.flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
+        count, name = fl.launches, "flash_bwd"
+    before = count[name]
+    grads = bwd()
+    torch.cuda.synchronize()
+    assert count[name] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == q.shape[:3]
+    assert _max_err(o, po) <= _tol(po, dtype)
+    assert _max_err(lse, plse) <= 1e-4
+    for a, p in zip(grads, plain):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _max_err(a, p) <= _tol(p, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd()))  # deterministic
+
+
+def test_flash_dropout_bits_match_plain_bit_for_bit(cuda):
+    seeds = (0xDEADBEEF, 0x12345678)
+    before = fd.launches["flash_dropout_bits"]
+    bits = fd.dropout_raw_bits(3, 8, 198, seeds, cuda)
+    assert fd.launches["flash_dropout_bits"] == before + 1
+    assert torch.equal(bits, fd.dropout_raw_bits_plain(3, 8, 198, seeds, cuda))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_flash_functions_match_autograd_of_plain_forward(cuda, num_special, rate):
+    q, k, v, do = _heads(3, 4, 45, 16, cuda, torch.float32, seed=1)
+    seeds, scale = (9, 10), 16 ** -0.5
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    if rate:
+        o, _ = fd.flash_dropout_fwd_plain(*ref_in, seeds, rate, scale, num_special)
+    else:
+        o, _ = fl.flash_fwd_plain(*ref_in, scale, num_special)
+    o.backward(do)
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = {**fl.launches, **fd.launches}
+    fd.flash_attention_dropout(*mine, seeds, rate, num_special=num_special).backward(do)
+    after = {**fl.launches, **fd.launches}
+    names = ("flash_dropout_fwd", "flash_dropout_bwd") if rate else ("flash_fwd", "flash_bwd")
+    assert all(after[n] == before[n] + 1 for n in names)
+    for a, b in zip(mine, ref_in):
+        assert _max_err(a.grad, b.grad) <= 1e-4 * b.grad.abs().max().item()
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _heads(2, 2, 9, 32, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        fl.flash_fwd(q.half(), k.half(), v.half(), 0.2)  # another dtype
+    with pytest.raises(ValueError):
+        fl.flash_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
+    with pytest.raises(ValueError):
+        fd.flash_dropout_fwd(q.transpose(1, 2), k, v, (1, 2), 0.1, 0.2)  # not contiguous
+    with pytest.raises(ValueError):
+        fl.flash_fwd(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                     v[..., :24].contiguous(), 0.2)  # dim_head 24 has no kernel
+    o, lse = fl.flash_fwd(q, k, v, 0.2)
+    with pytest.raises(ValueError):
+        fl.flash_bwd(q, k, v, o, lse[:, :1].contiguous(), do, 0.2)  # lse of another shape
+    with pytest.raises(ValueError):
+        fd.flash_dropout_bwd(q, k, v, lse, do.cpu(), (1, 2), 0.1, 0.2)  # dO on the CPU
+    long = _heads(1, 1, 700, 64, cuda, torch.float32, count=3)
+    for call in (lambda: fl.flash_bwd(*long, long[0], torch.zeros(1, 1, 700, device=cuda),
+                                      long[0], 0.2),
+                 lambda: fd.flash_dropout_fwd(*_heads(1, 1, 1000, 64, cuda, torch.float32,
+                                                      count=3), (1, 2), 0.1, 0.2)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+
+
+def test_flash_backward_runs_on_the_current_stream(cuda):
+    q, k, v = _heads(2, 2, 40, 32, cuda, torch.float32, count=3, seed=2)
+
+    def grads(rate):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fd.flash_attention_dropout(*leaves, (3, 4), rate).square().sum().backward()
+        return [t.grad for t in leaves]
+
+    for rate in (0.0, 0.1):
+        ref = grads(rate)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mine = grads(rate)
+        side.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(mine, ref))

@@ -269,6 +269,24 @@ def test_update_matches_jax_with_the_jax_permutations(monkeypatch):
     assert next(perms, None) is None  # one permutation per epoch was drawn
 
 
+def test_update_matches_jax_on_the_pallas_route(monkeypatch):
+    """``AttentionImpl = pallas`` at dropout 0: the port's K4 (plain on the
+    CPU) against ``jax.grad`` through the Pallas ``ops/flash.py`` kernels."""
+    epochs = 1
+    jag, jst, pag, pst = _pair(epoch=epochs, mini_batch=2, attention_impl="pallas")
+    ro = _rollout(7)
+    key = jax.random.PRNGKey(11)
+    perms = iter(_jax_permutations(key, epochs, N_STEP * N_ENV))
+    monkeypatch.setattr(pag, "_permutation",
+                        lambda rng, n: torch.tensor(next(perms), dtype=torch.int64))
+    jro = JaxRollout(**{k: jnp.asarray(v) for k, v in ro.items()})
+    jnew, jmetrics = jag.update(jst, jro, key)
+    pnew, pmetrics = pag.update(
+        pst, Rollout(**{k: torch.from_numpy(np.asarray(v)) for k, v in ro.items()}),
+        Rng(0, "cpu"))
+    _compare_after_update(jag, jnew, jmetrics, pag, pnew, pmetrics)
+
+
 def test_own_permutation_is_a_permutation_on_the_agents_device():
     pag, _ = _port_only(epoch=1, mini_batch=1)
     perm = pag._permutation(Rng(3, "cpu"), 16)

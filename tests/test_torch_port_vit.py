@@ -103,6 +103,29 @@ def test_actor_critic_matches_jax(route, dtype):
                                    np.asarray(getattr(ref, name)), **TOL[dtype])
 
 
+@pytest.mark.parametrize("shared", [True, False])
+def test_dual_token_vit_pallas_route_matches_jax(shared):
+    """``AttentionImpl = pallas`` (the port's flash route, K4 at a
+    deterministic forward) against the JAX module on that route, whose
+    parameter tree loads into the port as it is."""
+    def jax_vit(**impl):
+        return JaxViT(cfg=jax_config.ViTConfig(**TINY), image_size=IMG, channels=CH,
+                      shared_patch_stream=shared, dtype=jnp.float32, **impl)
+
+    img = _img(4)
+    variables = jax_vit(attention_impl="pallas").init(jax.random.PRNGKey(3),
+                                                      jnp.asarray(img))
+    ref = jax_vit(attention_impl="pallas", ffn_impl="pallas").apply(
+        variables, jnp.asarray(img))
+    vit = DualTokenViT(port_config.ViTConfig(**TINY), IMG, CH, attention_route="flash",
+                       ffn_route="kernel", shared_patch_stream=shared, dtype=torch.float32)
+    load_flax_tree(vit, variables["params"])
+    with torch.no_grad():
+        out = vit(torch.tensor(img))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL["float32"])
+
+
 def test_cls_token_vit_matches_jax():
     # without explorative attention the single CLS stream feeds everything
     cfg = dict(TINY, use_explorative_attn=False)
@@ -136,12 +159,13 @@ def test_attention_routes():
     assert port_config.attention_route(c(attention_impl="pallas_qkv")) == "kernel"
     assert port_config.attention_route(c(attention_impl="xla")) == "plain"
     assert port_config.attention_route(c()) == "plain"
+    assert port_config.attention_route(c(attention_impl="pallas")) == "flash"
+    assert port_config.attention_route(c(use_pallas_attention=True)) == "flash"
     assert port_config.ffn_route(c(fused_ffn=True)) == "kernel"
-    for impl in ("pallas", "pallas_stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_config.attention_route(c(attention_impl=impl))
-    with pytest.raises(NotImplementedError):
-        port_config.attention_route(c(use_pallas_attention=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_config.attention_route(c(attention_impl="pallas_stream"))
+    with pytest.raises(ValueError):
+        port_config.attention_route(c(attention_impl="flashy"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
