@@ -59,6 +59,30 @@ non-zero on failure:
    iteration with ``Epoch = 1``.
 10. Training at ``ViTlucidrains_dropout = 0`` with ``AttentionImpl =
     pallas``, shared, ``Epoch = 1``: K4f 387 + 96, K4b 96, K3 none.
+11. KV-streaming kernels of ``AttentionImpl = pallas_stream``: K5f, K5q and
+    K5kv (``ops/flash_stream``) at the acting and training shapes of both
+    modes, the patch-4 minibatch ``[256, 8, 443, 32]``, the JAX package's
+    own K5 check shapes and the long sequences of its microbenchmark (N up
+    to 3,137 at ``Dh`` = 64), in bf16 and once in float32, against their
+    plain versions and for equal bits twice; times beside the bound, the
+    plain version, ``F.scaled_dot_product_attention`` with the same mask
+    (forward, and its backward beside K5q + K5kv) and K4 wherever K4's
+    wrapper takes the shape; the backward Function against torch autograd
+    through the plain forward; each kernel's shared memory at ``Dh``
+    16 / 32 / 64, which does not depend on N.
+12. The acting path of phases 3-4 with ``AttentionImpl = pallas_stream``:
+    K5f 387 launches per rollout, dropout on the attention output outside
+    the kernel, K1, K3 and K4 none.
+13. Training with ``AttentionImpl = pallas_stream``: the whole-network
+    gradient check (float32 and bf16); ``train.train`` for one shared
+    iteration with ``Epoch = 4`` (K5f 387 + 384, K5q and K5kv 384 each), the
+    checkpoint, one iteration in pieces, ``evaluate`` (3 K5f per step); one
+    stacked iteration with ``Epoch = 1`` (K5q and K5kv 96 each).
+14. Patch 4 (441 patches, N = 443 shared): one ``train.train`` iteration
+    with ``Epoch = 1`` on ``pallas_stream``, finite, with its launch counts
+    and frames/s; one minibatch step on ``pallas`` and on ``pallas_qkv``
+    must refuse the same N, whose backward kernels do not fit in shared
+    memory.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -530,6 +554,149 @@ def flash_kernel_phase(torch, fl, fd, kp, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the KV-streaming kernels of AttentionImpl = pallas_stream
+# ---------------------------------------------------------------------------
+
+# (use, B, H, N, Dh, num_special): the acting and minibatch shapes of both
+# modes at patch 6 and the shared minibatch at patch 4, the JAX package's own
+# K5 check shapes (scripts/tpu_kernel_check.py:33) and the long sequences of
+# scripts/attn_microbench.py:31-37
+STREAM_SHAPES = (
+    ("act", NUM_ENVS, 8, 198, 32, 2), ("act", 2 * NUM_ENVS, 8, 197, 32, 0),
+    ("train", MB_FRAMES, 8, 198, 32, 2), ("train", 2 * MB_FRAMES, 8, 197, 32, 0),
+    ("train_patch4", MB_FRAMES, 8, 443, 32, 2),
+    ("jax_check", 7, 8, 197, 32, 2), ("jax_check", 16, 4, 130, 64, 2),
+    ("jax_check", 4, 4, 640, 64, 2),
+    ("long", 128, 8, 442, 32, 0), ("long", 64, 8, 785, 64, 0),
+    ("long", 32, 8, 1765, 64, 0), ("long", 16, 8, 3137, 64, 0),
+)
+
+
+def allowed_pairs(n: int, ns: int) -> int:
+    """(query, key) pairs the dual-query mask allows in one head."""
+    return (n - ns) * (n - ns) + ns * (n - ns + 1) if ns else n * n
+
+
+def stream_kernel_phase(torch, fs, fl, dev):
+    """K5f, K5q and K5kv against their plain versions at every shape of
+    ``STREAM_SHAPES`` in bf16 and once in float32, equal bits twice, timed
+    beside the bound, the plain version, SDPA with the same mask and K4
+    where K4's wrapper takes the shape; the backward Function against torch
+    autograd through the plain forward; the shared memory of each kernel."""
+    import torch.nn.functional as F
+
+    from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+    def err_tol(out, ref, dtype):
+        err = (out.float() - ref.float()).abs().max().item()
+        big = ref.float().abs().max().item()
+        # bf16: one rounding of the output (2^-8); f32: another sum order
+        tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
+        return err, tol
+
+    rows = {}
+    cases = [(*c, torch.bfloat16) for c in STREAM_SHAPES] + [
+        ("act", NUM_ENVS, 8, 198, 32, 2, torch.float32)]
+    for use, b, h, n, dh, ns, dtype in cases:
+        g = torch.Generator().manual_seed(b + n + dh)
+        q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, dtype)
+                       for _ in range(4))
+        scale, dname, timed = dh ** -0.5, str(dtype).split(".")[-1], dtype == torch.bfloat16
+        numel, esize, bhn = q.numel(), q.element_size(), b * h * n
+        pair_flops = 2.0 * b * h * allowed_pairs(n, ns) * dh  # one [N, N] x [N, Dh] product
+        iters = max(3, min(50, int(4e10 / pair_flops)))
+        mask = dual_query_allowed(n, n, ns, dev) if ns else None
+
+        o, lse = fs.flash_stream_fwd(q, k, v, scale, ns)
+        delta = fs.stream_delta(o, do)
+        bargs = (q, k, v, lse, delta, do, scale, ns)
+        calls = {  # kernel -> (kernel call, plain call, tensors moved, products)
+            # q, k, v read, o written, lse f32
+            "flash_stream_fwd": (lambda: fs.flash_stream_fwd(q, k, v, scale, ns),
+                                 lambda: fs.flash_stream_fwd_plain(q, k, v, scale, ns),
+                                 4 * numel * esize + 4 * bhn, 2),
+            # q, k, v, dO, lse, delta read, dq written; scores, dP, dQ
+            "flash_stream_dq": (lambda: (fs.flash_stream_dq(*bargs),),
+                                lambda: (fs.flash_stream_dq_plain(*bargs),),
+                                5 * numel * esize + 8 * bhn, 3),
+            # q, k, v, dO, lse, delta read, dk, dv written; scores, dP, dV, dK
+            "flash_stream_dkv": (lambda: fs.flash_stream_dkv(*bargs),
+                                 lambda: fs.flash_stream_dkv_plain(*bargs),
+                                 6 * numel * esize + 8 * bhn, 4),
+        }
+        lib = {"flash_stream_fwd": None, "bwd": None}
+        k4 = {}
+        if timed:  # yardsticks: SDPA with the same mask, and K4 where it fits
+            lib["flash_stream_fwd"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), iters)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, leaves, do, retain_graph=True), iters)
+            del o_lib, leaves
+            smem = fl._lib()  # K4b beside K5q + K5kv: both compute dq, dk and dv
+            if smem.eavit_flash_fwd_smem(n, dh) <= fl.SMEM_LIMIT:
+                k4["k4_fwd_ms"] = time_ms(torch, lambda: fl.flash_fwd(q, k, v, scale, ns),
+                                          iters)
+            if smem.eavit_flash_bwd_smem(n, dh) <= fl.SMEM_LIMIT:
+                k4["k4_bwd_ms"] = time_ms(torch, lambda: fl.flash_bwd(
+                    q, k, v, o, lse, do, scale, ns), iters)
+        for name, (call, plain, nbytes, products) in calls.items():
+            out = call()
+            ref = plain()
+            again = call()
+            torch.cuda.synchronize()
+            errs = [err_tol(a, p, dtype) for a, p in zip(out, ref)]
+            same = all(torch.equal(a, b_) for a, b_ in zip(out, again))
+            row = dict(kernel=name, use=use, b=b, h=h, n=n, dim_head=dh, num_special=ns,
+                       dtype=dname, max_abs_err=max(e for e, _ in errs),
+                       errs=[e for e, _ in errs], tols=[t for _, t in errs],
+                       deterministic=same)
+            if name == "flash_stream_fwd":  # errs: o, lse
+                row.update(errs=errs[0][0], tols=errs[0][1], max_abs_err=errs[0][0],
+                           lse_err=errs[1][0], lse_tol=1e-4)
+                ok = errs[0][0] <= errs[0][1] and errs[1][0] <= 1e-4
+            else:
+                ok = all(e <= t for e, t in errs)
+            del out, ref, again
+            bms, by = bound_ms(nbytes, products * pair_flops, dname)
+            row.update(bound_ms=bms, bound_by=by,
+                       library_ms=lib[name if name in lib else "bwd"])
+            if timed:
+                row.update(ms=time_ms(torch, call, iters),
+                           plain_ms=time_ms(torch, plain, 2, warmup=1),
+                           **(k4 if name == "flash_stream_fwd" else {}))
+            log("kernel", **row)
+            check(ok and same, f"{name} {row}")
+            rows[(name, use, n, dname)] = row
+        del q, k, v, do, o, lse, delta, bargs, calls
+        torch.cuda.empty_cache()
+
+    # the Function's backward kernels against autograd through the PLAIN forward
+    g = torch.Generator().manual_seed(6)
+    q, k, v, do = (torch.randn(4, 4, 150, 16, generator=g).to(dev) for _ in range(4))
+    for ns in (0, 2):
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(fs.flash_stream_fwd_plain(*ref_in, 0.25, ns)[0], ref_in, do)
+        mine = [t.clone().requires_grad_() for t in (q, k, v)]
+        fs.flash_attention_stream(*mine, scale=0.25, num_special=ns).backward(do)
+        err = max((a.grad - b_).abs().max().item() for a, b_ in zip(mine, ref))
+        tol = 1e-4 * max(b_.abs().max().item() for b_ in ref)
+        log("autograd", kernel="flash_stream_dq+flash_stream_dkv", num_special=ns,
+            max_abs_err=err, tol=tol)
+        check(err <= tol, "flash_stream: Function backward vs autograd of the plain forward")
+
+    # shared memory: a function of Dh alone, so every N runs
+    smem = {name: {dh: fs.smem_bytes(name, dh) for dh in fl.DIM_HEADS}
+            for name in ("fwd", "dq", "dkv")}
+    log("smem", kernels="flash_stream", bytes_by_dim_head=smem, depends_on_n=False,
+        longest_n_run=max(c[3] for c in STREAM_SHAPES))
+    check(all(0 < v_ <= 48 * 1024 for d in smem.values() for v_ in d.values()),
+          f"flash_stream shared memory {smem}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4 and 8: the acting path
 # ---------------------------------------------------------------------------
 
@@ -549,10 +716,14 @@ def flagship_cfg(shared: bool, attention: str = "pallas_qkv"):
 
 
 def attention_kernels(attention: str, dropout: bool):
-    """The (forward, backward) attention kernels a flagship model runs."""
+    """The attention kernels a flagship model runs: ``(forward, backwards)``."""
     if attention == "pallas_qkv":
-        return "flash_qkv_fwd", "flash_qkv_bwd"
-    return ("flash_dropout_fwd", "flash_dropout_bwd") if dropout else ("flash_fwd", "flash_bwd")
+        return "flash_qkv_fwd", ("flash_qkv_bwd",)
+    if attention == "pallas_stream":  # dropout on the output, outside the kernels
+        return "flash_stream_fwd", ("flash_stream_dq", "flash_stream_dkv")
+    if dropout:
+        return "flash_dropout_fwd", ("flash_dropout_bwd",)
+    return "flash_fwd", ("flash_bwd",)
 
 
 def _counts(mods):
@@ -676,28 +847,12 @@ LOSS_PARTS = ("train/actor_loss", "train/critic_loss", "train/entropy_loss",
               "train/rnd_loss")
 
 
-def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float,
-               attention: str = "pallas_qkv"):
-    """Loss and gradients of the whole network and the RND predictor on one
-    minibatch of 8 frames, kernels on the card against a copy on the CPU
-    (plain versions). Kernel dropout is live at rate 0.1 with the same seed
-    words on both sides (the device Philox equals the plain one). The 16-bit
-    dropout layers outside the kernels draw from the device's own generator,
-    which no CPU generator reproduces, so they are switched off in both
-    copies; ``UpdateProportion = 1`` takes the RND mask out the same way."""
+def host_batch(torch, n: int):
+    """The fields of a ``TrainBatch`` of ``n`` random frames, on the host."""
     import numpy as np
 
-    from eavit_tpu_torch.models.layers import Dropout16, Rng
-    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
-
-    cfg = flagship_cfg(shared, attention).replace(update_proportion=1.0,
-                                                  compute_dtype=compute_dtype)
-    agents = {"cuda": RNDAgent(cfg, 5), "cpu": RNDAgent(cfg, 5, device="cpu")}
-    state = agents["cuda"].init_state(SEED)
-    agents["cpu"].load_state_dict(agents["cuda"].state_dict(state))
     rng_np = np.random.default_rng(SEED)
-    n = 8
-    host = dict(
+    return dict(
         states=torch.from_numpy(rng_np.integers(0, 256, (n, 4, 84, 84), dtype=np.uint8)),
         actions=torch.from_numpy(rng_np.integers(0, 5, n)),
         old_policy=torch.from_numpy(rng_np.standard_normal((n, 5)).astype(np.float32)),
@@ -706,6 +861,28 @@ def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float,
         int_target=torch.from_numpy(rng_np.standard_normal(n).astype(np.float32)),
         rnd_in=torch.from_numpy(rng_np.standard_normal((n, 1, 84, 84)).astype(np.float32)),
     )
+
+
+def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float,
+               attention: str = "pallas_qkv"):
+    """Loss and gradients of the whole network and the RND predictor on one
+    minibatch of 8 frames, kernels on the card against a copy on the CPU
+    (plain versions). Kernel dropout is live at rate 0.1 with the same seed
+    words on both sides (the device Philox equals the plain one). The 16-bit
+    dropout layers outside the kernels draw from the device's own generator,
+    which no CPU generator reproduces, so they are switched off in both
+    copies (on ``pallas_stream`` that is all the attention's dropout);
+    ``UpdateProportion = 1`` takes the RND mask out the same way."""
+    from eavit_tpu_torch.models.layers import Dropout16, Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
+
+    cfg = flagship_cfg(shared, attention).replace(update_proportion=1.0,
+                                                  compute_dtype=compute_dtype)
+    agents = {"cuda": RNDAgent(cfg, 5), "cpu": RNDAgent(cfg, 5, device="cpu")}
+    state = agents["cuda"].init_state(SEED)
+    agents["cpu"].load_state_dict(agents["cuda"].state_dict(state))
+    n = 8
+    host = host_batch(torch, n)
     losses, grads = {}, {}
     for where, agent in agents.items():
         for m in agent.network.modules():
@@ -787,10 +964,11 @@ def profile_minibatches(torch, agent, state, rollout, rng, steps: int = 8):
 
 
 def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
-                  workdir: str, attention: str = "pallas_qkv", dropout=None,
+                  workdir: str, attention: str = "pallas_qkv", vit=None,
                   pieces: bool = False):
     """``train.train`` at full width, then what its checkpoint holds; with
-    ``pieces`` one more iteration timed in pieces, and ``evaluate``."""
+    ``pieces`` one more iteration timed in pieces, and ``evaluate``. ``vit``
+    replaces fields of the ViT configuration (dropout, patch size)."""
     import dataclasses
 
     from eavit_tpu_torch import train as port_train
@@ -805,14 +983,14 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     cfg = flagship_cfg(shared, attention).replace(
         epoch=epochs, obs_norm_step=1, save_ckpt_every=updates, log_name=f"smoke_{mode}",
         save_model_path=os.path.join(workdir, "ckpt"))
-    if dropout is not None:
-        cfg = cfg.replace(vit=dataclasses.replace(cfg.vit, dropout=dropout))
-    what = f"{mode}, {attention}, dropout {cfg.vit.dropout}"
+    if vit:
+        cfg = cfg.replace(vit=dataclasses.replace(cfg.vit, **vit))
+    what = f"{mode}, {attention}, dropout {cfg.vit.dropout}, patch {cfg.vit.patch_size}"
     frames = cfg.num_step * cfg.num_env_per_process
     per_update = cfg.vit.depth * epochs * cfg.mini_batch
     per_rollout = cfg.vit.depth * (cfg.num_step + 1)
     attn_fwd, attn_bwd = attention_kernels(attention, cfg.vit.dropout > 0)
-    fwd, bwd = (attn_fwd, "fused_ffn_fwd"), (attn_bwd, "fused_ffn_bwd")
+    fwd, bwd = (attn_fwd, "fused_ffn_fwd"), (*attn_bwd, "fused_ffn_bwd")
 
     torch.cuda.synchronize()
     _reset(mods)
@@ -828,7 +1006,7 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
     parts = sum(metrics[k] for k in LOSS_PARTS)
     log("train", mode=mode, attention=attention, dropout=cfg.vit.dropout,
-        updates=updates, epochs=epochs, train_s=train_s,
+        patch=cfg.vit.patch_size, updates=updates, epochs=epochs, train_s=train_s,
         frames_per_s=updates * frames / train_s, launches=counts,
         expected_launches=expect, finite=finite, metrics=metrics, loss_parts_sum=parts)
     check_counts(counts, expect, f"{what}: train")
@@ -916,6 +1094,33 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     return counts, timing
 
 
+def patch4_other_routes_raise(torch, dev):
+    """At patch 4 (N = 443 shared) the backward kernels of ``pallas`` (K3b)
+    and ``pallas_qkv`` (K1b) hold the whole head in shared memory and do not
+    fit: one minibatch step of 4 frames must raise there, and say why."""
+    import dataclasses
+
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
+
+    n = 4
+    batch = TrainBatch(**{k: v.to(dev) for k, v in host_batch(torch, n).items()})
+    for attention in ("pallas", "pallas_qkv"):
+        cfg = flagship_cfg(True, attention)
+        agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=4)), 5)
+        agent.init_state(SEED)
+        error = None
+        try:
+            loss, _ = agent._loss(batch, torch.arange(n, device=dev), Rng(SEED, dev))
+            loss.backward()
+            torch.cuda.synchronize()
+        except ValueError as e:
+            error = str(e)
+        log("patch4_route", attention=attention, tokens=443, raised=error)
+        check(error is not None and "shared memory" in error,
+              f"patch 4 on {attention}: expected a shared-memory refusal, got {error!r}")
+
+
 SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
     "flash_qkv_fwd": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
     "flash_qkv_bwd": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
@@ -928,6 +1133,9 @@ SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
     "flash_dropout_fwd": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:225"),
     "flash_dropout_bwd": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:254"),
     "flash_dropout_bits": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:349"),
+    "flash_stream_fwd": ("flash_stream", "eavit_tpu/ops/flash_stream.py:159"),
+    "flash_stream_dq": ("flash_stream", "eavit_tpu/ops/flash_stream.py:285"),
+    "flash_stream_dkv": ("flash_stream", "eavit_tpu/ops/flash_stream.py:304"),
 }
 
 
@@ -961,11 +1169,12 @@ def main() -> int:
         from eavit_tpu_torch.ops import flash as fl
         from eavit_tpu_torch.ops import flash_dropout as fd
         from eavit_tpu_torch.ops import flash_qkv as fq
+        from eavit_tpu_torch.ops import flash_stream as fs
         from eavit_tpu_torch.ops import fused_ffn as ff
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    mods = (fq, ff, fl, fd)
+    mods = (fq, ff, fl, fd, fs)
 
     # comparisons in full float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -984,12 +1193,15 @@ def main() -> int:
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
     rows.update(flash_kernel_phase(torch, fl, fd, kernel_prng, dev))
+    rows.update(stream_kernel_phase(torch, fs, fl, dev))
     act_launches = main_path(torch, mods, dev, shared=True)
     main_path(torch, mods, dev, shared=False)
     pallas_act = main_path(torch, mods, dev, shared=True, attention="pallas")
     main_path(torch, mods, dev, shared=False, attention="pallas")
+    stream_act = main_path(torch, mods, dev, shared=True, attention="pallas_stream")
+    main_path(torch, mods, dev, shared=False, attention="pallas_stream")
 
-    for attention in ("pallas_qkv", "pallas"):
+    for attention in ("pallas_qkv", "pallas", "pallas_stream"):
         grad_check(torch, dev, True, "float32", 2e-3, attention)   # other sum orders only
         grad_check(torch, dev, True, "bfloat16", 5e-2, attention)  # bf16 Dense layers
     with tempfile.TemporaryDirectory() as workdir:
@@ -1003,13 +1215,20 @@ def main() -> int:
                                              updates=1, attention="pallas", pieces=True)
         run("pallas_stacked", shared=False, epochs=1, updates=1, attention="pallas")
         zero_launches, _ = run("pallas_dropout0", shared=True, epochs=1, updates=1,
-                               attention="pallas", dropout=0.0)
+                               attention="pallas", vit=dict(dropout=0.0))
+        stream_launches, stream_timing = run("stream", shared=True, epochs=EPOCH, updates=1,
+                                             attention="pallas_stream", pieces=True)
+        run("stream_stacked", shared=False, epochs=1, updates=1, attention="pallas_stream")
+        # patch 4: N = 443, which only the streaming kernels train
+        run("stream_patch4", shared=True, epochs=1, updates=1, attention="pallas_stream",
+            vit=dict(patch_size=4))
+    patch4_other_routes_raise(torch, dev)
 
     # the kernels of the flagship iteration (shared stream): launch counts of
     # the training runs that use them, times at the acting shape ("ms" of the
     # forward kernels, which run there too) and at the minibatch shape
-    def train_ms(name):
-        return rows[(name, "train", 198, "bfloat16")]["ms"]
+    def train_ms(name, use="train", n=198):
+        return rows[(name, use, n, "bfloat16")]["ms"]
 
     kernels = [
         kernel_entry("flash_qkv_fwd", rows[("flash_qkv_fwd", 198, 0.1)],
@@ -1041,6 +1260,17 @@ def main() -> int:
                      pallas_launches["flash_dropout_bwd"]),
         kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
                      pallas_launches["flash_dropout_bits"]),
+        # K5 on pallas_stream; SDPA's backward computes dq, dk and dv at once,
+        # so its time stands beside K5q + K5kv together
+        kernel_entry("flash_stream_fwd", rows[("flash_stream_fwd", "act", 198, "bfloat16")],
+                     stream_launches["flash_stream_fwd"],
+                     act_launches_per_rollout=stream_act["flash_stream_fwd"],
+                     train_shape_ms=train_ms("flash_stream_fwd"),
+                     patch4_train_shape_ms=train_ms("flash_stream_fwd", "train_patch4", 443)),
+        *(kernel_entry(name, rows[(name, "train", 198, "bfloat16")], stream_launches[name],
+                       library_is="SDPA backward: dq, dk and dv",
+                       patch4_train_shape_ms=train_ms(name, "train_patch4", 443))
+          for name in ("flash_stream_dq", "flash_stream_dkv")),
     ]
     by_name = {k["name"]: k for k in kernels}
     log_split("pallas_qkv", timing, {n: by_name[n].get("train_shape_ms", by_name[n]["ms"])
@@ -1052,6 +1282,11 @@ def main() -> int:
                for n in ("flash_dropout_fwd", "fused_ffn_fwd", "flash_dropout_bwd",
                          "fused_ffn_bwd")},
               pallas_timing["launches_per_update"])
+    log_split("pallas_stream", stream_timing,
+              {n: by_name[n].get("train_shape_ms", by_name[n]["ms"])
+               for n in ("flash_stream_fwd", "fused_ffn_fwd", "flash_stream_dq",
+                         "flash_stream_dkv", "fused_ffn_bwd")},
+              stream_timing["launches_per_update"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

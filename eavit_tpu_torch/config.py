@@ -12,9 +12,8 @@ Keys that name TPU choices are still parsed. :func:`attention_route` and
   ``ops/flash_qkv.py``; ``pallas`` (or empty with
   ``UsePallasAttention = True``) those of ``ops/flash.py`` and
   ``ops/flash_dropout.py``; ``xla`` (or empty with
-  ``UsePallasAttention = False``) the plain path of ``ops/attention.py``.
-  ``pallas_stream`` is not ported yet and raises ``NotImplementedError``
-  when a model is built.
+  ``UsePallasAttention = False``) the plain path of ``ops/attention.py``;
+  ``pallas_stream`` the KV-streaming kernels of ``ops/flash_stream.py``.
 - ``FusedFFN = true`` runs the CUDA kernel of ``ops/fused_ffn.py``.
 - ``ComputeDtype`` keeps its meaning (the dtype of the Dense layers).
 - ``PrngImpl`` is parsed and not read. ``EncoderRemat`` other than
@@ -299,28 +298,21 @@ class Config:
 # mapping of the TPU keys onto the port's implementations
 # ---------------------------------------------------------------------------
 
-# What each ported attention implementation runs: "kernel" is the CUDA
-# kernel of ops/flash_qkv.py, "flash" those of ops/flash.py and
-# ops/flash_dropout.py, "plain" the torch path of ops/attention.py.
-_ATTENTION_ROUTES = {"pallas_qkv": "kernel", "pallas": "flash", "xla": "plain"}
-# Names the JAX package accepts that the port has not ported yet, with the
-# ROADMAP.md item that ports them.
-_UNPORTED_ATTENTION = {
-    "pallas_stream": "ROADMAP.md Queue 2, K5 (ops/flash_stream.py)",
-}
+# What each attention implementation runs: "kernel" is the CUDA kernel of
+# ops/flash_qkv.py, "flash" those of ops/flash.py and ops/flash_dropout.py,
+# "stream" those of ops/flash_stream.py, "plain" the torch path of
+# ops/attention.py.
+_ATTENTION_ROUTES = {"pallas_qkv": "kernel", "pallas": "flash",
+                     "pallas_stream": "stream", "xla": "plain"}
 
 
 def attention_route(cfg: Config) -> str:
     """The attention implementation a model built from ``cfg`` runs:
-    ``"kernel"`` (``AttentionImpl = pallas_qkv``), ``"flash"`` (``pallas``)
-    or ``"plain"`` (``xla``). The empty name derives from
-    ``UsePallasAttention`` as in ``eavit_tpu/models/policy.py:56-58``."""
+    ``"kernel"`` (``AttentionImpl = pallas_qkv``), ``"flash"`` (``pallas``),
+    ``"stream"`` (``pallas_stream``) or ``"plain"`` (``xla``). The empty name
+    derives from ``UsePallasAttention`` as in
+    ``eavit_tpu/models/policy.py:56-58``."""
     impl = cfg.attention_impl or ("pallas" if cfg.use_pallas_attention else "xla")
-    if impl in _UNPORTED_ATTENTION:
-        raise NotImplementedError(
-            f"AttentionImpl = {impl} is not ported to the torch package yet "
-            f"({_UNPORTED_ATTENTION[impl]})"
-        )
     if impl not in _ATTENTION_ROUTES:
         raise ValueError(f"unknown attention impl: {impl!r}")
     return _ATTENTION_ROUTES[impl]

@@ -1,5 +1,5 @@
-// Small helpers shared by the port's kernels: element-type conversion and
-// warp reductions.
+// Small helpers shared by the port's kernels: element-type conversion, warp
+// reductions and the dual-query mask.
 #pragma once
 
 #include <cmath>
@@ -37,6 +37,14 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The dual-query shared-KV mask (ops/attention.py dual_query_allowed): with
+// num_special tokens first in the sequence, patch row i attends to patch
+// columns only, special row i to itself and the patches.
+__device__ __forceinline__ bool dual_query_allowed(int i, int j, int num_special) {
+  if (num_special <= 0) return true;
+  return i >= num_special ? j >= num_special : (j == i || j >= num_special);
 }
 
 // Launches above 48 KB of dynamic shared memory need the opt-in attribute.

@@ -87,11 +87,6 @@ struct BwdArgs {
   uint32_t s0, s1;
 };
 
-__device__ __forceinline__ bool dual_query_allowed(int i, int j, int num_special) {
-  if (num_special <= 0) return true;
-  return i >= num_special ? j >= num_special : (j == i || j >= num_special);
-}
-
 size_t fwd_smem_bytes(int N, int DH) {
   return sizeof(float) * (static_cast<size_t>(N) * (2 * DH + 1) +
                           static_cast<size_t>(kFwdWarps) * N);

@@ -74,13 +74,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
     float m = -INFINITY;
     for (int j = lane; j < N; j += 32) {
-      bool allowed = true;
-      if (num_special > 0) {
-        allowed = i >= num_special ? j >= num_special
-                                   : (j == i || j >= num_special);
-      }
       float s = -INFINITY;
-      if (allowed) {
+      if (dual_query_allowed(i, j, num_special)) {
         float acc = 0.f;
 #pragma unroll
         for (int d = 0; d < DH; ++d) acc = fmaf(q[d], ks[j * KS + d], acc);

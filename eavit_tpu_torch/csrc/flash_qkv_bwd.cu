@@ -53,11 +53,6 @@ namespace {
 
 constexpr int kWarps = 16;  // rows (pass A) or columns (pass B) in flight
 
-__device__ __forceinline__ bool dual_query_allowed(int i, int j, int num_special) {
-  if (num_special <= 0) return true;
-  return i >= num_special ? j >= num_special : (j == i || j >= num_special);
-}
-
 template <typename T, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_qkv_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,

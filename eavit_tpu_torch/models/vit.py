@@ -20,7 +20,9 @@ the output projection run in the compute dtype.
 Implementation routes (``config.attention_route`` / ``ffn_route``):
 ``"kernel"`` runs ``ops/flash_qkv`` (K1) and ``ops/fused_ffn`` (K2),
 ``"flash"`` runs ``ops/attention.mha(impl="pallas")`` on the split heads
-(K3 while dropout is live, else K4), ``"plain"`` the torch layers. The
+(K3 while dropout is live, else K4), ``"stream"`` ``mha(impl="pallas_stream")``
+(K5, with 16-bit dropout on the attention output while dropout is live, the
+JAX package's documented divergence), ``"plain"`` the torch layers. The
 modules' parameter names mirror the flax tree (the same on every route), so
 ``convert.load_jax_params`` maps one onto the other by name.
 ``DualTokenViTHG`` (vit.py:430-536) is not ported yet.
@@ -84,17 +86,23 @@ class MultiHeadAttention(nn.Module):
         else:
             # [B, N, 3*H*Dh] -> q, k, v [B, H, N, Dh]
             heads = qkv.reshape(b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
-            flash = self.route == "flash"
-            if flash:
+            if self.route != "plain":
                 # the kernels take contiguous heads: one layout copy, as the
                 # JAX package pays at the pallas_call boundary
                 heads = heads.contiguous()
             q, k, v = heads
-            out = mha(q, k, v, num_special=self.num_special,
-                      dropout_rate=self.dropout if training else 0.0,
-                      gen=rng.device if training and not flash else None,
-                      impl="pallas" if flash else "xla",
-                      seeds=rng.seeds() if training and flash else None)
+            if self.route == "stream":
+                # the KV-streaming kernel drops no probabilities: dropout on
+                # the attention output [B, H, N, Dh] instead (vit.py:134-141)
+                out = self.out_drop(mha(q, k, v, num_special=self.num_special,
+                                        impl="pallas_stream"), rng)
+            else:
+                flash = self.route == "flash"
+                out = mha(q, k, v, num_special=self.num_special,
+                          dropout_rate=self.dropout if training else 0.0,
+                          gen=rng.device if training and not flash else None,
+                          impl="pallas" if flash else "xla",
+                          seeds=rng.seeds() if training and flash else None)
             out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         if self.project_out:
             out = self.out_drop(self.to_out(out), rng)

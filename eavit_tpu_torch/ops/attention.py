@@ -12,7 +12,9 @@ Counterpart of ``eavit_tpu/ops/attention.py``:
   optional 16-bit probability dropout, and the product in ``v``'s dtype.
   ``impl="pallas"`` runs the flash kernels: ``ops/flash_dropout`` (K3)
   while dropout is live, with the two seed words of the call, else
-  ``ops/flash`` (K4). ``impl="pallas_stream"`` (K5) is not ported yet.
+  ``ops/flash`` (K4). ``impl="pallas_stream"`` runs the KV-streaming
+  kernels of ``ops/flash_stream`` (K5), which drop no probabilities: a
+  dropout rate raises there, and the model drops the attention output.
 - :func:`dropout16` (lines 157-196): dropout from 16-bit random integers,
   keep probability ``thresh / 65536`` with the exact inverse scale, drawn
   from an explicit ``torch.Generator`` on the tensor's device.
@@ -80,9 +82,14 @@ def mha(
 
         return flash_attention(q, k, v, scale=scale, num_special=num_special)
     if impl == "pallas_stream":
-        raise NotImplementedError(
-            "attention impl pallas_stream is not ported to the torch package yet "
-            "(ROADMAP.md Queue 2, K5: ops/flash_stream.py)")
+        if dropout_rate > 0.0:
+            # eavit_tpu/ops/attention.py:90-95 computes none on this impl
+            raise ValueError("attention impl pallas_stream drops no probabilities "
+                             f"(dropout_rate={dropout_rate}); its callers drop the "
+                             "attention output instead")
+        from eavit_tpu_torch.ops.flash_stream import flash_attention_stream
+
+        return flash_attention_stream(q, k, v, scale=scale, num_special=num_special)
     if impl != "xla":
         raise ValueError(f"unknown attention impl: {impl!r}")
     dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale

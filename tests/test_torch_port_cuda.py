@@ -19,7 +19,9 @@ backward kernels are also held to torch autograd through the plain forward
 kernel sums with atomics. K3 and K4 (flash attention on [B, H, N, Dh]) are
 held to their plain versions at one bf16 rounding of each output in bf16 and
 1e-4 of its scale in float32, K3r bit for bit; their backward kernels also
-to autograd through the plain forward, and give equal bits twice.
+to autograd through the plain forward, and give equal bits twice. K5 (the
+KV-streaming kernels) is held to its plain version at the same tolerances,
+at N up to 640 and in one call at 3,137, and gives equal bits twice.
 """
 
 import math
@@ -31,6 +33,7 @@ import torch
 from eavit_tpu_torch.ops import flash as fl
 from eavit_tpu_torch.ops import flash_dropout as fd
 from eavit_tpu_torch.ops import flash_qkv as fq
+from eavit_tpu_torch.ops import flash_stream as fs
 from eavit_tpu_torch.ops import fused_ffn as ff
 from eavit_tpu_torch.ops.kernel_prng import keep_threshold
 
@@ -386,3 +389,87 @@ def test_flash_backward_runs_on_the_current_stream(cuda):
             mine = grads(rate)
         side.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(mine, ref))
+
+
+# ---------------------------------------------------------------------------
+# K5 (ops/flash_stream): KV-streaming flash attention, any N
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", [37, 197, 198, 443, 640])
+def test_flash_stream_kernels_match_plain(cuda, n, num_special, dim_head, dtype):
+    """K5f, K5q and K5kv against their plain versions; the backward kernels
+    twice for equal bits."""
+    q, k, v, do = _heads(2, 3, n, dim_head, cuda, dtype, seed=3)
+    scale = dim_head ** -0.5
+    before = dict(fs.launches)
+    o, lse = fs.flash_stream_fwd(q, k, v, scale, num_special)
+    po, plse = fs.flash_stream_fwd_plain(q, k, v, scale, num_special)
+    delta = fs.stream_delta(o, do)
+    args = (q, k, v, lse, delta, do, scale, num_special)
+    grads = fs.flash_stream_bwd(*args)
+    plain = fs.flash_stream_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert {n_: fs.launches[n_] - before[n_] for n_ in fs.launches} == {
+        "flash_stream_fwd": 1, "flash_stream_dq": 1, "flash_stream_dkv": 1}
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == q.shape[:3]
+    assert _max_err(o, po) <= _tol(po, dtype)
+    assert _max_err(lse, plse) <= 1e-4
+    for a, p in zip(grads, plain):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _max_err(a, p) <= _tol(p, dtype)
+    o2, lse2 = fs.flash_stream_fwd(q, k, v, scale, num_special)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # deterministic
+    assert all(torch.equal(a, b) for a, b in zip(grads, fs.flash_stream_bwd(*args)))
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_flash_stream_function_matches_autograd_of_plain_forward(cuda, num_special):
+    q, k, v, do = _heads(3, 4, 150, 16, cuda, torch.float32, seed=4)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    fs.flash_stream_fwd_plain(*ref_in, 0.25, num_special)[0].backward(do)
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fs.launches)
+    fs.flash_attention_stream(*mine, scale=0.25, num_special=num_special).backward(do)
+    assert all(fs.launches[n] == before[n] + 1 for n in fs.launches)
+    for a, b in zip(mine, ref_in):
+        assert _max_err(a.grad, b.grad) <= 1e-4 * b.grad.abs().max().item()
+
+
+def test_flash_stream_kernels_reject_what_they_do_not_take(cuda):
+    from eavit_tpu_torch.ops.attention import mha
+
+    q, k, v, do = _heads(2, 2, 9, 32, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        fs.flash_stream_fwd(q.half(), k.half(), v.half(), 0.2)  # another dtype
+    with pytest.raises(ValueError):
+        fs.flash_stream_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
+    with pytest.raises(ValueError):
+        fs.flash_stream_fwd(q.transpose(1, 2), k, v, 0.2)  # not contiguous
+    with pytest.raises(ValueError):
+        fs.flash_stream_fwd(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                            v[..., :24].contiguous(), 0.2)  # dim_head 24 has no kernel
+    o, lse = fs.flash_stream_fwd(q, k, v, 0.2)
+    delta = fs.stream_delta(o, do)
+    with pytest.raises(ValueError):
+        fs.flash_stream_dq(q, k, v, lse[:, :1].contiguous(), delta, do, 0.2)  # lse shape
+    with pytest.raises(ValueError):
+        fs.flash_stream_dkv(q, k, v, lse, delta.double(), do, 0.2)  # delta not f32
+    with pytest.raises(ValueError):
+        fs.flash_stream_dkv(q, k, v, lse, delta, do.cpu(), 0.2)  # dO on the CPU
+    with pytest.raises(ValueError, match="pallas_stream"):
+        mha(q, k, v, impl="pallas_stream", dropout_rate=0.1)  # no probability dropout
+
+
+def test_flash_stream_shared_memory_does_not_grow_with_n(cuda):
+    for dh in (16, 32, 64):
+        sizes = {name: fs.smem_bytes(name, dh) for name in ("fwd", "dq", "dkv")}
+        assert all(0 < b <= 48 * 1024 for b in sizes.values()), sizes
+    q, k, v, do = _heads(1, 2, 3137, 64, cuda, torch.bfloat16, seed=5)
+    o, lse = fs.flash_stream_fwd(q, k, v, 0.125)
+    dq, dk, dv = fs.flash_stream_bwd(q, k, v, lse, fs.stream_delta(o, do), do, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.float()).all() for t in (o, lse, dq, dk, dv))

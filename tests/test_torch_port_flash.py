@@ -89,9 +89,9 @@ def test_plain_backward_is_autograd_of_the_plain_forward(num_special):
 
 
 def test_mha_dispatches_the_pallas_impl():
-    """``mha(impl="pallas")`` is K4 without dropout and K3 with seeds; K5
-    (``pallas_stream``) is not ported and says where it is queued."""
-    from eavit_tpu_torch.ops import flash_dropout
+    """``mha(impl="pallas")`` is K4 without dropout and K3 with seeds;
+    ``pallas_stream`` is K5 (ops/flash_stream), which takes no dropout rate."""
+    from eavit_tpu_torch.ops import flash_dropout, flash_stream
     from eavit_tpu_torch.ops.attention import mha
 
     q, k, v, _ = (torch.tensor(t) for t in _inputs(8, 2, 2, 11, 8))
@@ -99,7 +99,9 @@ def test_mha_dispatches_the_pallas_impl():
                        flash.flash_attention(q, k, v, num_special=2))
     assert torch.equal(mha(q, k, v, impl="pallas", dropout_rate=0.1, seeds=(3, 4)),
                        flash_dropout.flash_attention_dropout(q, k, v, (3, 4), 0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mha(q, k, v, impl="pallas_stream")
+    assert torch.equal(mha(q, k, v, impl="pallas_stream"),
+                       flash_stream.flash_attention_stream(q, k, v))
+    with pytest.raises(ValueError, match="pallas_stream"):
+        mha(q, k, v, impl="pallas_stream", dropout_rate=0.1, seeds=(3, 4))
     with pytest.raises(ValueError):
         mha(q, k, v, impl="other")

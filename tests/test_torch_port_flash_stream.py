@@ -1,0 +1,143 @@
+"""K5f, K5q and K5kv of the torch port (eavit_tpu_torch/ops/flash_stream)
+against the JAX package.
+
+The forward of ``flash_attention_stream`` and its gradient through the port's
+``autograd.Function`` (the plain versions on the CPU) are held to
+``eavit_tpu.ops.flash_stream.flash_attention_stream`` and its JAX gradient
+(``jax.vjp``, the custom VJP that ``jax.grad`` takes),
+which run the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` in interpret mode on the CPU, on ragged sequence lengths
+(11 and 13 inside one tile, 150 over two tiles of 128 that the test pins)
+with and without the dual-query mask: float32 at 1e-5 of each output's
+scale, bfloat16 at 2e-2 (the rounding of o, dq, dk and dv to bf16). The row
+log-sum-exp is held to the one the Pallas forward returns (1e-5). The
+explicit plain backward must equal torch autograd through the plain forward
+(1e-5), and the plain forward K4's plain forward (the same function written
+another way, 1e-6). The ``"stream"`` route of the ViT's attention drops the
+attention output, not its probabilities: at rate 0.1 it must equal plain
+attention followed by ``dropout16`` on ``[B, H, N, Dh]`` from the same
+generator state. The CUDA kernels are held to the plain versions on a GPU by
+test_torch_port_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eavit_tpu.ops import flash_stream as jax_stream
+from eavit_tpu_torch.models.layers import Rng
+from eavit_tpu_torch.models.vit import MultiHeadAttention
+from eavit_tpu_torch.ops import flash, flash_stream
+from eavit_tpu_torch.ops.attention import dropout16, mha
+
+# One intra-op thread: the suite runs several test processes on one host.
+torch.set_num_threads(1)
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def jax_tiles_128():
+    """Tiles of 128 on the JAX side, so that N = 150 streams two key tiles
+    and two query tiles; the automatic size is restored afterwards (the
+    test processes run several files one after another)."""
+    jax_stream.set_blocks(128, 128)
+    yield
+    jax_stream.set_blocks(None, None)
+
+
+def _inputs(seed, b, h, n, dh):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, n, dh)).astype(np.float32) for _ in range(4)]
+
+
+def _assert_close(ours, ref, tol):
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours, ref, rtol=tol, atol=tol * scale)
+
+
+# each N with both masks and both dtypes, each mask with both dtypes (every
+# case traces three interpret-mode kernels, about 1.5 s)
+@pytest.mark.parametrize("n,num_special,dtype", [
+    (11, 0, "float32"), (11, 2, "bfloat16"), (13, 2, "float32"), (13, 0, "bfloat16"),
+    (150, 2, "float32"), (150, 0, "bfloat16")])
+def test_forward_and_gradient_match_jax(jax_tiles_128, n, num_special, dtype):
+    b, h, dh = (2, 2, 8) if n < 128 else (1, 1, 8)
+    q, k, v, g = _inputs(n + num_special, b, h, n, dh)
+    jdt, tdt = JDT[dtype], TDT[dtype]
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    jq, jk, jv, jg = (jnp.asarray(t, jdt) for t in (q, k, v, g))
+    # the output and the gradients of <o, g> in one trace of the kernels
+    ref_o, vjp = jax.vjp(lambda *t: jax_stream.flash_attention_stream(
+        *t, num_special=num_special), jq, jk, jv)
+    ref_grads = vjp(jg)
+
+    ts = [torch.tensor(t).to(tdt).requires_grad_() for t in (q, k, v)]
+    before = dict(flash_stream.launches)
+    out = flash_stream.flash_attention_stream(*ts, num_special=num_special)
+    assert out.dtype == tdt and out.shape == (b, h, n, dh)
+    _assert_close(out.detach().float().numpy(), np.asarray(ref_o, np.float32), tol)
+    out.backward(torch.tensor(g).to(tdt))
+    for t, r in zip(ts, ref_grads):
+        assert t.grad.dtype == tdt
+        _assert_close(t.grad.float().numpy(), np.asarray(r, np.float32), tol)
+    assert flash_stream.launches == before  # CPU tensors take the plain versions
+    if dtype == "float32":
+        fold = lambda t: t.reshape(b * h, n, dh)  # noqa: E731
+        _, ref_lse = jax_stream._fwd(fold(jq), fold(jk), fold(jv), dh ** -0.5, num_special)
+        _, lse = flash_stream.flash_stream_fwd_plain(*(t.detach() for t in ts),
+                                                     dh ** -0.5, num_special)
+        _assert_close(lse.reshape(b * h, n).numpy(), np.asarray(ref_lse), 1e-5)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_plain_backward_is_autograd_of_the_plain_forward(num_special):
+    b, h, n, dh = 2, 2, 13, 8
+    q, k, v, g = _inputs(5, b, h, n, dh)
+    scale = 0.3
+    leaves = [torch.tensor(t, requires_grad=True) for t in (q, k, v)]
+    o, lse = flash_stream.flash_stream_fwd_plain(*leaves, scale, num_special)
+    do = torch.tensor(g)
+    ref = torch.autograd.grad(o, leaves, do)
+    delta = flash_stream.stream_delta(o.detach(), do)
+    ours = flash_stream.flash_stream_bwd(*(t.detach() for t in leaves), lse.detach(),
+                                         delta, do, scale, num_special)
+    for a, r in zip(ours, ref):
+        _assert_close(a.numpy(), r.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_plain_forward_is_k4s_function(num_special):
+    q, k, v, _ = (torch.tensor(t) for t in _inputs(7, 2, 3, 19, 16))
+    o5, lse5 = flash_stream.flash_stream_fwd_plain(q, k, v, 0.25, num_special)
+    o4, lse4 = flash.flash_fwd_plain(q, k, v, 0.25, num_special)
+    _assert_close(o5.numpy(), o4.numpy(), 1e-6)
+    _assert_close(lse5.numpy(), lse4.numpy(), 1e-6)
+
+
+def test_mha_runs_k5_and_refuses_probability_dropout():
+    q, k, v, _ = (torch.tensor(t) for t in _inputs(8, 2, 2, 11, 8))
+    assert torch.equal(mha(q, k, v, impl="pallas_stream", num_special=2),
+                       flash_stream.flash_attention_stream(q, k, v, num_special=2))
+    with pytest.raises(ValueError, match="pallas_stream"):
+        mha(q, k, v, impl="pallas_stream", dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_stream_route_drops_the_attention_output(num_special):
+    dim, heads, dh, n, rate = 24, 3, 8, 12, 0.1
+    attn = MultiHeadAttention(dim, heads, dh, rate, "stream", num_special, None)
+    x = torch.tensor(np.random.default_rng(9).standard_normal((2, n, dim)),
+                     dtype=torch.float32)
+    with torch.no_grad():
+        ours = attn(x, Rng(4, "cpu"))
+        gen = Rng(4, "cpu").device  # the same generator state
+        qkv = attn.to_qkv(attn.norm(x)).reshape(2, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        out = dropout16(mha(*qkv, num_special=num_special), rate, gen)
+        ref = dropout16(attn.to_out(out.transpose(1, 2).reshape(2, n, heads * dh)),
+                        rate, gen)
+        assert not torch.equal(ours, attn(x))  # dropout is live with an Rng
+    _assert_close(ours.numpy(), ref.numpy(), 1e-5)

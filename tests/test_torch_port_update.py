@@ -287,6 +287,22 @@ def test_update_matches_jax_on_the_pallas_route(monkeypatch):
     _compare_after_update(jag, jnew, jmetrics, pag, pnew, pmetrics)
 
 
+def test_update_matches_jax_on_the_pallas_stream_route():
+    """``AttentionImpl = pallas_stream`` at dropout 0: the port's K5 (plain on
+    the CPU) against ``jax.grad`` through the Pallas ``ops/flash_stream.py``
+    kernels. One minibatch, one epoch and the plain FFN keep the interpret-mode
+    kernels to the attention's."""
+    jag, jst, pag, pst = _pair(epoch=1, mini_batch=1, attention_impl="pallas_stream",
+                               fused_ffn=False)
+    ro = _rollout(8)
+    jro = JaxRollout(**{k: jnp.asarray(v) for k, v in ro.items()})
+    jnew, jmetrics = jag.update(jst, jro, jax.random.PRNGKey(12))
+    pnew, pmetrics = pag.update(
+        pst, Rollout(**{k: torch.from_numpy(np.asarray(v)) for k, v in ro.items()}),
+        Rng(0, "cpu"))
+    _compare_after_update(jag, jnew, jmetrics, pag, pnew, pmetrics)
+
+
 def test_own_permutation_is_a_permutation_on_the_agents_device():
     pag, _ = _port_only(epoch=1, mini_batch=1)
     perm = pag._permutation(Rng(3, "cpu"), 16)

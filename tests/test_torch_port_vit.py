@@ -126,6 +126,31 @@ def test_dual_token_vit_pallas_route_matches_jax(shared):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL["float32"])
 
 
+@pytest.mark.parametrize("shared", [True, False])
+def test_dual_token_vit_pallas_stream_route_matches_jax(shared):
+    """``AttentionImpl = pallas_stream`` (the port's stream route, K5 at a
+    deterministic forward) against the JAX module on that route, whose
+    parameter tree loads into the port as it is. One layer and the plain FFN
+    on both sides keep the interpret-mode kernels to the attention's."""
+    cfg = dict(TINY, depth=1)
+
+    def jax_vit():
+        return JaxViT(cfg=jax_config.ViTConfig(**cfg), image_size=IMG, channels=CH,
+                      shared_patch_stream=shared, dtype=jnp.float32,
+                      attention_impl="pallas_stream")
+
+    img = _img(5)
+    variables = jax_vit().init(jax.random.PRNGKey(4), jnp.asarray(img))
+    ref = jax_vit().apply(variables, jnp.asarray(img))
+    vit = DualTokenViT(port_config.ViTConfig(**cfg), IMG, CH, attention_route="stream",
+                       shared_patch_stream=shared, dtype=torch.float32)
+    load_flax_tree(vit, variables["params"])
+    with torch.no_grad():
+        out = vit(torch.tensor(img))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL["float32"])
+
+
 def test_cls_token_vit_matches_jax():
     # without explorative attention the single CLS stream feeds everything
     cfg = dict(TINY, use_explorative_attn=False)
@@ -161,9 +186,8 @@ def test_attention_routes():
     assert port_config.attention_route(c()) == "plain"
     assert port_config.attention_route(c(attention_impl="pallas")) == "flash"
     assert port_config.attention_route(c(use_pallas_attention=True)) == "flash"
+    assert port_config.attention_route(c(attention_impl="pallas_stream")) == "stream"
     assert port_config.ffn_route(c(fused_ffn=True)) == "kernel"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_config.attention_route(c(attention_impl="pallas_stream"))
     with pytest.raises(ValueError):
         port_config.attention_route(c(attention_impl="flashy"))
 

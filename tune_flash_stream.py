@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Build variants of the KV-streaming kernels and time them on one GPU.
+
+Each variant is ``eavit_tpu_torch/csrc/flash_stream.cu`` with some of its
+tile constants replaced (``kDims``, ``kFwdChunk``, ``kBwdChunk``, ``kRows``,
+``kTile``); every variant is compiled by its own ``nvcc`` (all at once, with
+the flags of ``ops/_build.py``), its registers and stack per kernel are read
+from ptxas, and K5f, K5q and K5kv are held to the plain versions on a few
+heads and timed with CUDA events at the flagship minibatch and at long
+sequences. Run from the root of a checkout on a machine with a GPU:
+
+    python3 tune_flash_stream.py '{"base": {}, "chunk8": {"kBwdChunk": 8}}'
+
+Builds go to ``_archive/tune/`` (listed in ``.gitignore``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+SHAPES = [(256, 8, 198, 32, 2), (64, 8, 198, 16, 2), (64, 8, 785, 64, 0),
+          (16, 8, 3137, 64, 0)]  # (B, H, N, Dh, num_special)
+
+
+def build(variants, out_dir):
+    from eavit_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_stream.cu").read_text()
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for key, value in subs.items():
+            text, n = re.subn(rf"constexpr int {key} = \d+;", f"constexpr int {key} = {value};",
+                              text)
+            if n != 1:
+                raise SystemExit(f"{name}: no constant {key}")
+        path = os.path.join(out_dir, f"{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", os.path.join(out_dir, f"{name}.so"), path]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    built = []
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        regs, kernel = {}, None
+        for line in log.splitlines():
+            m = re.search(r"stream_(fwd|dq|dkv)_kernelI13__nv_bfloat16Li(\d+)", line)
+            if m:
+                kernel = f"{m.group(1)}/Dh{m.group(2)}"
+            elif kernel and "Used" in line:
+                r = re.search(r"Used (\d+) registers", line)
+                st = re.search(r"(\d+) bytes cumulative stack", line)
+                regs[kernel] = (int(r.group(1)), int(st.group(1)) if st else 0)
+                kernel = None
+        print(json.dumps({"variant": name, "constants": variants[name], "rc": proc.returncode,
+                          "bf16_registers_stack": regs}), flush=True)
+        if proc.returncode == 0:
+            built.append(name)
+        else:
+            print(log, file=sys.stderr)
+    return built
+
+
+def main() -> int:
+    import torch
+
+    from eavit_tpu_torch.ops import _build
+    from eavit_tpu_torch.ops import flash_stream as fs
+
+    if not torch.cuda.is_available():
+        print("tune_flash_stream: no CUDA device", file=sys.stderr)
+        return 2
+    variants = json.loads(sys.argv[1]) if len(sys.argv) > 1 else {"base": {}}
+    out_dir = os.path.join("_archive", "tune")
+    os.makedirs(out_dir, exist_ok=True)
+    built = build(variants, out_dir)
+    dev = torch.device("cuda")
+
+    def time_ms(fn, iters):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    for b, h, n, dh, ns in SHAPES:
+        g = torch.Generator().manual_seed(n)
+        q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16)
+                       for _ in range(4))
+        sc, few = dh ** -0.5, (slice(0, min(b, 4)),)
+        ref_o, ref_lse = fs.flash_stream_fwd_plain(q[few], k[few], v[few], sc, ns)
+        ref_delta = fs.stream_delta(ref_o, do[few])
+        ref = fs.flash_stream_bwd_plain(q[few], k[few], v[few], ref_lse, ref_delta, do[few],
+                                        sc, ns)
+        for name in built:
+            _build._libs["flash_stream"] = ctypes.CDLL(os.path.abspath(
+                os.path.join(out_dir, f"{name}.so")))
+            sub = [t[few].contiguous() for t in (q, k, v, do)]
+            o, _ = fs.flash_stream_fwd(*sub[:3], sc, ns)
+            grads = fs.flash_stream_bwd(*sub[:3], ref_lse, ref_delta, sub[3], sc, ns)
+            errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in zip((o, *grads), (ref_o, *ref))]
+            o, lse = fs.flash_stream_fwd(q, k, v, sc, ns)
+            args = (q, k, v, lse, fs.stream_delta(o, do), do, sc, ns)
+            iters = 20 if n < 500 else 3
+            print(json.dumps({"variant": name, "shape": [b, h, n, dh], "num_special": ns,
+                              "fwd_ms": time_ms(lambda: fs.flash_stream_fwd(q, k, v, sc, ns),
+                                                iters),
+                              "dq_ms": time_ms(lambda: fs.flash_stream_dq(*args), iters),
+                              "dkv_ms": time_ms(lambda: fs.flash_stream_dkv(*args), iters),
+                              "max_abs_err_o_dq_dk_dv": errs}), flush=True)
+    _build._libs.pop("flash_stream", None)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
