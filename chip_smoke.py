@@ -80,9 +80,17 @@ non-zero on failure:
     stacked iteration with ``Epoch = 1`` (K5q and K5kv 96 each).
 14. Patch 4 (441 patches, N = 443 shared): one ``train.train`` iteration
     with ``Epoch = 1`` on ``pallas_stream``, finite, with its launch counts
-    and frames/s; one minibatch step on ``pallas`` and on ``pallas_qkv``
-    must refuse the same N, whose backward kernels do not fit in shared
-    memory.
+    and frames/s; one minibatch step of 4 frames on ``pallas`` and on
+    ``pallas_qkv``, whose bf16 backward kernels (K3b, K1b) hold N = 443 since
+    they keep the head in bf16: finite gradients, through the kernels.
+
+K1b and K3b run bf16 inputs on the tensor cores (``csrc/attn_bwd_mma.cuh``).
+Phase 1 logs each of their instantiations' registers and spills from
+ptxas; phase 7 also runs the cancellation check once at the flagship
+minibatch (keys that are nearly equal, so that dq nearly cancels: K3b, which
+keeps pd and ds in float32 as two bf16 terms, must err at most a tenth as
+much as the dq that rounding ds to bf16 gives) and logs the longest N each
+kernel takes per dtype.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -93,6 +101,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -145,6 +154,40 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def ptxas_report(build_log: str):
+    """``{source: {entry: {registers, stack, spill_stores, spill_loads}}}``
+    from the ``-Xptxas -v`` output of ``_build.build_all``."""
+    out, src, entry = {}, None, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            src, entry = line[3:].strip(), None
+            out.setdefault(src, {})
+        elif m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)",
+                            line):
+            entry = m.group(1)
+            out[src].setdefault(entry, {})
+        elif entry and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                       r"(\d+) bytes spill loads", line)):
+            out[src][entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            out[src][entry]["registers"] = int(m.group(1))
+    return out
+
+
+def mma_bwd_ptxas(report, source: str):
+    """The tensor-core backward's instantiations in one source, as
+    ``{"Dh32 rounded dropout": {...}}``."""
+    rows = {}
+    for entry, info in report.get(source, {}).items():
+        m = re.search(r"attn_bwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", entry)
+        if m:
+            name = f"Dh{m.group(1)} {'rounded' if m.group(2) == '1' else 'split'}" + (
+                " dropout" if m.group(3) == "1" else "")
+            rows[name] = info
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -396,10 +439,11 @@ def train_kernel_phase(torch, fq, ff, dev):
 # ---------------------------------------------------------------------------
 
 
-def flash_kernel_phase(torch, fl, fd, kp, dev):
+def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
     """K4f, K4b, K3f, K3b at the pallas path's shapes against their plain
     versions, timed; K3r bit for bit; the backward Functions against torch
-    autograd through the plain forwards."""
+    autograd through the plain forwards; the cancellation check of K3b and
+    K1b; the longest N of each kernel."""
     import torch.nn.functional as F
 
     from eavit_tpu_torch.ops.attention import dual_query_allowed
@@ -542,15 +586,67 @@ def flash_kernel_phase(torch, fl, fd, kp, dev):
         log("autograd", kernel=name, max_abs_err=err, tol=tol)
         check(err <= tol, f"{name}: Function backward vs autograd of the plain forward")
 
-    # the longest sequence each kernel takes at each head width
+    cancellation_check(torch, fq, fd, dev)
+
+    # the longest sequence each kernel takes at each head width; the bf16
+    # backward kernels of K1 and K3 (tensor cores) differ from their float32
+    # ones
+    codes = {"bfloat16": 1, "float32": 0}
     libs = {"flash_fwd": fl._lib().eavit_flash_fwd_smem,
             "flash_bwd": fl._lib().eavit_flash_bwd_smem,
             "flash_dropout_fwd": fd._lib().eavit_flash_dropout_fwd_smem,
-            "flash_dropout_bwd": fd._lib().eavit_flash_dropout_bwd_smem}
+            **{f"flash_dropout_bwd {dt}": (lambda m, d, c=c: fd._lib()
+                                           .eavit_flash_dropout_bwd_smem(m, d, c))
+               for dt, c in codes.items()},
+            **{f"flash_qkv_bwd {dt}": (lambda m, d, c=c: fq._bwd_lib()
+                                       .eavit_flash_qkv_bwd_smem(m, d, c))
+               for dt, c in codes.items()}}
     max_n = {name: {d: max(m for m in range(1, 4096) if smem(m, d) <= fl.SMEM_LIMIT)
                     for d in fl.DIM_HEADS} for name, smem in libs.items()}
     log("max_n", smem_limit=fl.SMEM_LIMIT, **max_n)
     return rows
+
+
+def cancellation_check(torch, fq, fd, dev):
+    """At the flagship minibatch ``[256, 8, 198, 32]``, rate 0.1, with keys
+    ``8 + 0.01 noise`` in bf16: the rows of ds sum to 0, so ``dq = ds k``
+    nearly cancels. K3b keeps pd and ds in float32 (two bf16 terms each): its
+    dq must err against the plain version at most a tenth as much as the dq
+    that rounding ds to bf16 gives, which is the plain K1b on the same
+    inputs (K1 rounds pd and ds and draws the same mask). The K1b kernel must
+    match that plain K1b at one bf16 rounding."""
+    import numpy as np
+
+    b, h, n, dh, ns = MB_FRAMES, 8, 198, 32, 2
+    scale, seeds, rate = dh ** -0.5, KERNEL_SEEDS, 0.1
+    rng = np.random.default_rng(12)
+    q, v, do, noise = (torch.from_numpy(rng.standard_normal((b, h, n, dh)).astype(np.float32))
+                       for _ in range(4))
+    q, k, v, do = (t.to(dev, torch.bfloat16) for t in (q, 8.0 + 0.01 * noise, v, do))
+
+    def merged(t):  # [B, H, N, Dh] -> [B, N, H*Dh]
+        return t.transpose(1, 2).reshape(b, n, h * dh).contiguous()
+
+    _, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)
+    dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns)[0]
+    dq_plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, ns)[0]
+    qkv, g = torch.cat([merged(t) for t in (q, k, v)], dim=-1), merged(do)
+    args = (h, dh, scale, ns, seeds, rate)
+    k1_plain = fq.flash_qkv_bwd_plain(qkv, lse, g, *args)
+    dq_rounded = k1_plain[..., :h * dh].reshape(b, n, h, dh).transpose(1, 2)
+    k1 = fq.flash_qkv_bwd(qkv, lse, g, *args)
+    torch.cuda.synchronize()
+    err = (dq.float() - dq_plain.float()).abs().max().item()
+    err_rounded = (dq_rounded.float() - dq_plain.float()).abs().max().item()
+    k1_err = (k1.float() - k1_plain.float()).abs().max().item()
+    k1_tol = 1e-2 + 8e-3 * k1_plain.float().abs().max().item()  # one bf16 rounding
+    log("cancellation", shape=[b, h, n, dh], rate=rate, k3b_dq_err=err,
+        rounded_ds_dq_err=err_rounded, ratio=err / err_rounded if err_rounded else None,
+        ratio_tol=0.1, dq_max=dq_plain.float().abs().max().item(), k1b_err=k1_err,
+        k1b_tol=k1_tol)
+    check(err_rounded > 0 and err <= 0.1 * err_rounded,
+          f"K3b dq error {err} vs {err_rounded} with ds rounded to bf16")
+    check(k1_err <= k1_tol, f"K1b on cancelling keys: {k1_err} > {k1_tol}")
 
 
 # ---------------------------------------------------------------------------
@@ -1094,10 +1190,11 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     return counts, timing
 
 
-def patch4_other_routes_raise(torch, dev):
-    """At patch 4 (N = 443 shared) the backward kernels of ``pallas`` (K3b)
-    and ``pallas_qkv`` (K1b) hold the whole head in shared memory and do not
-    fit: one minibatch step of 4 frames must raise there, and say why."""
+def patch4_other_routes(torch, mods, dev):
+    """At patch 4 (N = 443 shared) the bf16 backward kernels of ``pallas``
+    (K3b) and ``pallas_qkv`` (K1b) hold the head as bf16 and fit, as do the
+    forwards: one minibatch step of 4 frames on each route must give finite
+    gradients, through the route's kernels (depth 3: three launches of each)."""
     import dataclasses
 
     from eavit_tpu_torch.models.layers import Rng
@@ -1109,16 +1206,21 @@ def patch4_other_routes_raise(torch, dev):
         cfg = flagship_cfg(True, attention)
         agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=4)), 5)
         agent.init_state(SEED)
-        error = None
-        try:
-            loss, _ = agent._loss(batch, torch.arange(n, device=dev), Rng(SEED, dev))
-            loss.backward()
-            torch.cuda.synchronize()
-        except ValueError as e:
-            error = str(e)
-        log("patch4_route", attention=attention, tokens=443, raised=error)
-        check(error is not None and "shared memory" in error,
-              f"patch 4 on {attention}: expected a shared-memory refusal, got {error!r}")
+        torch.cuda.synchronize()
+        _reset(mods)
+        loss, _ = agent._loss(batch, torch.arange(n, device=dev), Rng(SEED, dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = _counts(mods)
+        grads = [p.grad for p in agent.trainable_parameters() if p.grad is not None]
+        finite = bool(torch.isfinite(loss).item()) and all(
+            torch.isfinite(t).all().item() for t in grads)
+        fwd, (bwd,) = attention_kernels(attention, True)
+        expect = {fwd: DEPTH, bwd: DEPTH, "fused_ffn_fwd": DEPTH, "fused_ffn_bwd": DEPTH}
+        log("patch4_route", attention=attention, tokens=443, loss=float(loss.detach()),
+            finite=finite, grad_tensors=len(grads), launches=counts, expected_launches=expect)
+        check(finite and len(grads) > 0, f"patch 4 on {attention}: finite gradients")
+        check_counts(counts, expect, f"patch 4 on {attention}: one minibatch step")
 
 
 SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
@@ -1189,10 +1291,16 @@ def main() -> int:
     ptxas = [ln.strip() for ln in build_log.splitlines()
              if "Used" in ln or "Compiling entry" in ln]
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    report = ptxas_report(build_log)
+    mma_ptxas = {name: mma_bwd_ptxas(report, src) for name, src in (
+        ("flash_qkv_bwd", "flash_qkv_bwd.cu"), ("flash_dropout_bwd", "flash_dropout.cu"))}
+    log("ptxas", kernels="tensor-core backward (attn_bwd_mma.cuh)", **mma_ptxas)
+    check(all(mma_ptxas.values()) or not build_log,
+          "ptxas reported no tensor-core backward kernel")
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
-    rows.update(flash_kernel_phase(torch, fl, fd, kernel_prng, dev))
+    rows.update(flash_kernel_phase(torch, fl, fd, fq, kernel_prng, dev))
     rows.update(stream_kernel_phase(torch, fs, fl, dev))
     act_launches = main_path(torch, mods, dev, shared=True)
     main_path(torch, mods, dev, shared=False)
@@ -1219,10 +1327,11 @@ def main() -> int:
         stream_launches, stream_timing = run("stream", shared=True, epochs=EPOCH, updates=1,
                                              attention="pallas_stream", pieces=True)
         run("stream_stacked", shared=False, epochs=1, updates=1, attention="pallas_stream")
-        # patch 4: N = 443, which only the streaming kernels train
+        # patch 4: N = 443, a whole iteration on the streaming kernels (the
+        # other routes take one minibatch step below)
         run("stream_patch4", shared=True, epochs=1, updates=1, attention="pallas_stream",
             vit=dict(patch_size=4))
-    patch4_other_routes_raise(torch, dev)
+    patch4_other_routes(torch, mods, dev)
 
     # the kernels of the flagship iteration (shared stream): launch counts of
     # the training runs that use them, times at the acting shape ("ms" of the
@@ -1236,7 +1345,8 @@ def main() -> int:
                      act_launches_per_rollout=act_launches["flash_qkv_fwd"],
                      train_shape_ms=rows[("flash_qkv_bwd", 198, 0.1)]["fwd_ms_at_this_shape"]),
         kernel_entry("flash_qkv_bwd", rows[("flash_qkv_bwd", 198, 0.1)],
-                     train_launches["flash_qkv_bwd"]),
+                     train_launches["flash_qkv_bwd"], header="attn_bwd_mma.cuh",
+                     ptxas=mma_ptxas["flash_qkv_bwd"]),
         kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
         kernel_entry("fused_ffn_fwd", rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
                      train_launches["fused_ffn_fwd"],
@@ -1257,7 +1367,8 @@ def main() -> int:
                      act_launches_per_rollout=pallas_act["flash_dropout_fwd"],
                      train_shape_ms=train_ms("flash_dropout_fwd")),
         kernel_entry("flash_dropout_bwd", rows[("flash_dropout_bwd", "train", 198, "bfloat16")],
-                     pallas_launches["flash_dropout_bwd"]),
+                     pallas_launches["flash_dropout_bwd"], header="attn_bwd_mma.cuh",
+                     ptxas=mma_ptxas["flash_dropout_bwd"]),
         kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
                      pallas_launches["flash_dropout_bits"]),
         # K5 on pallas_stream; SDPA's backward computes dq, dk and dv at once,

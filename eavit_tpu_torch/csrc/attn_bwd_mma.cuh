@@ -1,0 +1,479 @@
+// Attention backward on Hopper's tensor cores, for bf16 inputs: the template
+// of K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection) and K3b
+// (csrc/flash_dropout.cu, on [B, H, N, Dh] with probability dropout). Their
+// float32 instantiations keep the CUDA-core code of flash_qkv_bwd.cu and
+// flash_attn.cuh, whose products stay in float32 as the JAX kernels' do.
+//
+// What it computes, per batch row b and head h (lse from the forward):
+//   s      = q k^T * scale (f32), the dual-query mask when num_special > 0
+//   sigma  = exp(s - lse)                        (0 where masked or padded)
+//   keep   = the forward's mask: Philox (philox.cuh), stream 0, element
+//            ((b*H + h)*N + i)*N + j, keep = (bits >> 8) < thresh
+//   pd     = keep ? sigma * inv_keep : 0,  dsigma = keep ? (dO v^T) * inv_keep : 0
+//   rowsum = sum_j dsigma * sigma            (f32, from the unrounded sigma)
+//   ds     = sigma * (dsigma - rowsum) * scale
+//   dv = pd^T dO,  dq = ds k,  dk = ds^T q
+// with every sum in f32. The two kernels differ in how pd and ds enter their
+// products, which the template parameter ROUND selects:
+//   K1b (eavit_tpu/ops/flash_qkv.py `_head_bwd`, 266-302): pd and ds are
+//     rounded to bf16 (`pd.astype(dt)`, `ds.astype(dt)`), so one bf16
+//     m16n8k16 mma with f32 accumulation is that kernel's product exactly,
+//     apart from the order of the sums;
+//   K3b (eavit_tpu/ops/flash_dropout.py `_bwd_kernel`, 150-196): pd and ds
+//     stay f32. Each row of ds sums to about 0, so dq = ds k cancels and a
+//     bf16 ds would swamp it: pd and ds enter as two bf16 terms, hi = bf16(x)
+//     and lo = bf16(x - hi), two mmas per product (relative error ~2^-17).
+// q, k, v and dO are bf16 already and enter as they are.
+//
+// What bounds it on an H100: bytes (183 MB at the flagship minibatch [256, 8,
+// 198, 32], 0.055 ms), then the mask: 20 M Philox calls of ~100 integer
+// operations each. The design keeps everything but the inputs and the three
+// gradients on chip: one block per (b, h) holds the head's q, k, v and dO in
+// shared memory as bf16 (rows padded by 16 bytes so that ldmatrix reads
+// without bank conflicts; N padded to a multiple of 16 with zero rows),
+// about 73 KB at N = 198, Dh = 32. Three passes, each warp owning one
+// 16-row tile per step, so that every output has one owner and every sum a
+// fixed order (no float atomics; equal bits twice):
+//   0. all warps draw the head's keep bits into a bitmap in the mask's own
+//      element order, while cp.async brings the operands: a warp takes 128
+//      consecutive elements, one Philox call per lane for a group of four,
+//      and gathers the lanes' bits into 32-bit words with shuffles, so that
+//      every group is drawn once however rows and groups fall (N = 198 and
+//      197 start rows at other offsets mod 4);
+//   1. rows, one warp per 16-query tile: S = Q K^T and dP = dO V^T by mma
+//      over 16-key tiles, sigma, dsigma and rowsum with quad shuffles; then a
+//      second sweep recomputes S and dP, forms ds and feeds it straight from
+//      the accumulators as the A operand of dQ += dS K (the FlashAttention-2
+//      register re-pack), and writes dq;
+//   2. columns, one warp per 16-key tile: S^T = K Q^T and dP^T = V dO^T, so
+//      that pd^T and ds^T come out in the accumulator layout and feed
+//      dV += pd^T dO and dK += ds^T Q as A operands from registers.
+// That is nine N^2 Dh products for K1b (the row sweep that sums rowsum before
+// any ds exists costs two), twelve mmas' worth for K3b. B operands come from
+// shared memory by ldmatrix (.trans where the token axis is the product's
+// depth). See PERF.md for the measured times.
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace {
+
+// Warps of a block, each owning one 16-row tile at a time, and blocks per SM
+// that the register budget must allow at Dh <= 32 (80 registers a thread:
+// three blocks of 73 KB fit beside each other at N = 198). The A fragments of
+// a warp's own tile are reloaded by ldmatrix at every step rather than held,
+// which is what keeps the kernels inside 80 registers without spills
+// (tune_attn_bwd.py measures these choices).
+constexpr int kMmaWarps = 8;
+constexpr int kMinBlocks = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Operand layout of one kernel: element (b, h, token t, dim d) of q, k, v, dq,
+// dk and dv sits at ptr + b*x_batch + h*x_head + t*x_tok + d; of dO with the
+// g_ strides. K1b: the merged qkv [B, N, 3*H*Dh]; K3b: [B*H, N, Dh] with H = 1.
+struct MmaBwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* g;  // dO
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  const float* lse;  // [B, H, N]
+  long long x_batch, x_head, x_tok;
+  long long g_batch, g_head, g_tok;
+  int B, H, N;
+  float scale;
+  int num_special;
+  uint32_t thresh;  // dropout only
+  float inv_keep;
+  uint32_t s0, s1;
+};
+
+__host__ __device__ constexpr int mma_pad16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int mma_ld(int dh) { return dh + 8; }  // row stride, elements
+
+// Words of the keep bitmap: bit p is mask element base + p of the head, base
+// its first element rounded down to a multiple of 32 (an offset of up to 31
+// bits), plus the 16 bits a padded tile reads past the last element and one
+// word that a 32-bit window at the end reads, in whole chunks of 128 bits.
+__host__ __device__ constexpr int mma_bit_words(int n) {
+  return ((31 + n * n + 16 + 31) / 32 + 1 + 3) / 4 * 4;
+}
+
+size_t mma_bwd_smem_bytes(int N, int DH, bool dropout) {
+  const size_t np = mma_pad16(N);
+  return 4 * np * mma_ld(DH) * sizeof(__nv_bfloat16) + 2 * np * sizeof(float) +
+         (dropout ? mma_bit_words(N) * sizeof(uint32_t) : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// x0, x1 as hi + lo: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  memcpy(&hi, &h, sizeof(hi));
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// A fragments of one 16x16 tile of pd or ds from the accumulators of two n8
+// tiles c[0], c[1] (rows g, g+8; columns 2t, 2t+1 and 8+2t, 8+2t+1): rounded
+// (ROUND) or as hi and lo terms
+template <bool ROUND>
+__device__ __forceinline__ void to_a(const float (&c)[2][4], uint32_t (&hi)[4],
+                                     uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (ROUND) {
+        hi[2 * n + r] = pack_bf16(c[n][2 * r], c[n][2 * r + 1]);
+      } else {
+        split_bf16(c[n][2 * r], c[n][2 * r + 1], hi[2 * n + r], lo[2 * n + r]);
+      }
+    }
+}
+
+// acc[NT] (16 x DH) += A (16 x 16 tokens) * X[tok0 .. tok0+15][0 .. DH) from
+// shared memory, X's token axis being the depth: ldmatrix.trans
+template <int DH, bool ROUND>
+__device__ __forceinline__ void acc_times_rows(float (&acc)[DH / 8][4], const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4],
+                                               const __nv_bfloat16* xs, int tok0, int lane) {
+  constexpr int LD = mma_ld(DH);
+#pragma unroll
+  for (int np = 0; np < DH / 16; ++np) {
+    uint32_t b[4];
+    ldsm_x4_t(b, xs + (tok0 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
+    mma_bf16(acc[2 * np], hi, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+    if constexpr (!ROUND) {
+      mma_bf16(acc[2 * np], lo, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// s[2] (16 x 16) = A (16 x DH) * Y[tok0 .. tok0+15]^T, and p[2] likewise with
+// a second pair: the score tiles of one 16 x 16 block
+template <int DH>
+__device__ __forceinline__ void two_products(float (&s)[2][4], float (&p)[2][4],
+                                             const uint32_t (&a)[DH / 16][4],
+                                             const uint32_t (&b)[DH / 16][4],
+                                             const __nv_bfloat16* ys, const __nv_bfloat16* zs,
+                                             int tok0, int lane) {
+  constexpr int LD = mma_ld(DH);
+  const int row = tok0 + (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = p[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t y[4], z[4];
+    ldsm_x4(y, ys + row * LD + ks * 16 + col);
+    ldsm_x4(z, zs + row * LD + ks * 16 + col);
+    mma_bf16(s[0], a[ks], y[0], y[1]);
+    mma_bf16(s[1], a[ks], y[2], y[3]);
+    mma_bf16(p[0], b[ks], z[0], z[1]);
+    mma_bf16(p[1], b[ks], z[2], z[3]);
+  }
+}
+
+// A fragments of the 16 x DH tile at rows row0 .. row0+15 of X
+template <int DH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const __nv_bfloat16* xs,
+                                       int row0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(a[kk], xs + (row0 + (lane & 15)) * mma_ld(DH) + kk * 16 + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 32 keep bits from bit p of the bitmap on
+__device__ __forceinline__ uint32_t keep_window(const uint32_t* bits, int p) {
+  return __funnelshift_r(bits[p >> 5], bits[(p >> 5) + 1], p & 31);
+}
+
+// sigma, pd and dsigma of one score element
+template <bool DROPOUT>
+__device__ __forceinline__ void probs(float s, float dp, float lse2, bool valid, bool kept,
+                                      float scale2, float inv_keep, float& sg, float& pd,
+                                      float& dsg) {
+  sg = valid ? ex2(fmaf(s, scale2, -lse2)) : 0.f;
+  if constexpr (DROPOUT) {
+    pd = kept ? sg * inv_keep : 0.f;
+    dsg = kept ? dp * inv_keep : 0.f;
+  } else {
+    pd = sg;
+    dsg = dp;
+  }
+}
+
+template <int DH, bool ROUND, bool DROPOUT>
+__global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
+    attn_bwd_mma_kernel(MmaBwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8;
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Np = mma_pad16(N), T = Np / 16;
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [Np][LD] each
+  bf16* ks = qs + Np * LD;
+  bf16* vs = ks + Np * LD;
+  bf16* gs = vs + Np * LD;
+  float* ls = reinterpret_cast<float*>(gs + Np * LD);  // [Np] lse * log2(e)
+  float* rs = ls + Np;                                 // [Np] rowsum
+  uint32_t* bits = reinterpret_cast<uint32_t*>(rs + Np);  // mma_bit_words(N), dropout only
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const long long xo = b * a.x_batch + h * a.x_head, go = b * a.g_batch + h * a.g_head;
+  const int tid = threadIdx.x;
+
+  // ---- operands by cp.async, zero rows past N ----
+  constexpr int CH = DH / 8;  // 16-byte chunks per row
+  for (int c = tid; c < Np * CH; c += blockDim.x) {
+    const int t = c / CH, d = (c % CH) * 8, so = t * LD + d;
+    if (t < N) {
+      const long long x = xo + t * a.x_tok + d;
+      cp_async16(qs + so, a.q + x);
+      cp_async16(ks + so, a.k + x);
+      cp_async16(vs + so, a.v + x);
+      cp_async16(gs + so, a.g + go + t * a.g_tok + d);
+    } else {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(qs + so) = z;
+      *reinterpret_cast<uint4*>(ks + so) = z;
+      *reinterpret_cast<uint4*>(vs + so) = z;
+      *reinterpret_cast<uint4*>(gs + so) = z;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int t = tid; t < Np; t += blockDim.x)
+    ls[t] = t < N ? a.lse[static_cast<long long>(bh) * N + t] * kLog2e : 0.f;
+
+  // ---- keep bits: bit p is element base + p, (i, j) at p = off + i*N + j ----
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const uint64_t e_head = static_cast<uint64_t>(bh) * N * N, base = e_head & ~31ull;
+  const int off = static_cast<int>(e_head - base);
+  if constexpr (DROPOUT) {
+    for (int c = warp; c < mma_bit_words(N) / 4; c += kMmaWarps) {
+      // lane's group: elements base + 128c + 4 lane .. + 3, bits 4 (lane % 8) ..
+      // of word 4c + lane / 8
+      const Philox4 r = philox_group((base >> 2) + 32 * c + lane, 0u, a.s0, a.s1);
+      uint32_t v = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v |= static_cast<uint32_t>((r.w[k] >> 8) < a.thresh) << k;
+      v <<= 4 * (lane & 7);
+      v |= __shfl_xor_sync(0xffffffffu, v, 1);
+      v |= __shfl_xor_sync(0xffffffffu, v, 2);
+      v |= __shfl_xor_sync(0xffffffffu, v, 4);
+      if ((lane & 7) == 0) bits[4 * c + (lane >> 3)] = v;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const float scale2 = a.scale * kLog2e, ik = DROPOUT ? a.inv_keep : 1.f;
+  const int ns = a.num_special;
+
+  // ---- pass 1: rows -> rowsum, dq ----
+  for (int it = warp; it < T; it += kMmaWarps) {
+    const int i0 = it * 16;
+    const int rows[2] = {i0 + g, i0 + g + 8};
+    const float l2[2] = {ls[rows[0]], ls[rows[1]]};
+    float rsum[2] = {0.f, 0.f};
+    float dq[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+    // sweep 0 sums rowsum; sweep 1 recomputes the tiles and forms ds
+#pragma unroll
+    for (int sweep = 0; sweep < 2; ++sweep) {
+      for (int jt = 0; jt < T; ++jt) {
+        const int j0 = jt * 16;
+        uint32_t qa[KS][4], ga[KS][4];
+        load_a<DH>(qa, qs, i0, lane);
+        load_a<DH>(ga, gs, i0, lane);
+        float s[2][4], p[2][4];
+        two_products<DH>(s, p, qa, ga, ks, vs, j0, lane);
+        // every pair valid: no padding and no dual-query mask in the tile
+        const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
+        uint32_t kw[2] = {~0u, ~0u};  // keep bits of columns j0 .. j0+15
+        if constexpr (DROPOUT) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            kw[r] = rows[r] < N ? keep_window(bits, off + rows[r] * N + j0) : 0u;
+        }
+        float ds[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, col = 8 * n + 2 * t4 + (e & 1), i = rows[r], j = j0 + col;
+            const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
+            float sg, pd, dsg;
+            probs<DROPOUT>(s[n][e], p[n][e], l2[r], valid, (kw[r] >> col) & 1u, scale2, ik,
+                           sg, pd, dsg);
+            if (sweep == 0) {
+              rsum[r] = fmaf(dsg, sg, rsum[r]);
+            } else {
+              ds[n][e] = sg * (dsg - rsum[r]) * a.scale;
+            }
+          }
+        if (sweep == 1) {
+          uint32_t hi[4], lo[4];
+          to_a<ROUND>(ds, hi, lo);
+          acc_times_rows<DH, ROUND>(dq, hi, lo, ks, j0, lane);
+        }
+      }
+      if (sweep == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+          if (t4 == 0) rs[rows[r]] = rsum[r];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= N) continue;
+      bf16* out = a.dq + xo + rows[r] * a.x_tok + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+            __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // rowsum of every row
+
+  // ---- pass 2: columns -> dk, dv ----
+  for (int jt = warp; jt < T; jt += kMmaWarps) {
+    const int j0 = jt * 16;
+    const int keys[2] = {j0 + g, j0 + g + 8};
+    float dk[NT][4], dv[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+    for (int it = 0; it < T; ++it) {
+      const int i0 = it * 16;
+      uint32_t ka[KS][4], va[KS][4];
+      load_a<DH>(ka, ks, j0, lane);
+      load_a<DH>(va, vs, j0, lane);
+      float st[2][4], pt[2][4];  // S^T, dP^T: rows are keys, columns queries
+      two_products<DH>(st, pt, ka, va, qs, gs, i0, lane);
+      const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
+      float pd[2][4], ds[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = i0 + 8 * n + 2 * t4 + c;
+          const float l2 = ls[i], rsum = rs[i];
+          uint32_t kw = ~0u;  // keep bits of keys j0 .. j0+15 in row i
+          if constexpr (DROPOUT) kw = i < N ? keep_window(bits, off + i * N + j0) : 0u;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = keys[r], e = 2 * r + c;
+            const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
+            float sg, dsg;
+            probs<DROPOUT>(st[n][e], pt[n][e], l2, valid, (kw >> (j - j0)) & 1u, scale2, ik,
+                           sg, pd[n][e], dsg);
+            ds[n][e] = sg * (dsg - rsum) * a.scale;
+          }
+        }
+      uint32_t hi[4], lo[4];
+      to_a<ROUND>(pd, hi, lo);
+      acc_times_rows<DH, ROUND>(dv, hi, lo, gs, i0, lane);
+      to_a<ROUND>(ds, hi, lo);
+      acc_times_rows<DH, ROUND>(dk, hi, lo, qs, i0, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (keys[r] >= N) continue;
+      const long long o = xo + keys[r] * a.x_tok + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + o + 8 * n) =
+            __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + o + 8 * n) =
+            __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DH, bool ROUND, bool DROPOUT>
+cudaError_t launch_mma_bwd_t(const MmaBwdArgs& a, cudaStream_t stream) {
+  const size_t smem = mma_bwd_smem_bytes(a.N, DH, DROPOUT);
+  cudaError_t err = allow_smem(attn_bwd_mma_kernel<DH, ROUND, DROPOUT>, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_mma_kernel<DH, ROUND, DROPOUT>
+      <<<a.B * a.H, kMmaWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Dh in {16, 32, 64} -> one instantiation
+template <bool ROUND, bool DROPOUT>
+cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
+  if (a.B <= 0 || a.H <= 0 || a.N <= 0 ||
+      static_cast<long long>(a.B) * a.H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  switch (DH) {
+    case 16: return launch_mma_bwd_t<16, ROUND, DROPOUT>(a, stream);
+    case 32: return launch_mma_bwd_t<32, ROUND, DROPOUT>(a, stream);
+    case 64: return launch_mma_bwd_t<64, ROUND, DROPOUT>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

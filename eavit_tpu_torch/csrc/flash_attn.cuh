@@ -2,7 +2,9 @@
 // of csrc/flash.cu (K4f, K4b: no dropout) and csrc/flash_dropout.cu (K3f, K3b:
 // probability dropout in the kernel). The two pairs share one template each,
 // with DROPOUT as its parameter: K3 is K4 with a Philox mask on the
-// normalised probabilities and another softmax-VJP row term.
+// normalised probabilities and another softmax-VJP row term. K3b runs this
+// backward for float32 inputs only: for bf16 it is the tensor-core kernel of
+// attn_bwd_mma.cuh.
 //
 // Inputs are contiguous [B, H, N, Dh] (row bh = b*H + h of N x Dh), bf16 or
 // f32; lse is f32 [B, H, N]. Sums are f32. Unlike K1 (flash_qkv.cu) nothing

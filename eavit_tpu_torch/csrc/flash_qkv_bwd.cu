@@ -41,11 +41,14 @@
 //     keep bit read from the bitmap, rowsum_i read from shared memory, then
 //     dv_j and dk_j.
 // The recompute costs two extra products (seven in all) and saves an N x N
-// f32 buffer that would not fit beside the operands. This first version
-// computes on the CUDA cores in f32 (no tensor cores); see PERF.md for its
-// measured time.
+// f32 buffer that would not fit beside the operands. That design computes on
+// the CUDA cores in f32 and now serves float32 inputs only. bf16 inputs, the
+// training path's, go to the tensor-core template of attn_bwd_mma.cuh with
+// pd and ds rounded to bf16 as above (ROUND = true); see PERF.md for both
+// designs' times.
 #include <cstdint>
 
+#include "attn_bwd_mma.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -53,10 +56,11 @@ namespace {
 
 constexpr int kWarps = 16;  // rows (pass A) or columns (pass B) in flight
 
-template <typename T, int DH>
+// float32 inputs; the roundings of pd and ds to the input dtype are identities
+template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_qkv_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
-                         const T* __restrict__ dout, T* __restrict__ dqkv, int N,
+    flash_qkv_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ lse,
+                         const float* __restrict__ dout, float* __restrict__ dqkv, int N,
                          int H, float scale, int num_special, uint32_t thresh,
                          float inv_keep, uint32_t s0, uint32_t s1, int use_dropout) {
   extern __shared__ float4 smem4[];
@@ -75,17 +79,17 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int h = blockIdx.x, b = blockIdx.y;
   const int inner = H * DH;
   const size_t tok_stride = 3 * static_cast<size_t>(inner);
-  const T* base = qkv + static_cast<size_t>(b) * N * tok_stride;
-  const T* gbase = dout + static_cast<size_t>(b) * N * inner;
-  T* obase = dqkv + static_cast<size_t>(b) * N * tok_stride;
+  const float* base = qkv + static_cast<size_t>(b) * N * tok_stride;
+  const float* gbase = dout + static_cast<size_t>(b) * N * inner;
+  float* obase = dqkv + static_cast<size_t>(b) * N * tok_stride;
 
   for (int idx = threadIdx.x; idx < N * DH; idx += blockDim.x) {
     const int t = idx / DH, d = idx % DH;
-    const T* tok = base + static_cast<size_t>(t) * tok_stride + h * DH + d;
-    qs[t * KS + d] = to_f(tok[0]);
-    ks[t * KS + d] = to_f(tok[inner]);
-    vs[t * KS + d] = to_f(tok[2 * inner]);
-    gs[t * KS + d] = to_f(gbase[static_cast<size_t>(t) * inner + h * DH + d]);
+    const float* tok = base + static_cast<size_t>(t) * tok_stride + h * DH + d;
+    qs[t * KS + d] = tok[0];
+    ks[t * KS + d] = tok[inner];
+    vs[t * KS + d] = tok[2 * inner];
+    gs[t * KS + d] = gbase[static_cast<size_t>(t) * inner + h * DH + d];
   }
   for (int t = threadIdx.x; t < N; t += blockDim.x)
     ls[t] = lse[(static_cast<size_t>(b) * H + h) * N + t];
@@ -149,14 +153,14 @@ __global__ void __launch_bounds__(kWarps * 32)
     rsum = warp_sum(rsum);
     __syncwarp();
     for (int j = lane; j < N; j += 32)
-      pb[j] = round_to<T>(pa[j] * (pb[j] - rsum) * scale);
+      pb[j] = pa[j] * (pb[j] - rsum) * scale;
     if (lane == 0) rs[i] = rsum;
     __syncwarp();
-    T* dq = obase + static_cast<size_t>(i) * tok_stride + h * DH;
+    float* dq = obase + static_cast<size_t>(i) * tok_stride + h * DH;
     for (int d = lane; d < DH; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(pb[j], ks[j * KS + d], acc);
-      dq[d] = from_f<T>(acc);
+      dq[d] = acc;
     }
     __syncwarp();  // pa, pb are reused by the warp's next row
   }
@@ -187,19 +191,19 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float dsg = keep ? dp * ik : 0.f;
         ds = sg * (dsg - rs[i]) * scale;
       }
-      pa[i] = round_to<T>(pd);
-      pb[i] = round_to<T>(ds);
+      pa[i] = pd;
+      pb[i] = ds;
     }
     __syncwarp();
-    T* tok = obase + static_cast<size_t>(j) * tok_stride + h * DH;
+    float* tok = obase + static_cast<size_t>(j) * tok_stride + h * DH;
     for (int d = lane; d < DH; d += 32) {
       float dk = 0.f, dv = 0.f;
       for (int i = 0; i < N; ++i) {
         dk = fmaf(pb[i], qs[i * KS + d], dk);
         dv = fmaf(pa[i], gs[i * KS + d], dv);
       }
-      tok[inner + d] = from_f<T>(dk);
-      tok[2 * inner + d] = from_f<T>(dv);
+      tok[inner + d] = dk;
+      tok[2 * inner + d] = dv;
     }
     __syncwarp();
   }
@@ -211,48 +215,68 @@ size_t bwd_smem_bytes(int N, int DH) {
          sizeof(uint32_t) * n * ((n + 31) / 32);
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_bwd(const void* qkv, const void* lse, const void* dout, void* dqkv,
                        int B, int N, int H, float scale, int num_special,
                        uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
                        int use_dropout, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(N, DH);
-  cudaError_t err = allow_smem(flash_qkv_bwd_kernel<T, DH>, smem);
+  cudaError_t err = allow_smem(flash_qkv_bwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  flash_qkv_bwd_kernel<T, DH><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(lse),
-      static_cast<const T*>(dout), static_cast<T*>(dqkv), N, H, scale, num_special,
-      thresh, inv_keep, s0, s1, use_dropout);
+  flash_qkv_bwd_kernel<DH><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), static_cast<float*>(dqkv), N, H, scale,
+      num_special, thresh, inv_keep, s0, s1, use_dropout);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int DH, const void* qkv, const void* lse, const void* dout,
-                        void* dqkv, int B, int N, int H, float scale, int num_special,
-                        uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
-                        int use_dropout, cudaStream_t stream) {
+cudaError_t dispatch_f32(int DH, const void* qkv, const void* lse, const void* dout,
+                         void* dqkv, int B, int N, int H, float scale, int num_special,
+                         uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                         int use_dropout, cudaStream_t stream) {
   switch (DH) {
     case 16:
-      return launch_bwd<T, 16>(qkv, lse, dout, dqkv, B, N, H, scale, num_special,
-                               thresh, inv_keep, s0, s1, use_dropout, stream);
+      return launch_bwd<16>(qkv, lse, dout, dqkv, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     case 32:
-      return launch_bwd<T, 32>(qkv, lse, dout, dqkv, B, N, H, scale, num_special,
-                               thresh, inv_keep, s0, s1, use_dropout, stream);
+      return launch_bwd<32>(qkv, lse, dout, dqkv, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     case 64:
-      return launch_bwd<T, 64>(qkv, lse, dout, dqkv, B, N, H, scale, num_special,
-                               thresh, inv_keep, s0, s1, use_dropout, stream);
+      return launch_bwd<64>(qkv, lse, dout, dqkv, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// bf16: the tensor-core kernel on the merged layout, pd and ds rounded
+cudaError_t launch_bf16(int DH, const void* qkv, const void* lse, const void* dout,
+                        void* dqkv, int B, int N, int H, float scale, int num_special,
+                        uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                        int use_dropout, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const long long inner = static_cast<long long>(H) * DH, tok = 3 * inner;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  MmaBwdArgs a{x, x + inner, x + 2 * inner, static_cast<const bf16*>(dout),
+               dx, dx + inner, dx + 2 * inner, static_cast<const float*>(lse),
+               N * tok, DH, tok, N * inner, DH, inner,
+               B, H, N, scale, num_special, thresh, inv_keep, s0, s1};
+  return use_dropout ? launch_mma_bwd<true, true>(DH, a, stream)
+                     : launch_mma_bwd<true, false>(DH, a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the backward needs for a sequence of N tokens.
-size_t eavit_flash_qkv_bwd_smem(int N, int DH) { return bwd_smem_bytes(N, DH); }
+// Shared-memory bytes the backward needs for a sequence of N tokens in the
+// given dtype (common.cuh's codes; bf16 counts the keep bitmap, which a
+// dropout-free launch leaves out).
+size_t eavit_flash_qkv_bwd_smem(int N, int DH, int dtype) {
+  return dtype == kBF16 ? mma_bwd_smem_bytes(N, DH, true) : bwd_smem_bytes(N, DH);
+}
 
 // Returns the cudaError_t of the launch (0 on success). B <= 65535.
 int eavit_flash_qkv_bwd(const void* qkv, const void* lse, const void* dout, void* dqkv,
@@ -262,13 +286,12 @@ int eavit_flash_qkv_bwd(const void* qkv, const void* lse, const void* dout, void
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 65535) return cudaErrorInvalidValue;
   if (dtype == kBF16) {
-    return dispatch_dh<__nv_bfloat16>(DH, qkv, lse, dout, dqkv, B, N, H, scale,
-                                      num_special, thresh, inv_keep, s0, s1,
-                                      use_dropout, st);
+    return launch_bf16(DH, qkv, lse, dout, dqkv, B, N, H, scale, num_special, thresh,
+                       inv_keep, s0, s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return dispatch_dh<float>(DH, qkv, lse, dout, dqkv, B, N, H, scale, num_special,
-                              thresh, inv_keep, s0, s1, use_dropout, st);
+    return dispatch_f32(DH, qkv, lse, dout, dqkv, B, N, H, scale, num_special, thresh,
+                        inv_keep, s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

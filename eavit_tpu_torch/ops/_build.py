@@ -64,13 +64,14 @@ def _source_hash() -> str:
 def build_all() -> Tuple[Path, str]:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` each, all started
     together) unless this hash was built before. Returns the directory and
-    nvcc's output (ptxas register and shared-memory report; empty when the
-    build was already there)."""
+    nvcc's output (ptxas register, spill and shared-memory report), kept
+    beside the libraries for a later call that finds them built."""
     out_dir = BUILD_ROOT / _source_hash()
     sources = sorted(CSRC.glob("*.cu"))
     wanted = {s: out_dir / f"lib{s.stem}.so" for s in sources}
+    log_path = out_dir / "nvcc.log"
     if all(p.exists() for p in wanted.values()):
-        return out_dir, ""
+        return out_dir, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -90,6 +91,7 @@ def build_all() -> Tuple[Path, str]:
     log = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    log_path.write_text(log)
     return out_dir, log
 
 
@@ -107,6 +109,15 @@ def check(err: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    tensor-core kernels copy rows into shared memory 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must start on a 16-byte boundary "
+                             f"(one at address {t.data_ptr():#x} does not)")
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

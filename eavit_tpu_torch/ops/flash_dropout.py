@@ -27,11 +27,13 @@ Two versions of each function: :func:`flash_dropout_fwd_plain`,
 torch, and the CUDA kernels of ``csrc/flash_dropout.cu`` (K3f, replacing
 ``_fwd_kernel`` launched at flash_dropout.py:225; K3b, replacing
 ``_bwd_kernel`` launched at line 254; K3r, replacing ``_bits_kernel``
-launched at line 349). The wrappers take the plain version for a CPU tensor
-and the kernel for a CUDA tensor. In place of ``supports()`` (line 94),
-which sends long sequences to the XLA path, a CUDA call whose N does not
-fit in shared memory raises: there is no fallback. ``launches`` counts
-kernel launches.
+launched at line 349). K3b takes bf16 inputs on the tensor cores
+(``csrc/attn_bwd_mma.cuh``, pd and ds as two bf16 terms each, so that they
+keep float32 precision) and float32 inputs on the CUDA cores. The wrappers
+take the plain version for a CPU tensor and the kernel for a CUDA tensor.
+In place of ``supports()`` (line 94), which sends long sequences to the
+XLA path, a CUDA call whose N does not fit in shared memory raises: there
+is no fallback. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def _lib():
         lib.eavit_flash_dropout_fwd.restype = i
         lib.eavit_flash_dropout_bwd.argtypes = [vp] * 8 + tail
         lib.eavit_flash_dropout_bwd.restype = i
+        lib.eavit_flash_dropout_fwd_smem.argtypes = [i, i]
+        lib.eavit_flash_dropout_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
         for name in ("eavit_flash_dropout_fwd_smem", "eavit_flash_dropout_bwd_smem"):
-            getattr(lib, name).argtypes = [i, i]
             getattr(lib, name).restype = ctypes.c_size_t
         lib.eavit_flash_dropout_bits.argtypes = [vp, ctypes.c_ulonglong, u, u, vp]
         lib.eavit_flash_dropout_bits.restype = i
@@ -162,11 +165,14 @@ def flash_dropout_bwd(
     flash.check_kernel_args("flash_dropout_bwd", q, k, v, do, lse=lse)
     b, h, n, dh = q.shape
     lib = _lib()
-    flash.check_smem("flash_dropout_bwd", lib.eavit_flash_dropout_bwd_smem(n, dh), n, dh)
+    code = _build.DTYPE_CODES[q.dtype]
+    flash.check_smem("flash_dropout_bwd", lib.eavit_flash_dropout_bwd_smem(n, dh, code), n, dh)
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned("flash_dropout_bwd", q, k, v, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = lib.eavit_flash_dropout_bwd(
         *(_build.ptr(t) for t in (q, k, v, lse, do, dq, dk, dv)), b * h, n, dh,
-        _build.DTYPE_CODES[q.dtype], float(scale), int(num_special), thresh,
+        code, float(scale), int(num_special), thresh,
         float(inv_keep), s0, s1, _build.stream_ptr(q))
     _build.check(err, "flash_dropout_bwd")
     launches["flash_dropout_bwd"] += 1

@@ -26,7 +26,9 @@ Two versions of each function:
   replaces ``_fwd_kernel`` at flash_qkv.py:242 launched at line 531, and K1r
   ``flash_qkv_bits``, which replaces ``_bits_kernel`` at line 683 launched
   at line 715) and of ``csrc/flash_qkv_bwd.cu`` (K1b ``flash_qkv_bwd``,
-  which replaces ``_bwd_kernel`` at line 305 launched at line 580).
+  which replaces ``_bwd_kernel`` at line 305 launched at line 580; bf16
+  inputs run on the tensor cores, ``csrc/attn_bwd_mma.cuh``, float32 inputs
+  on the CUDA cores).
 
 :func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
@@ -66,7 +68,7 @@ def _bwd_lib():
         lib.eavit_flash_qkv_bwd.argtypes = [
             vp, vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
         lib.eavit_flash_qkv_bwd.restype = i
-        lib.eavit_flash_qkv_bwd_smem.argtypes = [i, i]
+        lib.eavit_flash_qkv_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
         lib.eavit_flash_qkv_bwd_smem.restype = ctypes.c_size_t
         lib._eavit_typed = True
     return lib
@@ -214,14 +216,17 @@ def flash_qkv_bwd(
     if b > 65535:
         raise ValueError(f"flash_qkv_bwd: batch {b} exceeds the grid limit 65535")
     lib = _bwd_lib()
-    if lib.eavit_flash_qkv_bwd_smem(n, dim_head) > _SMEM_LIMIT:
+    code = _build.DTYPE_CODES[qkv.dtype]
+    if lib.eavit_flash_qkv_bwd_smem(n, dim_head, code) > _SMEM_LIMIT:
         raise ValueError(f"flash_qkv_bwd: N={n} with dim_head={dim_head} does not "
                          f"fit in shared memory")
+    if qkv.dtype == torch.bfloat16:
+        _build.check_aligned("flash_qkv_bwd", qkv, do)
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     dqkv = torch.empty_like(qkv)
     err = lib.eavit_flash_qkv_bwd(
         _build.ptr(qkv), _build.ptr(lse), _build.ptr(do), _build.ptr(dqkv), b, n,
-        heads, dim_head, _build.DTYPE_CODES[qkv.dtype], float(scale),
+        heads, dim_head, code, float(scale),
         int(num_special), thresh or 0, float(inv_keep), s0, s1,
         int(thresh is not None), _build.stream_ptr(qkv),
     )

@@ -22,6 +22,21 @@ held to their plain versions at one bf16 rounding of each output in bf16 and
 to autograd through the plain forward, and give equal bits twice. K5 (the
 KV-streaming kernels) is held to its plain version at the same tolerances,
 at N up to 640 and in one call at 3,137, and gives equal bits twice.
+
+K1b and K3b in bf16 run on the tensor cores (csrc/attn_bwd_mma.cuh), with
+N padded to 16-row tiles: they are held to their plain versions at N around
+the tiles (15, 16, 17, 37, 197, 198, 199, and 443, which only the bf16
+kernels hold, at Dh 16 and 32), Dh 16 / 32 / 64, num_special 0 / 2 and an
+odd batch, at one bf16 rounding of each output (2^-8 relative, as above:
+K1b's products are the plain version's exactly, pd and ds rounded to bf16
+as the JAX kernel rounds them, and only the sum order differs; K3b's pd and
+ds enter as two bf16 terms, 2^-17 relative, far inside that), with equal
+bits twice and one launch per call. The cancellation test makes every key
+8 + 0.01 noise, so that dq = sum_j ds_ij k_j, whose ds_ij sum to 0, nearly
+cancels: there a bf16 ds would err by about dq itself, and K3b, which keeps
+pd and ds in float32 as the JAX kernel does, must err at most a tenth as
+much as the dq that rounding ds gives (the plain K1b on the same inputs);
+the K1b kernel matches that plain K1b at one bf16 rounding.
 """
 
 import math
@@ -149,6 +164,11 @@ def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
 # ---------------------------------------------------------------------------
 
 
+# bf16 runs on the tensor cores with N padded to 16-row tiles: N around the
+# tiles, every head width, an odd batch
+RAGGED_N = (15, 16, 17, 37, 197, 198, 199)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,n,num_special,dim_head,dtype", [
     (256, 198, 2, 32, torch.bfloat16),  # shared-patch-stream minibatch
@@ -156,7 +176,8 @@ def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
     (3, 37, 2, 16, torch.float32),
     (2, 70, 0, 64, torch.bfloat16),
     (2, 198, 2, 32, torch.float32),
-])
+] + [(3, n, ns, dh, torch.bfloat16) for n in RAGGED_N for dh in (16, 32, 64)
+     for ns in (0, 2)])
 def test_flash_qkv_bwd_kernel_matches_plain(cuda, b, n, num_special, dim_head, dtype, rate):
     heads, seeds = 8, (123, 456)
     x = _qkv(b, n, heads, dim_head, cuda, dtype)
@@ -286,7 +307,7 @@ def _tol(ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dim_head", [16, 32, 64])
 @pytest.mark.parametrize("num_special", [0, 2])
-@pytest.mark.parametrize("n", [37, 197, 198])
+@pytest.mark.parametrize("n", [15, 16, 17, 37, 197, 198, 199])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_kernels_match_plain(cuda, rate, n, num_special, dim_head, dtype):
     """K4f / K4b at rate 0, K3f / K3b at rate 0.1, forward and backward."""
@@ -473,3 +494,79 @@ def test_flash_stream_shared_memory_does_not_grow_with_n(cuda):
     dq, dk, dv = fs.flash_stream_bwd(q, k, v, lse, fs.stream_delta(o, do), do, 0.125)
     torch.cuda.synchronize()
     assert all(torch.isfinite(t.float()).all() for t in (o, lse, dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# K1b and K3b in bf16: the tensor-core kernels of csrc/attn_bwd_mma.cuh
+# ---------------------------------------------------------------------------
+
+def _cancelling_heads(b, h, n, dh, device):
+    """q, k, v, dO [B, H, N, Dh] in bf16 with keys 8 + 0.01 noise: every key
+    is nearly the same, so dq = sum_j ds_ij k_j, whose ds_ij sum to 0 over j,
+    nearly cancels."""
+    rng = np.random.default_rng(12)
+    q, v, do, noise = (rng.standard_normal((b, h, n, dh)).astype(np.float32)
+                       for _ in range(4))
+    k = 8.0 + 0.01 * noise
+    return [torch.from_numpy(t).to(device, torch.bfloat16) for t in (q, k, v, do)]
+
+
+def _merged(t):
+    """[B, H, N, Dh] -> [B, N, H*Dh]"""
+    b, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def test_bf16_backward_keeps_a_cancelling_dq(cuda):
+    """K3b keeps pd and ds in float32 (as two bf16 terms each): its dq error
+    against the plain version is at most a tenth of the error of the dq that
+    rounding ds to bf16 gives. That rounded dq is the plain K1b on the same
+    inputs (K1 rounds pd and ds, and draws the same mask), which the K1b
+    kernel itself must match at one bf16 rounding."""
+    b, h, n, dh, ns = 2, 4, 198, 32, 2
+    q, k, v, do = _cancelling_heads(b, h, n, dh, cuda)
+    scale, seeds, rate = dh ** -0.5, (5, 9), 0.1
+    _, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)
+    dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns)[0]
+    dq_plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, ns)[0]
+    qkv = torch.cat([_merged(t) for t in (q, k, v)], dim=-1).contiguous()
+    args = (h, dh, scale, ns, seeds, rate)
+    rounded = fq.flash_qkv_bwd_plain(qkv, lse, _merged(do).contiguous(), *args)
+    dq_rounded = rounded[..., :h * dh].reshape(b, n, h, dh).transpose(1, 2)
+    torch.cuda.synchronize()
+    err, err_rounded = _max_err(dq, dq_plain), _max_err(dq_rounded, dq_plain)
+    assert err_rounded > 0 and err <= 0.1 * err_rounded, (err, err_rounded)
+    d1 = fq.flash_qkv_bwd(qkv, lse, _merged(do).contiguous(), *args)
+    assert _max_err(d1, rounded) <= _bf16_tol(rounded)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("dim_head", [16, 32])
+def test_bf16_backward_kernels_take_patch4_sequences(cuda, dim_head, num_special):
+    """N = 443 (patch 4): the bf16 K1b and K3b hold the head as bf16 and take
+    it, matching their plain versions; at Dh = 32 the float32 kernels still
+    refuse it."""
+    b, h, n, seeds, rate = 3, 2, 443, (8, 9), 0.1
+    scale = dim_head ** -0.5
+    q, k, v, do = _heads(b, h, n, dim_head, cuda, torch.bfloat16, seed=7)
+    qkv = torch.cat([_merged(t) for t in (q, k, v)], dim=-1).contiguous()
+    g = _merged(do).contiguous()
+    args = (h, dim_head, scale, num_special, seeds, rate)
+    _, lse = fq.flash_qkv_fwd(qkv, *args)
+    d = fq.flash_qkv_bwd(qkv, lse, g, *args)
+    p = fq.flash_qkv_bwd_plain(qkv, lse, g, *args)
+    assert _max_err(d, p) <= _bf16_tol(p)
+    assert torch.equal(d, fq.flash_qkv_bwd(qkv, lse, g, *args))
+    _, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, num_special)
+    bargs = (q, k, v, lse, do, seeds, rate, scale, num_special)
+    grads, plain = fd.flash_dropout_bwd(*bargs), fd.flash_dropout_bwd_plain(*bargs)
+    for a, r in zip(grads, plain):
+        assert _max_err(a, r) <= _bf16_tol(r)
+    assert all(torch.equal(a, r) for a, r in zip(grads, fd.flash_dropout_bwd(*bargs)))
+    if dim_head == 16:
+        return  # the float32 kernels hold N = 443 at Dh = 16 (up to 492)
+    f32 = [t.float() for t in (q, k, v, do)]
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.flash_dropout_bwd(*f32[:3], lse, f32[3], seeds, rate, scale, num_special)
+    with pytest.raises(ValueError, match="shared memory"):
+        fq.flash_qkv_bwd(qkv.float(), lse, g.float(), *args)

@@ -5,8 +5,9 @@ At rate 0 the gradient of ``flash_mha_qkv`` through the port's
 ``autograd.Function`` (the plain backward on the CPU) is held to ``jax.grad``
 of ``eavit_tpu.ops.flash_qkv.flash_mha_qkv``, which runs the Pallas
 ``_bwd_kernel`` in interpret mode on the CPU, on ragged sequence lengths with
-and without the dual-query mask, at float32 (1e-5 of the gradient's scale) and
-bfloat16 (2e-2: the roundings of pd, ds and dqkv to bf16). At rate 0.1 the
+and without the dual-query mask and at the flagship N = 198 (``Dh`` = 32,
+``num_special`` = 2), at float32 (1e-5 of the gradient's scale) and bfloat16
+(2e-2: the roundings of pd, ds and dqkv to bf16). At rate 0.1 the
 explicit plain backward must equal torch autograd through the plain forward,
 which proves that it replays the forward's mask (float32, 1e-5). The CUDA
 kernel is held to the plain backward on a GPU by test_torch_port_cuda.py.
@@ -34,11 +35,18 @@ def _assert_close(ours, ref, tol):
     np.testing.assert_allclose(ours, ref, rtol=tol, atol=tol * scale)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("num_special", [0, 2])
-@pytest.mark.parametrize("n", [11, 13])
-def test_backward_matches_jax_grad_through_the_kernel(n, num_special, dtype):
-    b, heads, dim_head = 3, 2, 8
+# (n, num_special, dtype, (b, heads, dim_head)): ragged short sequences, and
+# the flagship N = 198 at the flagship head width, which the bf16 CUDA kernel
+# pads to 13 tiles of 16 rows
+JAX_GRAD_CASES = [(n, ns, dt, (3, 2, 8)) for n in (11, 13) for ns in (0, 2)
+                  for dt in ("float32", "bfloat16")] + [
+    (198, 2, dt, (1, 2, 32)) for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("n,num_special,dtype,shape", JAX_GRAD_CASES,
+                         ids=[f"{n}-{ns}-{dt}" for n, ns, dt, _ in JAX_GRAD_CASES])
+def test_backward_matches_jax_grad_through_the_kernel(n, num_special, dtype, shape):
+    b, heads, dim_head = shape
     x, g = _inputs(n, b, n, heads, dim_head)
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
