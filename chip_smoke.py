@@ -82,15 +82,26 @@ non-zero on failure:
     with ``Epoch = 1`` on ``pallas_stream``, finite, with its launch counts
     and frames/s; one minibatch step of 4 frames on ``pallas`` and on
     ``pallas_qkv``, whose bf16 backward kernels (K3b, K1b) hold N = 443 since
-    they keep the head in bf16: finite gradients, through the kernels.
+    they keep the head in bf16, and on ``pallas`` at dropout 0 (K4b): finite
+    gradients, through the kernels (the float32 backward kernels cannot hold
+    N = 443 at ``Dh`` 32, and their wrappers raise there).
+15. Each kernel's limit on N (``Dh`` 32, bf16 and float32): at the longest N
+    that fits in shared memory the wrapper launches its kernel once and
+    matches the plain version; one token more raises before any launch.
 
-K1b and K3b run bf16 inputs on the tensor cores (``csrc/attn_bwd_mma.cuh``).
-Phase 1 logs each of their instantiations' registers and spills from
-ptxas; phase 7 also runs the cancellation check once at the flagship
-minibatch (keys that are nearly equal, so that dq nearly cancels: K3b, which
-keeps pd and ds in float32 as two bf16 terms, must err at most a tenth as
-much as the dq that rounding ds to bf16 gives) and logs the longest N each
-kernel takes per dtype.
+K1b, K3b and K4b run bf16 inputs on the tensor-core backward
+(``csrc/attn_bwd_mma.cuh``; K4b with delta from O), K1f on the tensor-core
+forward (``csrc/attn_fwd_mma.cuh``). Phase 1 logs each of their
+instantiations' registers and spills from ptxas and fails on a spill at
+``Dh`` <= 32; phase 2 times K1f at the act shapes and at the minibatch
+shape (beside SDPA on the same head-split tensors and mask); phase 7 runs
+K4b at the patch-4 minibatch too, and the cancellation check once at the
+flagship minibatch (keys that are nearly equal, so that dq nearly cancels:
+K3b and K4b, which keep pd and ds in float32 as two bf16 terms, must err at
+most a tenth as much as the dq that rounding ds to bf16 gives) and logs the
+longest N each kernel takes per dtype. No wrapper runs its plain version
+on the card: every row of a kernel phase is logged only after the call it
+times launched the kernel exactly once.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -156,6 +167,16 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def once(mod, name: str, call):
+    """``call()``, which must launch the kernel ``name`` of ``mod`` exactly
+    once: a kernel row is logged only for a call that ran its kernel."""
+    before = mod.launches[name]
+    out = call()
+    check(mod.launches[name] == before + 1,
+          f"{name}: {mod.launches[name] - before} launches in one call, expected 1")
+    return out
+
+
 def ptxas_report(build_log: str):
     """``{source: {entry: {registers, stack, spill_stores, spill_loads}}}``
     from the ``-Xptxas -v`` output of ``_build.build_all``."""
@@ -177,16 +198,18 @@ def ptxas_report(build_log: str):
     return out
 
 
-def mma_bwd_ptxas(report, source: str):
-    """The tensor-core backward's instantiations in one source, as
-    ``{"Dh32 rounded dropout": {...}}``."""
+def mma_ptxas(report, source: str):
+    """The tensor-core templates' instantiations in one source, as
+    ``{"Dh32 rounded dropout": {...}}`` (backward) or ``{"Dh32 fwd dropout":
+    {...}}`` (forward)."""
     rows = {}
     for entry, info in report.get(source, {}).items():
-        m = re.search(r"attn_bwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", entry)
-        if m:
+        if m := re.search(r"attn_bwd_mma_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", entry):
             name = f"Dh{m.group(1)} {'rounded' if m.group(2) == '1' else 'split'}" + (
-                " dropout" if m.group(3) == "1" else "")
+                " dropout" if m.group(3) == "1" else "") + (" delta" if m.group(4) == "1" else "")
             rows[name] = info
+        elif m := re.search(r"attn_fwd_mma_kernelILi(\d+)ELb([01])E", entry):
+            rows[f"Dh{m.group(1)} fwd" + (" dropout" if m.group(2) == "1" else "")] = info
     return rows
 
 
@@ -212,18 +235,21 @@ def kernel_phase(torch, fq, ff, kp, dev):
     heads, dh, seeds = 8, 32, KERNEL_SEEDS
     rows = {}
 
-    # K1f at both act shapes, rate 0 and 0.1 (the act path runs 0.1)
-    for b, n, ns in ((NUM_ENVS, 198, 2), (2 * NUM_ENVS, 197, 0)):
-        g = torch.Generator().manual_seed(n)
+    # K1f at both act shapes and the shared minibatch, rate 0 and 0.1 (the
+    # paths run 0.1); SDPA on the same head-split tensors and mask at rate 0
+    for use, b, n, ns in (("act", NUM_ENVS, 198, 2), ("act", 2 * NUM_ENVS, 197, 0),
+                          ("train", MB_FRAMES, 198, 2)):
+        g = torch.Generator().manual_seed(n + b)
         qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
         q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2).contiguous()
                    for t in qkv.split(heads * dh, dim=-1))
         mask = dual_query_allowed(n, n, ns, dev) if ns else None
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), 50)
+        del q, k, v
         for rate in (0.0, 0.1):
             args = (heads, dh, dh ** -0.5, ns, seeds, rate)
-            o, lse = fq.flash_qkv_fwd(qkv, *args)
+            o, lse = once(fq, "flash_qkv_fwd", lambda: fq.flash_qkv_fwd(qkv, *args))
             po, plse = fq.flash_qkv_fwd_plain(qkv, *args)
             torch.cuda.synchronize()
             err = (o.float() - po.float()).abs().max().item()
@@ -233,13 +259,16 @@ def kernel_phase(torch, fq, ff, kp, dev):
             plain = time_ms(torch, lambda: fq.flash_qkv_fwd_plain(qkv, *args), 5)
             nbytes = 2 * qkv.numel() + 2 * o.numel() + 4 * lse.numel()
             bms, by = bound_ms(nbytes, 4.0 * b * heads * n * n * dh, "bfloat16")
-            row = dict(kernel="flash_qkv_fwd", b=b, n=n, num_special=ns, rate=rate,
+            again = fq.flash_qkv_fwd(qkv, *args)
+            same = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
+            del po, plse, again
+            row = dict(kernel="flash_qkv_fwd", use=use, b=b, n=n, num_special=ns, rate=rate,
                        dtype="bfloat16", max_abs_err=err, tol=tol, lse_err=lse_err,
-                       lse_tol=1e-4, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                       bound_ms=bms, bound_by=by)
+                       lse_tol=1e-4, deterministic=same, ms=ms, plain_ms=plain,
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
             log("kernel", **row)
-            check(err <= tol and lse_err <= 1e-4, f"flash_qkv_fwd {row}")
-            rows[("flash_qkv_fwd", n, rate)] = row
+            check(err <= tol and lse_err <= 1e-4 and same, f"flash_qkv_fwd {row}")
+            rows[("flash_qkv_fwd", use, n, rate)] = row
 
     # K2f at both act row counts; float32 is what the path feeds it
     d, hid = 256, 1024
@@ -249,7 +278,8 @@ def kernel_phase(torch, fq, ff, kp, dev):
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             for rate in (0.0, 0.1):
-                y = ff.fused_ffn(x, *params, seeds=seeds, rate=rate)
+                y = once(ff, "fused_ffn_fwd",
+                         lambda: ff.fused_ffn(x, *params, seeds=seeds, rate=rate))
                 p = ff.fused_ffn_fwd_plain(x, *params, seeds=seeds, rate=rate)
                 torch.cuda.synchronize()
                 err = (y.float() - p.float()).abs().max().item()
@@ -280,7 +310,7 @@ def kernel_phase(torch, fq, ff, kp, dev):
         return keep, abs(keep - p_keep) < 4 * sigma
 
     b, n = NUM_ENVS, 198
-    bits = fq.flash_qkv_bits(b, heads, n, seeds, dev)
+    bits = once(fq, "flash_qkv_bits", lambda: fq.flash_qkv_bits(b, heads, n, seeds, dev))
     plain_bits = fq.flash_qkv_bits_plain(b, heads, n, seeds, dev)
     equal = bool(torch.equal(bits, plain_bits))
     keep, keep_good = keep_ok(bits)
@@ -296,7 +326,7 @@ def kernel_phase(torch, fq, ff, kp, dev):
     rows["flash_qkv_bits"] = row
 
     r = NUM_ENVS * 198
-    m1, m2 = ff.fused_ffn_bits(r, d, hid, seeds, dev)
+    m1, m2 = once(ff, "fused_ffn_bits", lambda: ff.fused_ffn_bits(r, d, hid, seeds, dev))
     p1, p2 = ff.fused_ffn_bits_plain(r, d, hid, seeds, dev)
     equal = bool(torch.equal(m1, p1) and torch.equal(m2, p2))
     keep, keep_good = keep_ok(torch.cat([m1.reshape(-1), m2.reshape(-1)]))
@@ -314,8 +344,9 @@ def kernel_phase(torch, fq, ff, kp, dev):
 
 
 def train_kernel_phase(torch, fq, ff, dev):
-    """K1b and K2b against their plain versions, and K1f / K2f timed again,
-    at the shapes one minibatch of 256 frames gives them."""
+    """K1b and K2b against their plain versions, and K2f timed again, at the
+    shapes one minibatch of 256 frames gives them (K1f's minibatch row is
+    phase 2's)."""
     import torch.nn.functional as F
 
     from eavit_tpu_torch.ops.attention import dual_query_allowed
@@ -339,7 +370,7 @@ def train_kernel_phase(torch, fq, ff, dev):
         for rate in (0.0, 0.1):
             args = (heads, dh, dh ** -0.5, ns, seeds, rate)
             _, lse = fq.flash_qkv_fwd(qkv, *args)
-            dqkv = fq.flash_qkv_bwd(qkv, lse, do, *args)
+            dqkv = once(fq, "flash_qkv_bwd", lambda: fq.flash_qkv_bwd(qkv, lse, do, *args))
             plain = fq.flash_qkv_bwd_plain(qkv, lse, do, *args)
             torch.cuda.synchronize()
             err = (dqkv.float() - plain.float()).abs().max().item()
@@ -348,13 +379,11 @@ def train_kernel_phase(torch, fq, ff, dev):
             ms = time_ms(torch, lambda: fq.flash_qkv_bwd(qkv, lse, do, *args), 10)
             plain_ms = time_ms(torch, lambda: fq.flash_qkv_bwd_plain(
                 qkv, lse, do, *args), 2, warmup=1)
-            fwd_ms = time_ms(torch, lambda: fq.flash_qkv_fwd(qkv, *args), 20)
             nbytes = 2 * (2 * qkv.numel() + do.numel()) + 4 * lse.numel()
             bms, by = bound_ms(nbytes, 10.0 * b * heads * n * n * dh, "bfloat16")
             row = dict(kernel="flash_qkv_bwd", b=b, n=n, num_special=ns, rate=rate,
                        dtype="bfloat16", max_abs_err=err, tol=tol, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                       fwd_ms_at_this_shape=fwd_ms)
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
             log("kernel", **row)
             check(err <= tol, f"flash_qkv_bwd {row}")
             rows[("flash_qkv_bwd", n, rate)] = row
@@ -372,7 +401,7 @@ def train_kernel_phase(torch, fq, ff, dev):
             name = str(dtype).split(".")[-1]
             for rate in (0.0, 0.1):
                 call = lambda: ff.fused_ffn_bwd(x, *params[:5], dy, seeds, rate)  # noqa: E731
-                out = call()
+                out = once(ff, "fused_ffn_bwd", call)
                 plain = ff.fused_ffn_bwd_plain(x, *params[:5], dy, seeds, rate)
                 torch.cuda.synchronize()
                 rel = {k: ((a.float() - p.float()).abs().max()
@@ -439,13 +468,23 @@ def train_kernel_phase(torch, fq, ff, dev):
 # ---------------------------------------------------------------------------
 
 
+# (use, B, N, num_special, dtype) of the flash kernels: the acting and
+# minibatch shapes of both modes, the patch-4 minibatch, and once float32
+FLASH_SHAPES = (("act", NUM_ENVS, 198, 2, "bfloat16"), ("act", 2 * NUM_ENVS, 197, 0, "bfloat16"),
+                ("train", MB_FRAMES, 198, 2, "bfloat16"),
+                ("train", 2 * MB_FRAMES, 197, 0, "bfloat16"),
+                ("train_patch4", MB_FRAMES, 443, 2, "bfloat16"),
+                ("act", NUM_ENVS, 198, 2, "float32"))
+
+
 def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
     """K4f, K4b, K3f, K3b at the pallas path's shapes against their plain
     versions, timed; K3r bit for bit; the backward Functions against torch
-    autograd through the plain forwards; the cancellation check of K3b and
-    K1b; the longest N of each kernel."""
+    autograd through the plain forwards; the cancellation check of K3b, K4b
+    and K1b; the longest N of each kernel."""
     import torch.nn.functional as F
 
+    from eavit_tpu_torch.ops._build import SMEM_LIMIT
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
     heads, dh, seeds, rate = 8, 32, KERNEL_SEEDS, 0.1
@@ -459,16 +498,11 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
         tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
         return err, tol
 
-    shapes = (("act", NUM_ENVS, 198, 2, torch.bfloat16),
-              ("act", 2 * NUM_ENVS, 197, 0, torch.bfloat16),
-              ("train", MB_FRAMES, 198, 2, torch.bfloat16),
-              ("train", 2 * MB_FRAMES, 197, 0, torch.bfloat16),
-              ("act", NUM_ENVS, 198, 2, torch.float32))
-    for use, b, n, ns, dtype in shapes:
+    for use, b, n, ns, dname in FLASH_SHAPES:
+        dtype = getattr(torch, dname)
         g = torch.Generator().manual_seed(b + n)
         q, k, v, do = (torch.randn(b, heads, n, dh, generator=g).to(dev, dtype)
                        for _ in range(4))
-        dname = str(dtype).split(".")[-1]
         timed = dtype == torch.bfloat16
         mask = dual_query_allowed(n, n, ns, dev) if ns else None
         bhn, numel, esize = b * heads * n, q.numel(), q.element_size()
@@ -476,15 +510,15 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), 20) if timed else None
         fwds = {
-            "flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
+            "flash_fwd": (fl, lambda: fl.flash_fwd(q, k, v, scale, ns),
                           lambda: fl.flash_fwd_plain(q, k, v, scale, ns), 0.0),
             "flash_dropout_fwd": (
-                lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
+                fd, lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
                 lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns), rate),
         }
         saved = {}
-        for name, (fwd, plain, r) in fwds.items():
-            o, lse = fwd()
+        for name, (mod, fwd, plain, r) in fwds.items():
+            o, lse = once(mod, name, fwd)
             po, plse = plain()
             torch.cuda.synchronize()
             err, tol = err_tol(o, po, dtype)
@@ -516,17 +550,17 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
         lse3 = saved["flash_dropout_fwd"][1]
         bwds = {
             # q, k, v, o, dO and lse read, dq, dk, dv written
-            "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns),
+            "flash_bwd": (fl, lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns),
                           lambda: fl.flash_bwd_plain(q, k, v, o4, lse4, do, scale, ns),
                           0.0, 8),
             # no O: q, k, v, dO and lse read, dq, dk, dv written
             "flash_dropout_bwd": (
-                lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, rate, scale, ns),
+                fd, lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, rate, scale, ns),
                 lambda: fd.flash_dropout_bwd_plain(q, k, v, lse3, do, seeds, rate, scale, ns),
                 rate, 7),
         }
-        for name, (bwd, plain, r, tensors) in bwds.items():
-            out = bwd()
+        for name, (mod, bwd, plain, r, tensors) in bwds.items():
+            out = once(mod, name, bwd)
             ref = plain()
             again = bwd()
             torch.cuda.synchronize()
@@ -551,7 +585,7 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
     b, n = NUM_ENVS, 198
     thresh = kp.keep_threshold(rate)
     p_keep = thresh / (1 << 24)
-    bits = fd.dropout_raw_bits(b, heads, n, seeds, dev)
+    bits = once(fd, "flash_dropout_bits", lambda: fd.dropout_raw_bits(b, heads, n, seeds, dev))
     plain_bits = kp.raw_bits24(b * heads * n * n, seeds, 0, dev).reshape(b, heads, n, n)
     equal = bool(torch.equal(bits, plain_bits))
     keep = (bits < thresh).double().mean().item()
@@ -586,35 +620,45 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
         log("autograd", kernel=name, max_abs_err=err, tol=tol)
         check(err <= tol, f"{name}: Function backward vs autograd of the plain forward")
 
-    cancellation_check(torch, fq, fd, dev)
-
-    # the longest sequence each kernel takes at each head width; the bf16
-    # backward kernels of K1 and K3 (tensor cores) differ from their float32
-    # ones
-    codes = {"bfloat16": 1, "float32": 0}
-    libs = {"flash_fwd": fl._lib().eavit_flash_fwd_smem,
-            "flash_bwd": fl._lib().eavit_flash_bwd_smem,
-            "flash_dropout_fwd": fd._lib().eavit_flash_dropout_fwd_smem,
-            **{f"flash_dropout_bwd {dt}": (lambda m, d, c=c: fd._lib()
-                                           .eavit_flash_dropout_bwd_smem(m, d, c))
-               for dt, c in codes.items()},
-            **{f"flash_qkv_bwd {dt}": (lambda m, d, c=c: fq._bwd_lib()
-                                       .eavit_flash_qkv_bwd_smem(m, d, c))
-               for dt, c in codes.items()}}
-    max_n = {name: {d: max(m for m in range(1, 4096) if smem(m, d) <= fl.SMEM_LIMIT)
-                    for d in fl.DIM_HEADS} for name, smem in libs.items()}
-    log("max_n", smem_limit=fl.SMEM_LIMIT, **max_n)
+    cancellation_check(torch, fq, fd, fl, dev)
+    log("max_n", smem_limit=SMEM_LIMIT, **longest_n(torch, fq, fl, fd))
     return rows
 
 
-def cancellation_check(torch, fq, fd, dev):
+def smem_fns(fq, fl, fd):
+    """kernel -> its shared memory in bytes as a function of (N, Dh, dtype):
+    the test each wrapper raises on before any launch."""
+    return {"flash_qkv_fwd": fq.fwd_smem, "flash_qkv_bwd": fq.bwd_smem,
+            "flash_fwd": lambda n, d, dt: fl.fwd_smem(n, d), "flash_bwd": fl.bwd_smem,
+            "flash_dropout_fwd": lambda n, d, dt: fd.fwd_smem(n, d),
+            "flash_dropout_bwd": fd.bwd_smem}
+
+
+def first_n_past(smem, dim_head: int, dtype) -> int:
+    """The shortest sequence that does not fit in one block's shared memory."""
+    from eavit_tpu_torch.ops._build import SMEM_LIMIT
+
+    return next(m for m in range(1, 4097) if smem(m, dim_head, dtype) > SMEM_LIMIT)
+
+
+def longest_n(torch, fq, fl, fd):
+    """The longest sequence each kernel takes at each head width and dtype:
+    past it the wrapper raises."""
+    return {f"{name} {dt}": {d: first_n_past(smem, d, getattr(torch, dt)) - 1
+                             for d in fl.DIM_HEADS}
+            for name, smem in smem_fns(fq, fl, fd).items() for dt in ("bfloat16", "float32")}
+
+
+def cancellation_check(torch, fq, fd, fl, dev):
     """At the flagship minibatch ``[256, 8, 198, 32]``, rate 0.1, with keys
     ``8 + 0.01 noise`` in bf16: the rows of ds sum to 0, so ``dq = ds k``
     nearly cancels. K3b keeps pd and ds in float32 (two bf16 terms each): its
     dq must err against the plain version at most a tenth as much as the dq
     that rounding ds to bf16 gives, which is the plain K1b on the same
     inputs (K1 rounds pd and ds and draws the same mask). The K1b kernel must
-    match that plain K1b at one bf16 rounding."""
+    match that plain K1b at one bf16 rounding. K4b (rate 0, delta from the
+    forward's O) is held the same way against its plain version with ds
+    rounded to bf16 before ``ds k``."""
     import numpy as np
 
     b, h, n, dh, ns = MB_FRAMES, 8, 198, 32, 2
@@ -647,6 +691,29 @@ def cancellation_check(torch, fq, fd, dev):
     check(err_rounded > 0 and err <= 0.1 * err_rounded,
           f"K3b dq error {err} vs {err_rounded} with ds rounded to bf16")
     check(k1_err <= k1_tol, f"K1b on cancelling keys: {k1_err} > {k1_tol}")
+    del dq, dq_plain, k1_plain, dq_rounded, k1, qkv, g
+
+    # K4b: the plain K4b's formulas (flash_bwd_plain) in float32, once with
+    # ds as it is and once with ds rounded to bf16 before dq = ds k
+    o, lse = fl.flash_fwd(q, k, v, scale, ns)
+    dq = fl.flash_bwd(q, k, v, o, lse, do, scale, ns)[0]
+    gf = do.float()
+    p = torch.exp(fl.masked_scores(q, k, scale, ns) - lse[..., None])
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = p * (dp - (gf * o.float()).sum(dim=-1, keepdim=True)) * scale
+    del p, dp
+    # both written in bf16, as the plain K4b and the kernel write dq
+    dq_plain = torch.matmul(ds, k.float()).to(torch.bfloat16).float()
+    dq_rounded = torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(torch.bfloat16).float()
+    del ds
+    torch.cuda.synchronize()
+    err = (dq.float() - dq_plain).abs().max().item()
+    err_rounded = (dq_rounded - dq_plain).abs().max().item()
+    log("cancellation", kernel="flash_bwd", shape=[b, h, n, dh], rate=0.0, k4b_dq_err=err,
+        rounded_ds_dq_err=err_rounded, ratio=err / err_rounded if err_rounded else None,
+        ratio_tol=0.1, dq_max=dq_plain.abs().max().item())
+    check(err_rounded > 0 and err <= 0.1 * err_rounded,
+          f"K4b dq error {err} vs {err_rounded} with ds rounded to bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -681,6 +748,7 @@ def stream_kernel_phase(torch, fs, fl, dev):
     autograd through the plain forward; the shared memory of each kernel."""
     import torch.nn.functional as F
 
+    from eavit_tpu_torch.ops._build import SMEM_LIMIT
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
     def err_tol(out, ref, dtype):
@@ -730,15 +798,15 @@ def stream_kernel_phase(torch, fs, fl, dev):
             lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
                 o_lib, leaves, do, retain_graph=True), iters)
             del o_lib, leaves
-            smem = fl._lib()  # K4b beside K5q + K5kv: both compute dq, dk and dv
-            if smem.eavit_flash_fwd_smem(n, dh) <= fl.SMEM_LIMIT:
+            # K4b beside K5q + K5kv: both compute dq, dk and dv
+            if fl.fwd_smem(n, dh) <= SMEM_LIMIT:
                 k4["k4_fwd_ms"] = time_ms(torch, lambda: fl.flash_fwd(q, k, v, scale, ns),
                                           iters)
-            if smem.eavit_flash_bwd_smem(n, dh) <= fl.SMEM_LIMIT:
+            if fl.bwd_smem(n, dh, dtype) <= SMEM_LIMIT:
                 k4["k4_bwd_ms"] = time_ms(torch, lambda: fl.flash_bwd(
                     q, k, v, o, lse, do, scale, ns), iters)
         for name, (call, plain, nbytes, products) in calls.items():
-            out = call()
+            out = once(fs, name, call)
             ref = plain()
             again = call()
             torch.cuda.synchronize()
@@ -1131,7 +1199,7 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
           f"{mode}: every policy and rnd_pred tensor moved ({moved} of {total})")
     check(moved["rnd_target"] == 0, f"{mode}: rnd_target did not move")
     if not pieces:
-        return counts, {}
+        return counts, None
 
     # one more iteration in pieces, for the split of the time
     env = make_vector_env(cfg)
@@ -1192,9 +1260,10 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
 
 def patch4_other_routes(torch, mods, dev):
     """At patch 4 (N = 443 shared) the bf16 backward kernels of ``pallas``
-    (K3b) and ``pallas_qkv`` (K1b) hold the head as bf16 and fit, as do the
-    forwards: one minibatch step of 4 frames on each route must give finite
-    gradients, through the route's kernels (depth 3: three launches of each)."""
+    (K3b, and K4b at dropout 0) and ``pallas_qkv`` (K1b) hold the head as
+    bf16 and fit, as do the forwards: one minibatch step of 4 frames on each
+    route must give finite gradients, through the route's kernels (depth 3:
+    three launches of each)."""
     import dataclasses
 
     from eavit_tpu_torch.models.layers import Rng
@@ -1202,9 +1271,10 @@ def patch4_other_routes(torch, mods, dev):
 
     n = 4
     batch = TrainBatch(**{k: v.to(dev) for k, v in host_batch(torch, n).items()})
-    for attention in ("pallas", "pallas_qkv"):
+    for attention, dropout in (("pallas", 0.1), ("pallas_qkv", 0.1), ("pallas", 0.0)):
         cfg = flagship_cfg(True, attention)
-        agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=4)), 5)
+        agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=4,
+                                                             dropout=dropout)), 5)
         agent.init_state(SEED)
         torch.cuda.synchronize()
         _reset(mods)
@@ -1215,12 +1285,78 @@ def patch4_other_routes(torch, mods, dev):
         grads = [p.grad for p in agent.trainable_parameters() if p.grad is not None]
         finite = bool(torch.isfinite(loss).item()) and all(
             torch.isfinite(t).all().item() for t in grads)
-        fwd, (bwd,) = attention_kernels(attention, True)
+        fwd, (bwd,) = attention_kernels(attention, dropout > 0)
         expect = {fwd: DEPTH, bwd: DEPTH, "fused_ffn_fwd": DEPTH, "fused_ffn_bwd": DEPTH}
-        log("patch4_route", attention=attention, tokens=443, loss=float(loss.detach()),
-            finite=finite, grad_tensors=len(grads), launches=counts, expected_launches=expect)
-        check(finite and len(grads) > 0, f"patch 4 on {attention}: finite gradients")
-        check_counts(counts, expect, f"patch 4 on {attention}: one minibatch step")
+        what = f"patch 4 on {attention}, dropout {dropout}"
+        log("patch4_route", attention=attention, compute_dtype=cfg.compute_dtype,
+            dropout=dropout, tokens=443, loss=float(loss.detach()), finite=finite,
+            grad_tensors=len(grads), launches=counts, expected_launches=expect)
+        check(finite and len(grads) > 0, f"{what}: finite gradients")
+        check_counts(counts, expect, f"{what}: one minibatch step")
+
+
+def limit_phase(torch, fq, fl, fd, dev):
+    """Each kernel's limit on N at ``Dh`` 32, bf16 and float32: at the
+    longest N that fits in shared memory the wrapper launches its kernel once
+    and matches the plain version; one token more raises before any launch,
+    naming the streaming route that takes any N."""
+    h, dh, seeds, rate, ns = 2, 32, KERNEL_SEEDS, 0.1, 2
+    scale = dh ** -0.5
+    mods = {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}
+
+    def calls(name, n, dtype):
+        g = torch.Generator().manual_seed(n)
+        q, k, v, do = (torch.randn(1, h, n, dh, generator=g).to(dev, dtype) for _ in range(4))
+        if name.startswith("flash_qkv"):
+            qkv = torch.cat([t.transpose(1, 2).reshape(1, n, h * dh) for t in (q, k, v)], -1)
+            gm = do.transpose(1, 2).reshape(1, n, h * dh).contiguous()
+            args = (h, dh, scale, ns, seeds, rate)
+            lse = fq.flash_qkv_fwd_plain(qkv, *args)[1]
+            return {"flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args),
+                                      lambda: fq.flash_qkv_fwd_plain(qkv, *args)),
+                    "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse, gm, *args),),
+                                      lambda: (fq.flash_qkv_bwd_plain(qkv, lse, gm, *args),))
+                    }[name]
+        if name.startswith("flash_dropout"):
+            lse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)[1]
+            bargs = (q, k, v, lse, do, seeds, rate, scale, ns)
+            return {"flash_dropout_fwd": (
+                        lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
+                        lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)),
+                    "flash_dropout_bwd": (lambda: fd.flash_dropout_bwd(*bargs),
+                                          lambda: fd.flash_dropout_bwd_plain(*bargs))}[name]
+        o, lse = fl.flash_fwd_plain(q, k, v, scale, ns)
+        return {"flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
+                              lambda: fl.flash_fwd_plain(q, k, v, scale, ns)),
+                "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, ns),
+                              lambda: fl.flash_bwd_plain(q, k, v, o, lse, do, scale, ns))}[name]
+
+    out = {}
+    for name, smem in smem_fns(fq, fl, fd).items():
+        mod = mods[name.rsplit("_", 1)[0]]
+        for dtype in (torch.bfloat16, torch.float32):
+            n = first_n_past(smem, dh, dtype)
+            call, plain = calls(name, n - 1, dtype)
+            got, want = once(mod, name, call), plain()
+            torch.cuda.synchronize()
+            big = max(t.float().abs().max().item() for t in want)
+            tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            del got, want
+            call, _ = calls(name, n, dtype)
+            launched, raised = mod.launches[name], ""
+            try:
+                call()
+            except ValueError as e:
+                raised = str(e)
+            dname = str(dtype).split(".")[-1]
+            out[f"{name} {dname}"] = row = dict(
+                longest_n=n - 1, max_abs_err=err, tol=tol, raised_at=n,
+                error=raised, launches_past_limit=mod.launches[name] - launched)
+            check(err <= tol and "shared memory" in raised and "pallas_stream" in raised
+                  and mod.launches[name] == launched, f"{name} {dname} at its limit: {row}")
+    log("n_limits", dim_head=dh, **out)
+    return out
 
 
 SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
@@ -1292,16 +1428,21 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln]
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     report = ptxas_report(build_log)
-    mma_ptxas = {name: mma_bwd_ptxas(report, src) for name, src in (
-        ("flash_qkv_bwd", "flash_qkv_bwd.cu"), ("flash_dropout_bwd", "flash_dropout.cu"))}
-    log("ptxas", kernels="tensor-core backward (attn_bwd_mma.cuh)", **mma_ptxas)
-    check(all(mma_ptxas.values()) or not build_log,
-          "ptxas reported no tensor-core backward kernel")
+    mma = {name: mma_ptxas(report, src) for name, src in (
+        ("flash_qkv_fwd", "flash_qkv.cu"), ("flash_qkv_bwd", "flash_qkv_bwd.cu"),
+        ("flash_bwd", "flash.cu"), ("flash_dropout_bwd", "flash_dropout.cu"))}
+    log("ptxas", kernels="tensor-core templates (attn_fwd_mma.cuh, attn_bwd_mma.cuh)", **mma)
+    if build_log:  # empty when a build directory without its log was reused
+        check(all(mma.values()), "ptxas reported no tensor-core kernel")
+        spills = {f"{k} {v}": i for k, d in mma.items() for v, i in d.items()
+                  if int(v[2:4]) <= 32 and (i.get("spill_stores") or i.get("spill_loads"))}
+        check(not spills, f"tensor-core kernels spill at Dh <= 32: {spills}")
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
     rows.update(flash_kernel_phase(torch, fl, fd, fq, kernel_prng, dev))
     rows.update(stream_kernel_phase(torch, fs, fl, dev))
+    limit_phase(torch, fq, fl, fd, dev)
     act_launches = main_path(torch, mods, dev, shared=True)
     main_path(torch, mods, dev, shared=False)
     pallas_act = main_path(torch, mods, dev, shared=True, attention="pallas")
@@ -1336,17 +1477,24 @@ def main() -> int:
     # the kernels of the flagship iteration (shared stream): launch counts of
     # the training runs that use them, times at the acting shape ("ms" of the
     # forward kernels, which run there too) and at the minibatch shape
-    def train_ms(name, use="train", n=198):
-        return rows[(name, use, n, "bfloat16")]["ms"]
+    def train_ms(name, use="train", n=198, key="ms"):
+        return rows[(name, use, n, "bfloat16")][key]
 
+    k1f_train = rows[("flash_qkv_fwd", "train", 198, 0.1)]
+    launched = {"flash_fwd": zero_launches["flash_fwd"],
+                "flash_dropout_fwd": pallas_launches["flash_dropout_fwd"]}
     kernels = [
-        kernel_entry("flash_qkv_fwd", rows[("flash_qkv_fwd", 198, 0.1)],
-                     train_launches["flash_qkv_fwd"],
+        kernel_entry("flash_qkv_fwd", rows[("flash_qkv_fwd", "act", 198, 0.1)],
+                     train_launches["flash_qkv_fwd"], header="attn_fwd_mma.cuh",
+                     ptxas=mma["flash_qkv_fwd"],
                      act_launches_per_rollout=act_launches["flash_qkv_fwd"],
-                     train_shape_ms=rows[("flash_qkv_bwd", 198, 0.1)]["fwd_ms_at_this_shape"]),
+                     train_shape_ms=k1f_train["ms"], train_shape_plain_ms=k1f_train["plain_ms"],
+                     train_shape_bound_ms=k1f_train["bound_ms"],
+                     train_shape_library_ms=k1f_train["library_ms"],
+                     train_shape_rate0_ms=rows[("flash_qkv_fwd", "train", 198, 0.0)]["ms"]),
         kernel_entry("flash_qkv_bwd", rows[("flash_qkv_bwd", 198, 0.1)],
                      train_launches["flash_qkv_bwd"], header="attn_bwd_mma.cuh",
-                     ptxas=mma_ptxas["flash_qkv_bwd"]),
+                     ptxas=mma["flash_qkv_bwd"]),
         kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
         kernel_entry("fused_ffn_fwd", rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
                      train_launches["fused_ffn_fwd"],
@@ -1358,17 +1506,20 @@ def main() -> int:
         kernel_entry("fused_ffn_bits", rows["fused_ffn_bits"], train_launches["fused_ffn_bits"]),
         # K4 runs on the pallas route at dropout 0 (and in evaluate); K3 while
         # dropout is live
-        kernel_entry("flash_fwd", rows[("flash_fwd", "act", 198, "bfloat16")],
-                     zero_launches["flash_fwd"], train_shape_ms=train_ms("flash_fwd")),
+        *(kernel_entry(name, rows[(name, "act", 198, "bfloat16")], launched[name],
+                       train_shape_ms=train_ms(name),
+                       train_shape_library_ms=train_ms(name, key="library_ms"),
+                       **({"act_launches_per_rollout": pallas_act[name]}
+                          if name == "flash_dropout_fwd" else {}))
+          for name in ("flash_fwd", "flash_dropout_fwd")),
         kernel_entry("flash_bwd", rows[("flash_bwd", "train", 198, "bfloat16")],
-                     zero_launches["flash_bwd"]),
-        kernel_entry("flash_dropout_fwd", rows[("flash_dropout_fwd", "act", 198, "bfloat16")],
-                     pallas_launches["flash_dropout_fwd"],
-                     act_launches_per_rollout=pallas_act["flash_dropout_fwd"],
-                     train_shape_ms=train_ms("flash_dropout_fwd")),
+                     zero_launches["flash_bwd"], header="attn_bwd_mma.cuh",
+                     ptxas=mma["flash_bwd"],
+                     stacked_train_shape_ms=train_ms("flash_bwd", n=197),
+                     patch4_train_shape_ms=train_ms("flash_bwd", "train_patch4", 443)),
         kernel_entry("flash_dropout_bwd", rows[("flash_dropout_bwd", "train", 198, "bfloat16")],
                      pallas_launches["flash_dropout_bwd"], header="attn_bwd_mma.cuh",
-                     ptxas=mma_ptxas["flash_dropout_bwd"]),
+                     ptxas=mma["flash_dropout_bwd"]),
         kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
                      pallas_launches["flash_dropout_bits"]),
         # K5 on pallas_stream; SDPA's backward computes dq, dk and dv at once,

@@ -1,8 +1,9 @@
 // Attention backward on Hopper's tensor cores, for bf16 inputs: the template
-// of K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection) and K3b
-// (csrc/flash_dropout.cu, on [B, H, N, Dh] with probability dropout). Their
-// float32 instantiations keep the CUDA-core code of flash_qkv_bwd.cu and
-// flash_attn.cuh, whose products stay in float32 as the JAX kernels' do.
+// of K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection), K3b
+// (csrc/flash_dropout.cu, on [B, H, N, Dh] with probability dropout) and K4b
+// (csrc/flash.cu, on [B, H, N, Dh], no dropout, delta from the forward's O).
+// Their float32 instantiations keep the CUDA-core code of flash_qkv_bwd.cu
+// and flash_attn.cuh, whose products stay in float32 as the JAX kernels' do.
 //
 // What it computes, per batch row b and head h (lse from the forward):
 //   s      = q k^T * scale (f32), the dual-query mask when num_special > 0
@@ -11,54 +12,56 @@
 //            ((b*H + h)*N + i)*N + j, keep = (bits >> 8) < thresh
 //   pd     = keep ? sigma * inv_keep : 0,  dsigma = keep ? (dO v^T) * inv_keep : 0
 //   rowsum = sum_j dsigma * sigma            (f32, from the unrounded sigma)
+//            or, with DELTA_FROM_O, delta = sum_d dO * O from the O the
+//            forward wrote (K4b, eavit_tpu/ops/flash.py:179)
 //   ds     = sigma * (dsigma - rowsum) * scale
 //   dv = pd^T dO,  dq = ds k,  dk = ds^T q
-// with every sum in f32. The two kernels differ in how pd and ds enter their
+// with every sum in f32. The kernels differ in how pd and ds enter their
 // products, which the template parameter ROUND selects:
 //   K1b (eavit_tpu/ops/flash_qkv.py `_head_bwd`, 266-302): pd and ds are
 //     rounded to bf16 (`pd.astype(dt)`, `ds.astype(dt)`), so one bf16
 //     m16n8k16 mma with f32 accumulation is that kernel's product exactly,
 //     apart from the order of the sums;
-//   K3b (eavit_tpu/ops/flash_dropout.py `_bwd_kernel`, 150-196): pd and ds
-//     stay f32. Each row of ds sums to about 0, so dq = ds k cancels and a
-//     bf16 ds would swamp it: pd and ds enter as two bf16 terms, hi = bf16(x)
-//     and lo = bf16(x - hi), two mmas per product (relative error ~2^-17).
+//   K3b (eavit_tpu/ops/flash_dropout.py `_bwd_kernel`, 150-196) and K4b
+//     (eavit_tpu/ops/flash.py `_bwd_kernel`, 147-189): pd and ds stay f32.
+//     Each row of ds sums to about 0, so dq = ds k cancels and a bf16 ds
+//     would swamp it: pd and ds enter as two bf16 terms, hi = bf16(x) and
+//     lo = bf16(x - hi), two mmas per product (relative error ~2^-17).
 // q, k, v and dO are bf16 already and enter as they are.
 //
 // What bounds it on an H100: bytes (183 MB at the flagship minibatch [256, 8,
-// 198, 32], 0.055 ms), then the mask: 20 M Philox calls of ~100 integer
-// operations each. The design keeps everything but the inputs and the three
-// gradients on chip: one block per (b, h) holds the head's q, k, v and dO in
-// shared memory as bf16 (rows padded by 16 bytes so that ldmatrix reads
-// without bank conflicts; N padded to a multiple of 16 with zero rows),
-// about 73 KB at N = 198, Dh = 32. Three passes, each warp owning one
-// 16-row tile per step, so that every output has one owner and every sum a
-// fixed order (no float atomics; equal bits twice):
+// 198, 32], 0.055 ms; K4b also reads O), then the mask: 20 M Philox calls of
+// ~100 integer operations each. The design keeps everything but the inputs
+// and the three gradients on chip: one block per (b, h) holds the head's q,
+// k, v and dO in shared memory as bf16 (rows padded by 16 bytes so that
+// ldmatrix reads without bank conflicts; N padded to a multiple of 16 with
+// zero rows), about 73 KB at N = 198, Dh = 32. Three passes, each warp
+// owning one 16-row tile per step, so that every output has one owner and
+// every sum a fixed order (no float atomics; equal bits twice):
 //   0. all warps draw the head's keep bits into a bitmap in the mask's own
-//      element order, while cp.async brings the operands: a warp takes 128
-//      consecutive elements, one Philox call per lane for a group of four,
-//      and gathers the lanes' bits into 32-bit words with shuffles, so that
-//      every group is drawn once however rows and groups fall (N = 198 and
-//      197 start rows at other offsets mod 4);
+//      element order, while cp.async brings the operands (draw_keep_chunk,
+//      mma_common.cuh: every group of four is drawn once however rows and
+//      groups fall; N = 198 and 197 start rows at other offsets mod 4). K4b
+//      instead sums delta from O, read once from global memory, and dO in
+//      shared memory;
 //   1. rows, one warp per 16-query tile: S = Q K^T and dP = dO V^T by mma
 //      over 16-key tiles, sigma, dsigma and rowsum with quad shuffles; then a
 //      second sweep recomputes S and dP, forms ds and feeds it straight from
 //      the accumulators as the A operand of dQ += dS K (the FlashAttention-2
-//      register re-pack), and writes dq;
+//      register re-pack), and writes dq. K4b has delta already and takes
+//      only the second sweep;
 //   2. columns, one warp per 16-key tile: S^T = K Q^T and dP^T = V dO^T, so
 //      that pd^T and ds^T come out in the accumulator layout and feed
 //      dV += pd^T dO and dK += ds^T Q as A operands from registers.
 // That is nine N^2 Dh products for K1b (the row sweep that sums rowsum before
-// any ds exists costs two), twelve mmas' worth for K3b. B operands come from
-// shared memory by ldmatrix (.trans where the token axis is the product's
-// depth). See PERF.md for the measured times.
+// any ds exists costs two), twelve mmas' worth for K3b, ten for K4b. B
+// operands come from shared memory by ldmatrix (.trans where the token axis
+// is the product's depth). See PERF.md for the measured times.
 #pragma once
 
 #include <cstdint>
-#include <cstring>
 
-#include "common.cuh"
-#include "philox.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -70,16 +73,17 @@ namespace {
 // (tune_attn_bwd.py measures these choices).
 constexpr int kMmaWarps = 8;
 constexpr int kMinBlocks = 3;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Operand layout of one kernel: element (b, h, token t, dim d) of q, k, v, dq,
-// dk and dv sits at ptr + b*x_batch + h*x_head + t*x_tok + d; of dO with the
-// g_ strides. K1b: the merged qkv [B, N, 3*H*Dh]; K3b: [B*H, N, Dh] with H = 1.
+// dk and dv sits at ptr + b*x_batch + h*x_head + t*x_tok + d; of dO (and O)
+// with the g_ strides. K1b: the merged qkv [B, N, 3*H*Dh]; K3b and K4b:
+// [B*H, N, Dh] with H = 1.
 struct MmaBwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const __nv_bfloat16* g;  // dO
+  const __nv_bfloat16* o;  // the forward's output, DELTA_FROM_O only
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -94,106 +98,15 @@ struct MmaBwdArgs {
   uint32_t s0, s1;
 };
 
-__host__ __device__ constexpr int mma_pad16(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ constexpr int mma_ld(int dh) { return dh + 8; }  // row stride, elements
-
-// Words of the keep bitmap: bit p is mask element base + p of the head, base
-// its first element rounded down to a multiple of 32 (an offset of up to 31
-// bits), plus the 16 bits a padded tile reads past the last element and one
-// word that a 32-bit window at the end reads, in whole chunks of 128 bits.
+// Words of the head's keep bitmap
 __host__ __device__ constexpr int mma_bit_words(int n) {
-  return ((31 + n * n + 16 + 31) / 32 + 1 + 3) / 4 * 4;
+  return keep_bit_words(static_cast<long long>(n) * n);
 }
 
 size_t mma_bwd_smem_bytes(int N, int DH, bool dropout) {
   const size_t np = mma_pad16(N);
   return 4 * np * mma_ld(DH) * sizeof(__nv_bfloat16) + 2 * np * sizeof(float) +
          (dropout ? mma_bit_words(N) * sizeof(uint32_t) : 0);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
-
-// x0, x1 as hi + lo: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  memcpy(&hi, &h, sizeof(hi));
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// A fragments of one 16x16 tile of pd or ds from the accumulators of two n8
-// tiles c[0], c[1] (rows g, g+8; columns 2t, 2t+1 and 8+2t, 8+2t+1): rounded
-// (ROUND) or as hi and lo terms
-template <bool ROUND>
-__device__ __forceinline__ void to_a(const float (&c)[2][4], uint32_t (&hi)[4],
-                                     uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if constexpr (ROUND) {
-        hi[2 * n + r] = pack_bf16(c[n][2 * r], c[n][2 * r + 1]);
-      } else {
-        split_bf16(c[n][2 * r], c[n][2 * r + 1], hi[2 * n + r], lo[2 * n + r]);
-      }
-    }
-}
-
-// acc[NT] (16 x DH) += A (16 x 16 tokens) * X[tok0 .. tok0+15][0 .. DH) from
-// shared memory, X's token axis being the depth: ldmatrix.trans
-template <int DH, bool ROUND>
-__device__ __forceinline__ void acc_times_rows(float (&acc)[DH / 8][4], const uint32_t (&hi)[4],
-                                               const uint32_t (&lo)[4],
-                                               const __nv_bfloat16* xs, int tok0, int lane) {
-  constexpr int LD = mma_ld(DH);
-#pragma unroll
-  for (int np = 0; np < DH / 16; ++np) {
-    uint32_t b[4];
-    ldsm_x4_t(b, xs + (tok0 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
-    mma_bf16(acc[2 * np], hi, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-    if constexpr (!ROUND) {
-      mma_bf16(acc[2 * np], lo, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-    }
-  }
 }
 
 // s[2] (16 x 16) = A (16 x DH) * Y[tok0 .. tok0+15]^T, and p[2] likewise with
@@ -222,26 +135,6 @@ __device__ __forceinline__ void two_products(float (&s)[2][4], float (&p)[2][4],
   }
 }
 
-// A fragments of the 16 x DH tile at rows row0 .. row0+15 of X
-template <int DH>
-__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const __nv_bfloat16* xs,
-                                       int row0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldsm_x4(a[kk], xs + (row0 + (lane & 15)) * mma_ld(DH) + kk * 16 + (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 32 keep bits from bit p of the bitmap on
-__device__ __forceinline__ uint32_t keep_window(const uint32_t* bits, int p) {
-  return __funnelshift_r(bits[p >> 5], bits[(p >> 5) + 1], p & 31);
-}
-
 // sigma, pd and dsigma of one score element
 template <bool DROPOUT>
 __device__ __forceinline__ void probs(float s, float dp, float lse2, bool valid, bool kept,
@@ -257,7 +150,17 @@ __device__ __forceinline__ void probs(float s, float dp, float lse2, bool valid,
   }
 }
 
-template <int DH, bool ROUND, bool DROPOUT>
+// The block's offset into q, k, v and their gradients, recomputed where the
+// gradients are written: a value the compiler kept across the passes cost
+// K4b a spill at Dh 32 (the volatile read of ctaid stops it from hoisting)
+__device__ __forceinline__ long long block_x_offset(const MmaBwdArgs& a) {
+  unsigned bh;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bh));
+  return static_cast<long long>(bh / a.H) * a.x_batch +
+         static_cast<long long>(bh % a.H) * a.x_head;
+}
+
+template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
 __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
     attn_bwd_mma_kernel(MmaBwdArgs a) {
   using bf16 = __nv_bfloat16;
@@ -269,7 +172,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
   bf16* vs = ks + Np * LD;
   bf16* gs = vs + Np * LD;
   float* ls = reinterpret_cast<float*>(gs + Np * LD);  // [Np] lse * log2(e)
-  float* rs = ls + Np;                                 // [Np] rowsum
+  float* rs = ls + Np;                                 // [Np] rowsum or delta
   uint32_t* bits = reinterpret_cast<uint32_t*>(rs + Np);  // mma_bit_words(N), dropout only
 
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
@@ -303,22 +206,38 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
   const uint64_t e_head = static_cast<uint64_t>(bh) * N * N, base = e_head & ~31ull;
   const int off = static_cast<int>(e_head - base);
   if constexpr (DROPOUT) {
-    for (int c = warp; c < mma_bit_words(N) / 4; c += kMmaWarps) {
-      // lane's group: elements base + 128c + 4 lane .. + 3, bits 4 (lane % 8) ..
-      // of word 4c + lane / 8
-      const Philox4 r = philox_group((base >> 2) + 32 * c + lane, 0u, a.s0, a.s1);
-      uint32_t v = 0u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v |= static_cast<uint32_t>((r.w[k] >> 8) < a.thresh) << k;
-      v <<= 4 * (lane & 7);
-      v |= __shfl_xor_sync(0xffffffffu, v, 1);
-      v |= __shfl_xor_sync(0xffffffffu, v, 2);
-      v |= __shfl_xor_sync(0xffffffffu, v, 4);
-      if ((lane & 7) == 0) bits[4 * c + (lane >> 3)] = v;
-    }
+    for (int c = warp; c < mma_bit_words(N) / 4; c += kMmaWarps)
+      draw_keep_chunk(bits, base, c, lane, a.thresh, a.s0, a.s1);
   }
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
+
+  if constexpr (DELTA_FROM_O) {
+    // delta_t = sum_d dO[t, d] O[t, d] in f32: CH consecutive lanes share a
+    // row, 8 dims each from one 16-byte load of O (global) and of dO (shared
+    // memory), then a shuffle tree. CH divides 32, so a row's lanes sit in
+    // one warp, and every lane of the block runs every step of the loop.
+    for (int c0 = 0; c0 < Np * CH; c0 += blockDim.x) {
+      const int c = c0 + tid, t = c / CH, d = (c % CH) * 8;
+      float part = 0.f;
+      if (t < N) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(a.o + go + t * a.g_tok + d);
+        const uint4 gv = *reinterpret_cast<const uint4*>(gs + t * LD + d);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
+          part = fmaf(gf.x, of.x, part);
+          part = fmaf(gf.y, of.y, part);
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < CH; m <<= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+      if (c % CH == 0 && t < Np) rs[t] = part;
+    }
+    __syncthreads();
+  }
 
   const float scale2 = a.scale * kLog2e, ik = DROPOUT ? a.inv_keep : 1.f;
   const int ns = a.num_special;
@@ -333,9 +252,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
 #pragma unroll
     for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-    // sweep 0 sums rowsum; sweep 1 recomputes the tiles and forms ds
+    // sweep 0 sums rowsum (not with delta from O); sweep 1 recomputes the
+    // tiles and forms ds
 #pragma unroll
-    for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int sweep = DELTA_FROM_O ? 1 : 0; sweep < 2; ++sweep) {
       for (int jt = 0; jt < T; ++jt) {
         const int j0 = jt * 16;
         uint32_t qa[KS][4], ga[KS][4];
@@ -364,7 +284,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
             if (sweep == 0) {
               rsum[r] = fmaf(dsg, sg, rsum[r]);
             } else {
-              ds[n][e] = sg * (dsg - rsum[r]) * a.scale;
+              const float rowsum = DELTA_FROM_O ? rs[rows[r]] : rsum[r];
+              ds[n][e] = sg * (dsg - rowsum) * a.scale;
             }
           }
         if (sweep == 1) {
@@ -385,7 +306,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= N) continue;
-      bf16* out = a.dq + xo + rows[r] * a.x_tok + 2 * t4;
+      bf16* out = a.dq + block_x_offset(a) + rows[r] * a.x_tok + 2 * t4;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
@@ -440,7 +361,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (keys[r] >= N) continue;
-      const long long o = xo + keys[r] * a.x_tok + 2 * t4;
+      const long long o = block_x_offset(a) + keys[r] * a.x_tok + 2 * t4;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         *reinterpret_cast<__nv_bfloat162*>(a.dk + o + 8 * n) =
@@ -452,26 +373,26 @@ __global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
   }
 }
 
-template <int DH, bool ROUND, bool DROPOUT>
+template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
 cudaError_t launch_mma_bwd_t(const MmaBwdArgs& a, cudaStream_t stream) {
   const size_t smem = mma_bwd_smem_bytes(a.N, DH, DROPOUT);
-  cudaError_t err = allow_smem(attn_bwd_mma_kernel<DH, ROUND, DROPOUT>, smem);
+  cudaError_t err = allow_smem(attn_bwd_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_mma_kernel<DH, ROUND, DROPOUT>
+  attn_bwd_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>
       <<<a.B * a.H, kMmaWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Dh in {16, 32, 64} -> one instantiation
-template <bool ROUND, bool DROPOUT>
+template <bool ROUND, bool DROPOUT, bool DELTA_FROM_O = false>
 cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0 ||
       static_cast<long long>(a.B) * a.H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_mma_bwd_t<16, ROUND, DROPOUT>(a, stream);
-    case 32: return launch_mma_bwd_t<32, ROUND, DROPOUT>(a, stream);
-    case 64: return launch_mma_bwd_t<64, ROUND, DROPOUT>(a, stream);
+    case 16: return launch_mma_bwd_t<16, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
+    case 32: return launch_mma_bwd_t<32, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
+    case 64: return launch_mma_bwd_t<64, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

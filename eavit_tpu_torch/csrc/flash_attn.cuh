@@ -2,9 +2,9 @@
 // of csrc/flash.cu (K4f, K4b: no dropout) and csrc/flash_dropout.cu (K3f, K3b:
 // probability dropout in the kernel). The two pairs share one template each,
 // with DROPOUT as its parameter: K3 is K4 with a Philox mask on the
-// normalised probabilities and another softmax-VJP row term. K3b runs this
-// backward for float32 inputs only: for bf16 it is the tensor-core kernel of
-// attn_bwd_mma.cuh.
+// normalised probabilities and another softmax-VJP row term. K3b and K4b run
+// this backward for float32 inputs only: for bf16 they are the tensor-core
+// kernel of attn_bwd_mma.cuh.
 //
 // Inputs are contiguous [B, H, N, Dh] (row bh = b*H + h of N x Dh), bf16 or
 // f32; lse is f32 [B, H, N]. Sums are f32. Unlike K1 (flash_qkv.cu) nothing
@@ -183,7 +183,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32) attn_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <typename T, int DH, bool DROPOUT>
+// float32 inputs: bf16 goes to attn_bwd_mma.cuh
+template <int DH, bool DROPOUT>
 __global__ void __launch_bounds__(bwd_warps(DH) * 32) attn_bwd_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -202,20 +203,20 @@ __global__ void __launch_bounds__(bwd_warps(DH) * 32) attn_bwd_kernel(BwdArgs a)
 
   const size_t bh = blockIdx.x;
   const size_t head = bh * N * DH;
-  const T* qh = static_cast<const T*>(a.q) + head;
-  const T* kh = static_cast<const T*>(a.k) + head;
-  const T* vh = static_cast<const T*>(a.v) + head;
-  const T* gh = static_cast<const T*>(a.dout) + head;
-  T* dqh = static_cast<T*>(a.dq) + head;
-  T* dkh = static_cast<T*>(a.dk) + head;
-  T* dvh = static_cast<T*>(a.dv) + head;
+  const float* qh = static_cast<const float*>(a.q) + head;
+  const float* kh = static_cast<const float*>(a.k) + head;
+  const float* vh = static_cast<const float*>(a.v) + head;
+  const float* gh = static_cast<const float*>(a.dout) + head;
+  float* dqh = static_cast<float*>(a.dq) + head;
+  float* dkh = static_cast<float*>(a.dk) + head;
+  float* dvh = static_cast<float*>(a.dv) + head;
 
   for (int idx = threadIdx.x; idx < N * DH; idx += blockDim.x) {
     const int t = (idx / DH) * KS + idx % DH;
-    qs[t] = to_f(qh[idx]);
-    ks[t] = to_f(kh[idx]);
-    vs[t] = to_f(vh[idx]);
-    gs[t] = to_f(gh[idx]);
+    qs[t] = qh[idx];
+    ks[t] = kh[idx];
+    vs[t] = vh[idx];
+    gs[t] = gh[idx];
   }
   for (int t = threadIdx.x; t < N; t += blockDim.x) ls[t] = a.lse[bh * N + t];
   if constexpr (DROPOUT)
@@ -228,10 +229,10 @@ __global__ void __launch_bounds__(bwd_warps(DH) * 32) attn_bwd_kernel(BwdArgs a)
 
   if constexpr (!DROPOUT) {
     // delta_i = sum_d dO_id O_id, O in the input dtype as the forward wrote it
-    const T* oh = static_cast<const T*>(a.o) + head;
+    const float* oh = static_cast<const float*>(a.o) + head;
     for (int i = warp; i < N; i += W) {
       float acc = 0.f;
-      for (int d = lane; d < DH; d += 32) acc = fmaf(gs[i * KS + d], to_f(oh[i * DH + d]), acc);
+      for (int d = lane; d < DH; d += 32) acc = fmaf(gs[i * KS + d], oh[i * DH + d], acc);
       acc = warp_sum(acc);
       if (lane == 0) rs[i] = acc;
     }
@@ -295,7 +296,7 @@ __global__ void __launch_bounds__(bwd_warps(DH) * 32) attn_bwd_kernel(BwdArgs a)
     for (int d = lane; d < DH; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(pb[j], ks[j * KS + d], acc);
-      dqh[i * DH + d] = from_f<T>(acc);
+      dqh[i * DH + d] = acc;
     }
     __syncwarp();  // pa, pb are reused by the warp's next row
   }
@@ -335,8 +336,8 @@ __global__ void __launch_bounds__(bwd_warps(DH) * 32) attn_bwd_kernel(BwdArgs a)
         dk = fmaf(pb[i], qs[i * KS + d], dk);
         dv = fmaf(pa[i], gs[i * KS + d], dv);
       }
-      dkh[j * DH + d] = from_f<T>(dk);
-      dvh[j * DH + d] = from_f<T>(dv);
+      dkh[j * DH + d] = dk;
+      dvh[j * DH + d] = dv;
     }
     __syncwarp();
   }
@@ -352,12 +353,12 @@ cudaError_t launch_fwd_t(int BH, const FwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool DROPOUT, typename T, int DH>
+template <bool DROPOUT, int DH>
 cudaError_t launch_bwd_t(int BH, const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(a.N, DH, DROPOUT);
-  cudaError_t err = allow_smem(attn_bwd_kernel<T, DH, DROPOUT>, smem);
+  cudaError_t err = allow_smem(attn_bwd_kernel<DH, DROPOUT>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T, DH, DROPOUT><<<BH, bwd_warps(DH) * 32, smem, stream>>>(a);
+  attn_bwd_kernel<DH, DROPOUT><<<BH, bwd_warps(DH) * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -372,19 +373,22 @@ cudaError_t launch_dh(int DH, int BH, const FwdArgs& a, cudaStream_t st) {
   }
 }
 
-template <bool DROPOUT, typename T>
-cudaError_t launch_dh(int DH, int BH, const BwdArgs& a, cudaStream_t st) {
+// float32 backward, Dh in {16, 32, 64}
+template <bool DROPOUT>
+cudaError_t launch_bwd(int DH, int BH, const BwdArgs& a, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_bwd_t<DROPOUT, T, 16>(BH, a, st);
-    case 32: return launch_bwd_t<DROPOUT, T, 32>(BH, a, st);
-    case 64: return launch_bwd_t<DROPOUT, T, 64>(BH, a, st);
+    case 16: return launch_bwd_t<DROPOUT, 16>(BH, a, st);
+    case 32: return launch_bwd_t<DROPOUT, 32>(BH, a, st);
+    case 64: return launch_bwd_t<DROPOUT, 64>(BH, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dtype: common.cuh's codes
-template <bool DROPOUT, typename Args>
-cudaError_t launch(int dtype, int DH, int BH, const Args& a, void* stream) {
+// forward; dtype: common.cuh's codes
+template <bool DROPOUT>
+cudaError_t launch(int dtype, int DH, int BH, const FwdArgs& a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   if (dtype == kBF16) return launch_dh<DROPOUT, __nv_bfloat16>(DH, BH, a, st);

@@ -60,7 +60,7 @@ int eavit_flash_dropout_bwd(const void* q, const void* k, const void* v,
     using bf16 = __nv_bfloat16;
     const long long head = static_cast<long long>(N) * DH;
     MmaBwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout), nullptr,
                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                  static_cast<const float*>(lse), head, 0, DH, head, 0, DH,
                  BH, 1, N, scale, num_special, thresh, inv_keep, s0, s1};
@@ -69,8 +69,7 @@ int eavit_flash_dropout_bwd(const void* q, const void* k, const void* v,
   if (dtype != kF32) return cudaErrorInvalidValue;
   BwdArgs a{q, k, v, nullptr, static_cast<const float*>(lse), dout, dq, dk, dv,
             N, scale, num_special, thresh, inv_keep, s0, s1};
-  if (BH <= 0 || N <= 0) return cudaErrorInvalidValue;
-  return launch_dh<true, float>(DH, BH, a, static_cast<cudaStream_t>(stream));
+  return launch_bwd<true>(DH, BH, a, stream);
 }
 
 int eavit_flash_dropout_bits(void* out, unsigned long long numel, uint32_t s0,

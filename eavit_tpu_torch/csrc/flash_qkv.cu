@@ -18,16 +18,19 @@
 // What bounds it on an H100: bytes. At the flagship act shape (B=64, N=198,
 // H=8, Dh=32, bf16) it must move 26 MB (qkv read once, o and lse written
 // once) against 2.6 GFLOP, far below the 295 FLOP/byte where bf16 tensor
-// cores would be the limit. The design answers that by reading qkv once per
-// (b, h, query tile) and never writing scores, probabilities or masks to
-// device memory: K and V of one head stay in shared memory (N*(2*Dh+1)
-// floats), each warp owns one query row at a time and keeps its scores in
-// a shared-memory row, and the mask bits are generated in registers, one
-// Philox call per four elements. This first version computes on the CUDA
-// cores in f32 (no tensor cores), which is slower than the byte bound; see
-// PERF.md for its measured time.
+// cores would be the limit. Both designs read qkv once per (b, h) or query
+// tile and never write scores, probabilities or masks to device memory, and
+// draw the mask bits in registers, one Philox call per four elements:
+//   bf16 (the act and training paths): the tensor-core template of
+//     attn_fwd_mma.cuh, one block per (b, h) with q, k and v in shared memory
+//     as bf16, two sweeps of mma.sync over 16 x 16 tiles;
+//   float32: the CUDA-core kernel below. K and V of one head stay in shared
+//     memory (N*(2*Dh+1) floats), each warp owns one query row at a time and
+//     keeps its scores in a shared-memory row, all in f32.
+// See PERF.md for their measured times.
 #include <cstdint>
 
+#include "attn_fwd_mma.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -36,9 +39,10 @@ namespace {
 constexpr int kWarps = 8;          // query rows in flight per block
 constexpr int kRowsPerBlock = 64;  // query tile of one block
 
-template <typename T, int DH>
+// float32 inputs; the rounding of sigma' to the input dtype is the identity
+template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
+    flash_qkv_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                          float* __restrict__ lse, int N, int H, float scale,
                          int num_special, uint32_t thresh, float inv_keep,
                          uint32_t s0, uint32_t s1, int use_dropout) {
@@ -52,13 +56,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int h = blockIdx.y, b = blockIdx.z;
   const int inner = H * DH;
   const size_t tok_stride = 3 * static_cast<size_t>(inner);
-  const T* base = qkv + static_cast<size_t>(b) * N * tok_stride;
+  const float* base = qkv + static_cast<size_t>(b) * N * tok_stride;
 
   for (int idx = threadIdx.x; idx < N * DH; idx += blockDim.x) {
     const int j = idx / DH, d = idx % DH;
-    const T* tok = base + static_cast<size_t>(j) * tok_stride;
-    ks[j * KS + d] = to_f(tok[inner + h * DH + d]);
-    vs[j * DH + d] = to_f(tok[2 * inner + h * DH + d]);
+    const float* tok = base + static_cast<size_t>(j) * tok_stride;
+    ks[j * KS + d] = tok[inner + h * DH + d];
+    vs[j * DH + d] = tok[2 * inner + h * DH + d];
   }
   __syncthreads();
 
@@ -67,10 +71,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int row0 = blockIdx.x * kRowsPerBlock;
   const int row_end = min(row0 + kRowsPerBlock, N);
   for (int i = row0 + warp; i < row_end; i += kWarps) {
-    const T* qrow = base + static_cast<size_t>(i) * tok_stride + h * DH;
+    const float* qrow = base + static_cast<size_t>(i) * tok_stride + h * DH;
     float q[DH];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) q[d] = to_f(qrow[d]);  // one address per warp
+    for (int d = 0; d < DH; ++d) q[d] = qrow[d];  // one address per warp
 
     float m = -INFINITY;
     for (int j = lane; j < N; j += 32) {
@@ -107,20 +111,20 @@ __global__ void __launch_bounds__(kWarps * 32)
           if (e >= e0 && e < e0 + N) {
             const int j = static_cast<int>(e - e0);
             const float sg = p[j] / l;
-            p[j] = round_to<T>((r.w[k] >> 8) < thresh ? sg * inv_keep : 0.f);
+            p[j] = (r.w[k] >> 8) < thresh ? sg * inv_keep : 0.f;
           }
         }
       }
     } else {
-      for (int j = lane; j < N; j += 32) p[j] = round_to<T>(p[j] / l);
+      for (int j = lane; j < N; j += 32) p[j] = p[j] / l;
     }
     __syncwarp();
 
-    T* orow = o + (static_cast<size_t>(b) * N + i) * inner + h * DH;
+    float* orow = o + (static_cast<size_t>(b) * N + i) * inner + h * DH;
     for (int d = lane; d < DH; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(p[j], vs[j * DH + d], acc);
-      orow[d] = from_f<T>(acc);
+      orow[d] = acc;
     }
     if (lane == 0) lse[(static_cast<size_t>(b) * H + h) * N + i] = m + logf(l);
     __syncwarp();  // p is reused by the warp's next row
@@ -137,47 +141,64 @@ size_t fwd_smem_bytes(int N, int DH) {
                           static_cast<size_t>(kWarps) * N);
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_fwd(const void* qkv, void* o, void* lse, int B, int N, int H,
                        float scale, int num_special, uint32_t thresh,
                        float inv_keep, uint32_t s0, uint32_t s1, int use_dropout,
                        cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes(N, DH);
-  cudaError_t err = allow_smem(flash_qkv_fwd_kernel<T, DH>, smem);
+  cudaError_t err = allow_smem(flash_qkv_fwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  flash_qkv_fwd_kernel<T, DH><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(o), static_cast<float*>(lse), N,
+  flash_qkv_fwd_kernel<DH><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(o), static_cast<float*>(lse), N,
       H, scale, num_special, thresh, inv_keep, s0, s1, use_dropout);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int DH, const void* qkv, void* o, void* lse, int B, int N,
-                        int H, float scale, int num_special, uint32_t thresh,
-                        float inv_keep, uint32_t s0, uint32_t s1, int use_dropout,
-                        cudaStream_t stream) {
+cudaError_t dispatch_f32(int DH, const void* qkv, void* o, void* lse, int B, int N,
+                         int H, float scale, int num_special, uint32_t thresh,
+                         float inv_keep, uint32_t s0, uint32_t s1, int use_dropout,
+                         cudaStream_t stream) {
   switch (DH) {
     case 16:
-      return launch_fwd<T, 16>(qkv, o, lse, B, N, H, scale, num_special, thresh,
-                               inv_keep, s0, s1, use_dropout, stream);
+      return launch_fwd<16>(qkv, o, lse, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     case 32:
-      return launch_fwd<T, 32>(qkv, o, lse, B, N, H, scale, num_special, thresh,
-                               inv_keep, s0, s1, use_dropout, stream);
+      return launch_fwd<32>(qkv, o, lse, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     case 64:
-      return launch_fwd<T, 64>(qkv, o, lse, B, N, H, scale, num_special, thresh,
-                               inv_keep, s0, s1, use_dropout, stream);
+      return launch_fwd<64>(qkv, o, lse, B, N, H, scale, num_special, thresh,
+                            inv_keep, s0, s1, use_dropout, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// bf16: the tensor-core kernel on the merged layout
+cudaError_t launch_bf16(int DH, const void* qkv, void* o, void* lse, int B, int N, int H,
+                        float scale, int num_special, uint32_t thresh, float inv_keep,
+                        uint32_t s0, uint32_t s1, int use_dropout, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const long long inner = static_cast<long long>(H) * DH, tok = 3 * inner;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  MmaFwdArgs a{x, x + inner, x + 2 * inner, static_cast<bf16*>(o), static_cast<float*>(lse),
+               N * tok, DH, tok, N * inner, DH, inner,
+               B, H, N, scale, num_special, thresh, inv_keep, s0, s1};
+  return use_dropout ? launch_mma_fwd<true>(DH, a, stream)
+                     : launch_mma_fwd<false>(DH, a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the forward needs for a sequence of N tokens.
-size_t eavit_flash_qkv_fwd_smem(int N, int DH) { return fwd_smem_bytes(N, DH); }
+// Shared-memory bytes the forward needs for a sequence of N tokens in the
+// given dtype (common.cuh's codes; bf16 counts the keep bitmaps, which a
+// dropout-free launch leaves out).
+size_t eavit_flash_qkv_fwd_smem(int N, int DH, int dtype) {
+  return dtype == kBF16 ? mma_fwd_smem_bytes(N, DH, true) : fwd_smem_bytes(N, DH);
+}
 
 // Returns the cudaError_t of the launch (0 on success).
 int eavit_flash_qkv_fwd(const void* qkv, void* o, void* lse, int B, int N, int H,
@@ -186,12 +207,12 @@ int eavit_flash_qkv_fwd(const void* qkv, void* o, void* lse, int B, int N, int H
                         int use_dropout, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    return dispatch_dh<__nv_bfloat16>(DH, qkv, o, lse, B, N, H, scale, num_special,
-                                      thresh, inv_keep, s0, s1, use_dropout, st);
+    return launch_bf16(DH, qkv, o, lse, B, N, H, scale, num_special, thresh, inv_keep, s0,
+                       s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return dispatch_dh<float>(DH, qkv, o, lse, B, N, H, scale, num_special, thresh,
-                              inv_keep, s0, s1, use_dropout, st);
+    return dispatch_f32(DH, qkv, o, lse, B, N, H, scale, num_special, thresh, inv_keep,
+                        s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

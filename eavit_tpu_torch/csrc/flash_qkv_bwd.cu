@@ -259,7 +259,7 @@ cudaError_t launch_bf16(int DH, const void* qkv, const void* lse, const void* do
   const long long inner = static_cast<long long>(H) * DH, tok = 3 * inner;
   const bf16* x = static_cast<const bf16*>(qkv);
   bf16* dx = static_cast<bf16*>(dqkv);
-  MmaBwdArgs a{x, x + inner, x + 2 * inner, static_cast<const bf16*>(dout),
+  MmaBwdArgs a{x, x + inner, x + 2 * inner, static_cast<const bf16*>(dout), nullptr,
                dx, dx + inner, dx + 2 * inner, static_cast<const float*>(lse),
                N * tok, DH, tok, N * inner, DH, inner,
                B, H, N, scale, num_special, thresh, inv_keep, s0, s1};

@@ -36,6 +36,8 @@ NVCC_FLAGS = [
 ]
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the shared memory one block of an H100 may opt in to
+SMEM_LIMIT = 227 * 1024
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -109,6 +111,18 @@ def check(err: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def check_smem(what: str, need: int, n: int, dim_head: int) -> None:
+    """Raise, before any launch, for a sequence whose head needs more shared
+    memory than a block has: the kernels of K1, K3 and K4 hold a whole head
+    there, and none of them runs its plain version on the card in place of
+    the kernel. The KV-streaming kernels of ``AttentionImpl =
+    pallas_stream`` take any N."""
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: N={n} with dim_head={dim_head} needs {need} bytes of shared "
+            f"memory, more than {SMEM_LIMIT}; AttentionImpl = pallas_stream takes any N")
 
 
 def check_aligned(what: str, *tensors: torch.Tensor) -> None:

@@ -17,15 +17,18 @@ Two versions of each function:
 - :func:`flash_fwd_plain` / :func:`flash_bwd_plain`: plain torch, the oracle;
 - the CUDA kernels of ``csrc/flash.cu`` (K4f ``flash_fwd``, which replaces
   ``_fwd_kernel`` launched at flash.py:125, and K4b ``flash_bwd``, which
-  replaces ``_bwd_kernel`` launched at line 217).
+  replaces ``_bwd_kernel`` launched at line 217; bf16 K4b runs on the
+  tensor cores, ``csrc/attn_bwd_mma.cuh``, float32 on the CUDA cores).
 
 :func:`flash_fwd` and :func:`flash_bwd` take the plain version for a tensor
-on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the kernel
-does not take (another dtype or layout, ``Dh`` not in 16 / 32 / 64, or N
-past what fits in shared memory) raises. :func:`flash_attention` is
-differentiable through one ``torch.autograd.Function`` that saves
-``(q, k, v, o, lse)`` as ``_flash_fwd`` does (line 244). ``launches``
-counts kernel launches.
+on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the
+kernel does not take (another dtype or layout, ``Dh`` not in 16 / 32 / 64,
+or N past what fits in shared memory, :func:`fwd_smem` / :func:`bwd_smem`)
+raises before any launch. ``eavit_tpu``'s kernel blocks its rows down to
+one per cell there (flash.py:63-66); in the port ``AttentionImpl =
+pallas_stream`` takes any N. :func:`flash_attention` is differentiable
+through one ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
+``_flash_fwd`` does (line 244). ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ from eavit_tpu_torch.ops.attention import dual_query_allowed
 launches = {"flash_fwd": 0, "flash_bwd": 0}
 
 DIM_HEADS = (16, 32, 64)
-SMEM_LIMIT = 227 * 1024
 
 
 def reset_launches() -> None:
@@ -59,8 +61,9 @@ def _lib():
         lib.eavit_flash_fwd.restype = i
         lib.eavit_flash_bwd.argtypes = [vp] * 9 + [i, i, i, i, f, i, vp]
         lib.eavit_flash_bwd.restype = i
+        lib.eavit_flash_fwd_smem.argtypes = [i, i]
+        lib.eavit_flash_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
         for name in ("eavit_flash_fwd_smem", "eavit_flash_bwd_smem"):
-            getattr(lib, name).argtypes = [i, i]
             getattr(lib, name).restype = ctypes.c_size_t
         lib._eavit_typed = True
     return lib
@@ -128,10 +131,14 @@ def check_kernel_args(what: str, q: torch.Tensor, *like_q: torch.Tensor,
                          f"{tuple(q.shape[:3])} on {q.device}")
 
 
-def check_smem(what: str, need: int, n: int, dim_head: int) -> None:
-    if need > SMEM_LIMIT:
-        raise ValueError(f"{what}: N={n} with dim_head={dim_head} needs {need} bytes "
-                         f"of shared memory, more than {SMEM_LIMIT}")
+def fwd_smem(n: int, dim_head: int) -> int:
+    """Bytes of shared memory K4f needs for a head of ``n`` tokens."""
+    return _lib().eavit_flash_fwd_smem(n, dim_head)
+
+
+def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory K4b needs for a head of ``n`` tokens."""
+    return _lib().eavit_flash_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -141,8 +148,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         return flash_fwd_plain(q, k, v, scale, num_special)
     check_kernel_args("flash_fwd", q, k, v)
     b, h, n, dh = q.shape
+    _build.check_smem("flash_fwd", fwd_smem(n, dh), n, dh)
     lib = _lib()
-    check_smem("flash_fwd", lib.eavit_flash_fwd_smem(n, dh), n, dh)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = lib.eavit_flash_fwd(
@@ -162,8 +169,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
         return flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
     check_kernel_args("flash_bwd", q, k, v, o, do, lse=lse)
     b, h, n, dh = q.shape
+    _build.check_smem("flash_bwd", bwd_smem(n, dh, q.dtype), n, dh)
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned("flash_bwd", q, k, v, o, do)
     lib = _lib()
-    check_smem("flash_bwd", lib.eavit_flash_bwd_smem(n, dh), n, dh)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = lib.eavit_flash_bwd(
         *(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv)),

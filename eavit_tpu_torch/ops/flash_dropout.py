@@ -32,8 +32,11 @@ launched at line 349). K3b takes bf16 inputs on the tensor cores
 keep float32 precision) and float32 inputs on the CUDA cores. The wrappers
 take the plain version for a CPU tensor and the kernel for a CUDA tensor.
 In place of ``supports()`` (line 94), which sends long sequences to the
-XLA path, a CUDA call whose N does not fit in shared memory raises: there
-is no fallback. ``launches`` counts kernel launches.
+XLA path, a CUDA call whose N does not fit in shared memory
+(:func:`fwd_smem`, :func:`bwd_smem`) raises before any launch, as another
+dtype, layout or ``Dh`` does: no plain version stands in for the kernel on
+the card (``AttentionImpl = pallas_stream`` takes any N). ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -74,6 +77,16 @@ def _lib():
         lib.eavit_flash_dropout_bits.restype = i
         lib._eavit_typed = True
     return lib
+
+
+def fwd_smem(n: int, dim_head: int) -> int:
+    """Bytes of shared memory K3f needs for a head of ``n`` tokens."""
+    return _lib().eavit_flash_dropout_fwd_smem(n, dim_head)
+
+
+def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory K3b needs for a head of ``n`` tokens."""
+    return _lib().eavit_flash_dropout_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
 
 
 def _keep(q: torch.Tensor, seeds, thresh: int) -> torch.Tensor:
@@ -141,8 +154,8 @@ def flash_dropout_fwd(
         return flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_fwd", q, k, v)
     b, h, n, dh = q.shape
+    _build.check_smem("flash_dropout_fwd", fwd_smem(n, dh), n, dh)
     lib = _lib()
-    flash.check_smem("flash_dropout_fwd", lib.eavit_flash_dropout_fwd_smem(n, dh), n, dh)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = lib.eavit_flash_dropout_fwd(
@@ -164,9 +177,9 @@ def flash_dropout_bwd(
         return flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_bwd", q, k, v, do, lse=lse)
     b, h, n, dh = q.shape
+    _build.check_smem("flash_dropout_bwd", bwd_smem(n, dh, q.dtype), n, dh)
     lib = _lib()
     code = _build.DTYPE_CODES[q.dtype]
-    flash.check_smem("flash_dropout_bwd", lib.eavit_flash_dropout_bwd_smem(n, dh, code), n, dh)
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_dropout_bwd", q, k, v, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -26,14 +26,19 @@ Two versions of each function:
   replaces ``_fwd_kernel`` at flash_qkv.py:242 launched at line 531, and K1r
   ``flash_qkv_bits``, which replaces ``_bits_kernel`` at line 683 launched
   at line 715) and of ``csrc/flash_qkv_bwd.cu`` (K1b ``flash_qkv_bwd``,
-  which replaces ``_bwd_kernel`` at line 305 launched at line 580; bf16
-  inputs run on the tensor cores, ``csrc/attn_bwd_mma.cuh``, float32 inputs
-  on the CUDA cores).
+  which replaces ``_bwd_kernel`` at line 305 launched at line 580). bf16
+  inputs run on the tensor cores (``csrc/attn_fwd_mma.cuh`` for K1f,
+  ``csrc/attn_bwd_mma.cuh`` for K1b), float32 inputs on the CUDA cores.
 
 :func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
-tensor; a CUDA tensor the kernel does not take raises. :func:`flash_mha_qkv`
-is differentiable through one ``torch.autograd.Function`` whose backward is
+tensor; a CUDA tensor the kernel does not take (another dtype or layout,
+``Dh`` not in 16 / 32 / 64, or N past what fits in shared memory,
+:func:`fwd_smem` / :func:`bwd_smem`) raises before any launch. Where
+``flash_mha_qkv`` takes the XLA path past ``supports(n)`` (lines 185-192,
+660-665), the port has no stand-in for the kernel on the card;
+``AttentionImpl = pallas_stream`` takes any N. :func:`flash_mha_qkv` is
+differentiable through one ``torch.autograd.Function`` whose backward is
 :func:`flash_qkv_bwd`. ``launches`` counts kernel launches.
 """
 
@@ -53,7 +58,6 @@ from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 launches = {"flash_qkv_fwd": 0, "flash_qkv_bwd": 0, "flash_qkv_bits": 0}
 
 _DIM_HEADS = (16, 32, 64)
-_SMEM_LIMIT = 227 * 1024
 
 
 def reset_launches() -> None:
@@ -81,12 +85,22 @@ def _lib():
         lib.eavit_flash_qkv_fwd.argtypes = [
             vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
         lib.eavit_flash_qkv_fwd.restype = i
-        lib.eavit_flash_qkv_fwd_smem.argtypes = [i, i]
+        lib.eavit_flash_qkv_fwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
         lib.eavit_flash_qkv_fwd_smem.restype = ctypes.c_size_t
         lib.eavit_flash_qkv_bits.argtypes = [vp, ctypes.c_ulonglong, u, u, vp]
         lib.eavit_flash_qkv_bits.restype = i
         lib._eavit_typed = True
     return lib
+
+
+def fwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory K1f needs for a head of ``n`` tokens."""
+    return _lib().eavit_flash_qkv_fwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
+
+
+def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory K1b needs for a head of ``n`` tokens."""
+    return _bwd_lib().eavit_flash_qkv_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
 
 
 def flash_qkv_fwd_plain(
@@ -140,9 +154,10 @@ def flash_qkv_fwd(
         return flash_qkv_fwd_plain(qkv, heads, dim_head, scale, num_special, seeds, rate)
     _check_kernel_args("flash_qkv_fwd", qkv, heads, dim_head)
     b, n, _ = qkv.shape
+    _build.check_smem("flash_qkv_fwd", fwd_smem(n, dim_head, qkv.dtype), n, dim_head)
+    if qkv.dtype == torch.bfloat16:
+        _build.check_aligned("flash_qkv_fwd", qkv)
     lib = _lib()
-    if lib.eavit_flash_qkv_fwd_smem(n, dim_head) > _SMEM_LIMIT:
-        raise ValueError(f"flash_qkv_fwd: N={n} does not fit in shared memory")
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     o = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
@@ -215,11 +230,9 @@ def flash_qkv_bwd(
                              f"{shape} on {qkv.device}")
     if b > 65535:
         raise ValueError(f"flash_qkv_bwd: batch {b} exceeds the grid limit 65535")
+    _build.check_smem("flash_qkv_bwd", bwd_smem(n, dim_head, qkv.dtype), n, dim_head)
     lib = _bwd_lib()
     code = _build.DTYPE_CODES[qkv.dtype]
-    if lib.eavit_flash_qkv_bwd_smem(n, dim_head, code) > _SMEM_LIMIT:
-        raise ValueError(f"flash_qkv_bwd: N={n} with dim_head={dim_head} does not "
-                         f"fit in shared memory")
     if qkv.dtype == torch.bfloat16:
         _build.check_aligned("flash_qkv_bwd", qkv, do)
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)

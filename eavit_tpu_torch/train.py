@@ -9,9 +9,11 @@ and a profile-N-updates-then-exit mode. The loop runs forever unless
 
 Single device: the agent runs on CUDA unless ``device="cpu"`` (CLI
 ``--device cpu``) is given, and raises when there is no GPU and no device was
-named. ``EnvType = synthetic_device``, the SSL methods and
-``DataAxisSize > 1`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP items.
+named. ``EnvType = synthetic_device``, the SSL methods, ``Render = True``
+and ``DataAxisSize > 1`` are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items. ``SSL_pretraining =
+True`` with no representation method trains without SSL, as the reference
+pretrains only when both are set (``eavit_tpu/train.py:258``, ``:392``).
 """
 
 from __future__ import annotations
@@ -39,10 +41,14 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "EnvType = synthetic_device is not ported to the torch package yet "
             "(ROADMAP.md Queue 1, item 6)")
-    if cfg.ssl_pretraining or cfg.representation_lr_method != RepresentationMethod.NONE:
+    if cfg.representation_lr_method != RepresentationMethod.NONE:
         raise NotImplementedError(
             "SSL pretraining and BYOL / Barlow-Twins are not ported to the torch "
             "package yet (ROADMAP.md Queue 1, item 7)")
+    if cfg.render:
+        raise NotImplementedError(
+            "rendering is not ported to the torch package yet (ROADMAP.md Queue 1, "
+            "item 11: utils/renderer.py)")
     if cfg.data_axis_size > 1:
         raise NotImplementedError(
             "DataAxisSize > 1 (data parallel) is not ported to the torch package "

@@ -37,6 +37,14 @@ cancels: there a bf16 ds would err by about dq itself, and K3b, which keeps
 pd and ds in float32 as the JAX kernel does, must err at most a tenth as
 much as the dq that rounding ds gives (the plain K1b on the same inputs);
 the K1b kernel matches that plain K1b at one bf16 rounding.
+
+The bf16 K1f (csrc/attn_fwd_mma.cuh) and K4b (attn_bwd_mma.cuh with delta
+from O) run on the tensor cores too: they are held to their plain versions
+at N 11, 197, 198 and 443, Dh 16 / 32 / 64, num_special 0 / 2 (K1f also at
+rate 0 and 0.1), at one bf16 rounding of each output and 1e-4 on lse, with
+equal bits twice. At Dh 32 each wrapper launches its kernel at the longest
+N that fits in shared memory, and one token more raises before any launch;
+a dtype or Dh the kernels refuse raises at any N.
 """
 
 import math
@@ -45,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops import flash as fl
 from eavit_tpu_torch.ops import flash_dropout as fd
 from eavit_tpu_torch.ops import flash_qkv as fq
@@ -570,3 +579,145 @@ def test_bf16_backward_kernels_take_patch4_sequences(cuda, dim_head, num_special
         fd.flash_dropout_bwd(*f32[:3], lse, f32[3], seeds, rate, scale, num_special)
     with pytest.raises(ValueError, match="shared memory"):
         fq.flash_qkv_bwd(qkv.float(), lse, g.float(), *args)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core K1f (attn_fwd_mma.cuh) and K4b (attn_bwd_mma.cuh, delta from
+# O), and each kernel's limit on N
+# ---------------------------------------------------------------------------
+
+MMA_N = (11, 197, 198, 443)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", MMA_N)
+def test_bf16_flash_qkv_forward_kernel_matches_plain(cuda, n, num_special, dim_head, rate):
+    """sigma' is rounded to bf16 after normalisation and dropout, as
+    ``_head_fwd`` rounds it: o within one bf16 rounding, lse within 1e-4."""
+    heads, seeds = 2, (123, 456)
+    x = _qkv(3, n, heads, dim_head, cuda, torch.bfloat16)
+    args = (heads, dim_head, dim_head ** -0.5, num_special, seeds, rate)
+    before = fq.launches["flash_qkv_fwd"]
+    o, lse = fq.flash_qkv_fwd(x, *args)
+    po, plse = fq.flash_qkv_fwd_plain(x, *args)
+    torch.cuda.synchronize()
+    assert fq.launches["flash_qkv_fwd"] == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == (3, n, heads * dim_head)
+    assert _max_err(o, po) <= _bf16_tol(po)
+    assert _max_err(lse, plse) <= 1e-4
+    o2, lse2 = fq.flash_qkv_fwd(x, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # deterministic
+
+
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", MMA_N)
+def test_bf16_flash_backward_kernel_matches_plain(cuda, n, num_special, dim_head):
+    """K4b on the tensor cores: p and ds as two bf16 terms each, delta =
+    sum(dO * O) from the forward's O; one bf16 rounding of each output. At
+    Dh = 64 the kernel holds N <= 384, so N = 443 raises before any launch."""
+    q, k, v, do = _heads(3, 2, n, dim_head, cuda, torch.bfloat16, seed=3)
+    scale = dim_head ** -0.5
+    # the forward's outputs from the plain version: K4f holds N <= 424 at Dh 64
+    o, lse = fl.flash_fwd_plain(q, k, v, scale, num_special)
+    before = fl.launches["flash_bwd"]
+    if n == 443 and dim_head == 64:
+        with pytest.raises(ValueError, match="shared memory"):
+            fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
+        assert fl.launches["flash_bwd"] == before
+        return
+    grads = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
+    plain = fl.flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
+    torch.cuda.synchronize()
+    assert fl.launches["flash_bwd"] == before + 1
+    for a, p in zip(grads, plain):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        assert _max_err(a, p) <= _bf16_tol(p)
+    again = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # deterministic
+
+
+# kernel -> its shared memory in bytes as a function of (N, Dh, dtype)
+SMEM = {
+    "flash_qkv_fwd": fq.fwd_smem, "flash_qkv_bwd": fq.bwd_smem,
+    "flash_fwd": lambda n, dh, dtype: fl.fwd_smem(n, dh), "flash_bwd": fl.bwd_smem,
+    "flash_dropout_fwd": lambda n, dh, dtype: fd.fwd_smem(n, dh),
+    "flash_dropout_bwd": fd.bwd_smem,
+}
+
+
+def _calls(kernel, n, dh, h, dtype, device):
+    """``(kernel call, plain call)`` of one wrapper at ``[1, h, n, dh]``, each
+    returning a tuple of outputs."""
+    seeds, rate, ns = (3, 5), 0.1, 2
+    scale = dh ** -0.5
+    q, k, v, do = _heads(1, h, n, dh, device, dtype, seed=4)
+    if kernel.startswith("flash_qkv"):
+        qkv = torch.cat([_merged(t) for t in (q, k, v)], dim=-1).contiguous()
+        g = _merged(do).contiguous()
+        args = (h, dh, scale, ns, seeds, rate)
+        lse = fq.flash_qkv_fwd_plain(qkv, *args)[1]
+        return {
+            "flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args),
+                              lambda: fq.flash_qkv_fwd_plain(qkv, *args)),
+            "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse, g, *args),),
+                              lambda: (fq.flash_qkv_bwd_plain(qkv, lse, g, *args),)),
+        }[kernel]
+    if kernel.startswith("flash_dropout"):
+        lse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)[1]
+        bargs = (q, k, v, lse, do, seeds, rate, scale, ns)
+        return {
+            "flash_dropout_fwd": (lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
+                                  lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate,
+                                                                     scale, ns)),
+            "flash_dropout_bwd": (lambda: fd.flash_dropout_bwd(*bargs),
+                                  lambda: fd.flash_dropout_bwd_plain(*bargs)),
+        }[kernel]
+    o, lse = fl.flash_fwd_plain(q, k, v, scale, ns)
+    return {
+        "flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
+                      lambda: fl.flash_fwd_plain(q, k, v, scale, ns)),
+        "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, ns),
+                      lambda: fl.flash_bwd_plain(q, k, v, o, lse, do, scale, ns)),
+    }[kernel]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", list(SMEM))
+def test_wrappers_raise_past_the_kernel_limit(cuda, kernel, dtype):
+    """At ``Dh`` 32 the longest N a kernel holds in shared memory launches it
+    and matches the plain version; one token more raises before any launch,
+    naming the streaming route that takes any N."""
+    mod = {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}[kernel.rsplit("_", 1)[0]]
+    dh, h = 32, 2
+    n = next(m for m in range(64, 4096) if SMEM[kernel](m, dh, dtype) > _build.SMEM_LIMIT)
+    call, plain = _calls(kernel, n - 1, dh, h, dtype, cuda)
+    launched = mod.launches[kernel]
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    assert mod.launches[kernel] == launched + 1
+    for a, p in zip(got, want):
+        assert _max_err(a, p) <= _tol(p, dtype)
+    call, _ = _calls(kernel, n, dh, h, dtype, cuda)
+    with pytest.raises(ValueError, match="shared memory.*pallas_stream"):
+        call()
+    assert mod.launches[kernel] == launched + 1
+
+
+def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
+    """A dtype or Dh the kernels do not take raises whatever N is, before any
+    launch."""
+    n, before = 1000, {**fq.launches, **fl.launches, **fd.launches}
+    qkv = torch.zeros(1, n, 3 * 2 * 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fq.flash_qkv_fwd(qkv, 2, 32, 0.2)
+    with pytest.raises(ValueError, match="dim_head"):
+        fq.flash_qkv_fwd(torch.zeros(1, n, 3 * 2 * 24, device=cuda), 2, 24, 0.2)
+    q = torch.zeros(1, 2, n, 24, device=cuda)
+    with pytest.raises(ValueError, match="dim_head"):
+        fl.flash_fwd(q, q, q, 0.2)
+    with pytest.raises(ValueError, match="dim_head"):
+        fd.flash_dropout_bwd(q, q, q, torch.zeros(1, 2, n, device=cuda), q, (1, 2), 0.1, 0.2)
+    assert {**fq.launches, **fl.launches, **fd.launches} == before

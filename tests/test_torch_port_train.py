@@ -31,13 +31,13 @@ from eavit_tpu import config as jax_config
 from eavit_tpu.rl.agent import RNDAgent as JaxAgent
 from eavit_tpu.rl.agent import Rollout as JaxRollout
 from eavit_tpu_torch import config as port_config
-from eavit_tpu_torch.config import Config, EnvType, ViTConfig
+from eavit_tpu_torch.config import Config, EnvType, RepresentationMethod, ViTConfig
 from eavit_tpu_torch.convert import flax_tree_to_torch, load_jax_state
 from eavit_tpu_torch.envs.builders import make_vector_env
 from eavit_tpu_torch.eval import evaluate
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
-from eavit_tpu_torch.train import train
+from eavit_tpu_torch.train import check_ported, train
 from eavit_tpu_torch.utils.checkpoint import (
     BEST_SUFFIXES,
     CheckpointManager,
@@ -173,13 +173,30 @@ def test_cli_trains_on_cpu_and_refuses_a_silent_cpu_run(tmp_path):
 
 
 def test_unported_run_options_raise(tmp_path):
-    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE), dict(ssl_pretraining=True),
+    byol = dict(ssl_pretraining=True, representation_lr_method=RepresentationMethod.BYOL)
+    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE), byol,
                dict(data_axis_size=2), dict(env_type=EnvType.ATARI)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train(_cfg(tmp_path, **kw), total_updates=1, log_dir=str(tmp_path),
                   device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_vector_env(_cfg(tmp_path, env_type=EnvType.CLASSIC_CONTROL))
+
+
+def test_ssl_pretraining_without_a_method_trains_without_ssl(tmp_path):
+    """eavit_tpu pretrains only when SSL_pretraining and a method are both set
+    (eavit_tpu/train.py:258, :392): the flag alone is no reason to refuse."""
+    check_ported(_cfg(tmp_path, ssl_pretraining=True))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        check_ported(_cfg(tmp_path, representation_lr_method=RepresentationMethod.BYOL))
+
+
+def test_render_in_train_raises_until_the_renderer_is_ported(tmp_path):
+    """eavit_tpu renders rollout frames (eavit_tpu/train.py:372-376); the port
+    refuses rather than train without them, as its evaluate does."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        check_ported(_cfg(tmp_path, render=True))
+    check_ported(_cfg(tmp_path))
 
 
 def test_checkpoint_manager_schedule_and_best(tmp_path):

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Build variants of the tensor-core attention backward and time them on one GPU.
+"""Build variants of the tensor-core attention kernels and time them on one GPU.
 
-Each variant is ``eavit_tpu_torch/csrc/attn_bwd_mma.cuh`` with some of its
-constants replaced (``kMmaWarps``, ``kMinBlocks``), compiled into the bf16
-K1b (``flash_qkv_bwd.cu``) and K3b (``flash_dropout.cu``) with the flags of
-``ops/_build.py``, all variants at once. Per variant it prints the registers
-and spills ptxas reports for the ``Dh`` = 32 kernels, holds K1b and K3b to
-their plain versions on a few heads, and times them with CUDA events at the
-flagship minibatch ``[256, 8, 198, 32]`` (K1b at rate 0 and 0.1, K3b at
-0.1) and the stacked one ``[512, 8, 197, 32]``, in turns (every variant
-once, then again in reverse order). Run from the root of a checkout on a
-machine with a GPU:
+Each variant is ``eavit_tpu_torch/csrc/`` with some constants of the
+tensor-core templates replaced: ``kMmaWarps`` and ``kMinBlocks`` of
+``attn_bwd_mma.cuh`` (the bf16 K1b, K3b and K4b), ``kMmaFwdWarps`` and
+``kMmaFwdMinBlocks`` of ``attn_fwd_mma.cuh`` (the bf16 K1f). Every variant
+is compiled into ``flash_qkv.cu`` (K1f), ``flash_qkv_bwd.cu`` (K1b),
+``flash_dropout.cu`` (K3b) and ``flash.cu`` (K4b) with the flags of
+``ops/_build.py``, all at once. Per variant it prints the registers and
+spills ptxas reports for the ``Dh`` = 32 kernels, holds each kernel to its
+plain version on a few heads, and times them with CUDA events at the
+flagship minibatch ``[256, 8, 198, 32]`` (K1f and K1b at rate 0 and 0.1,
+K3b at 0.1, K4b), the stacked one ``[512, 8, 197, 32]`` and, for K1f, the
+act shape ``[64, 8, 198, 32]``, in turns (every variant once, then again in
+reverse order). Run from the root of a checkout on a machine with a GPU:
 
     python3 tune_attn_bwd.py '{"base": {}, "w4": {"kMmaWarps": 4}}'
 
@@ -27,14 +30,15 @@ import shutil
 import subprocess
 import sys
 
-SOURCES = ("flash_qkv_bwd", "flash_dropout")
-SHAPES = [(256, 198, 2), (512, 197, 0)]  # (B, N, num_special) at H = 8, Dh = 32
+SOURCES = ("flash_qkv", "flash_qkv_bwd", "flash_dropout", "flash")
+HEADERS = ("attn_bwd_mma.cuh", "attn_fwd_mma.cuh")
+# (B, N, num_special, backward kernels too) at H = 8, Dh = 32
+SHAPES = [(256, 198, 2, True), (512, 197, 0, True), (64, 198, 2, False)]
 
 
 def build(variants, out_dir):
     from eavit_tpu_torch.ops import _build
 
-    header = (_build.CSRC / "attn_bwd_mma.cuh").read_text()
     procs = {}
     for name, subs in variants.items():
         vdir = os.path.join(out_dir, name)
@@ -42,14 +46,18 @@ def build(variants, out_dir):
         for f in _build.CSRC.iterdir():
             if f.suffix in (".cu", ".cuh"):
                 shutil.copy(f, vdir)
-        text = header
+        texts = {h: (_build.CSRC / h).read_text() for h in HEADERS}
         for key, value in subs.items():
-            text, n = re.subn(rf"constexpr int {key} = \d+;", f"constexpr int {key} = {value};",
-                              text)
-            if n != 1:
+            found = 0
+            for h in HEADERS:
+                texts[h], n = re.subn(rf"constexpr int {key} = \d+;",
+                                      f"constexpr int {key} = {value};", texts[h])
+                found += n
+            if found != 1:
                 raise SystemExit(f"{name}: no constant {key}")
-        with open(os.path.join(vdir, "attn_bwd_mma.cuh"), "w") as fh:
-            fh.write(text)
+        for h, text in texts.items():
+            with open(os.path.join(vdir, h), "w") as fh:
+                fh.write(text)
         for src in SOURCES:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", vdir,
                    "-o", os.path.join(vdir, f"lib{src}.so"), os.path.join(vdir, f"{src}.cu")]
@@ -60,9 +68,10 @@ def build(variants, out_dir):
         log = proc.communicate()[0]
         regs, kernel = {}, None
         for line in log.splitlines():
-            m = re.search(r"attn_bwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", line)
+            m = (re.search(r"attn_bwd_mma_kernelILi(\d+)ELb[01]ELb([01])ELb[01]E", line)
+                 or re.search(r"attn_fwd_mma_kernelILi(\d+)ELb([01])E", line))
             if m:
-                kernel = f"Dh{m.group(1)}{' dropout' if m.group(3) == '1' else ''}"
+                kernel = f"Dh{m.group(1)}{' dropout' if m.group(2) == '1' else ''}"
             elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
                 regs.setdefault(kernel, {})["spill_stores"] = int(m.group(1))
             elif kernel and (m := re.search(r"Used (\d+) registers", line)):
@@ -82,6 +91,7 @@ def main() -> int:
     import torch
 
     from eavit_tpu_torch.ops import _build
+    from eavit_tpu_torch.ops import flash as fl
     from eavit_tpu_torch.ops import flash_dropout as fd
     from eavit_tpu_torch.ops import flash_qkv as fq
 
@@ -101,8 +111,10 @@ def main() -> int:
         for src in SOURCES:
             lib = ctypes.CDLL(os.path.abspath(os.path.join(out_dir, name, f"lib{src}.so")))
             _build._libs[src] = lib
-        fq._bwd_lib()  # argument types on the fresh library
+        fq._lib()  # argument types on the fresh libraries
+        fq._bwd_lib()
         fd._lib()
+        fl._lib()
 
     def time_ms(fn, iters=20):
         for _ in range(3):
@@ -118,40 +130,47 @@ def main() -> int:
 
     h, dh, seeds = 8, 32, (0x1234ABCD, 0x0BADF00D)
     scale = dh ** -0.5
-    for b, n, ns in SHAPES:
+    for b, n, ns, backward in SHAPES:
         g = torch.Generator().manual_seed(n)
         q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16)
                        for _ in range(4))
         qkv = torch.cat([t.transpose(1, 2).reshape(b, n, h * dh) for t in (q, k, v)], -1)
         gm = do.transpose(1, 2).reshape(b, n, h * dh).contiguous()
         _, lse3 = fd.flash_dropout_fwd(q, k, v, seeds, 0.1, scale, ns)
+        o4, lse4 = fl.flash_fwd(q, k, v, scale, ns)
         lse1 = {r: fq.flash_qkv_fwd(qkv, h, dh, scale, ns, seeds, r)[1] for r in (0.0, 0.1)}
-        calls = {
-            "k1b_rate0": lambda: fq.flash_qkv_bwd(qkv, lse1[0.0], gm, h, dh, scale, ns, seeds, 0.0),
-            "k1b_rate0.1": lambda: fq.flash_qkv_bwd(qkv, lse1[0.1], gm, h, dh, scale, ns, seeds,
-                                                    0.1),
-            "k3b_rate0.1": lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, 0.1, scale, ns),
-        }
         few = slice(0, 4)  # the plain versions on four batch rows
-        plain = {
-            "k1b_rate0": fq.flash_qkv_bwd_plain(qkv[few], lse1[0.0][few], gm[few], h, dh, scale,
-                                                ns, seeds, 0.0),
-            "k1b_rate0.1": fq.flash_qkv_bwd_plain(qkv[few], lse1[0.1][few], gm[few], h, dh,
-                                                  scale, ns, seeds, 0.1),
-            "k3b_rate0.1": fd.flash_dropout_bwd_plain(q[few], k[few], v[few], lse3[few], do[few],
-                                                      seeds, 0.1, scale, ns)[0],
+        calls = {  # kernel -> (call, plain call on the first rows, output compared)
+            **{f"k1f_rate{r}": (
+                lambda r=r: fq.flash_qkv_fwd(qkv, h, dh, scale, ns, seeds, r)[0],
+                lambda r=r: fq.flash_qkv_fwd_plain(qkv[few], h, dh, scale, ns, seeds, r)[0])
+               for r in (0.0, 0.1)},
         }
+        if backward:
+            calls.update({
+                **{f"k1b_rate{r}": (
+                    lambda r=r: fq.flash_qkv_bwd(qkv, lse1[r], gm, h, dh, scale, ns, seeds, r),
+                    lambda r=r: fq.flash_qkv_bwd_plain(qkv[few], lse1[r][few], gm[few], h, dh,
+                                                       scale, ns, seeds, r))
+                   for r in (0.0, 0.1)},
+                "k3b_rate0.1": (
+                    lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, 0.1, scale, ns)[0],
+                    lambda: fd.flash_dropout_bwd_plain(q[few], k[few], v[few], lse3[few],
+                                                       do[few], seeds, 0.1, scale, ns)[0]),
+                "k4b": (lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns)[0],
+                        lambda: fl.flash_bwd_plain(q[few], k[few], v[few], o4[few], lse4[few],
+                                                   do[few], scale, ns)[0]),
+            })
+        plain = {kernel: p() for kernel, (_, p) in calls.items()}
         times = {name: {} for name in built}
         for name in built + built[::-1]:
             use(name)
-            for kernel, call in calls.items():
+            for kernel, (call, _) in calls.items():
                 times[name].setdefault(kernel, []).append(time_ms(call))
         for name in built:
             use(name)
-            out = {k: c() for k, c in calls.items()}
-            out["k3b_rate0.1"] = out["k3b_rate0.1"][0]
-            errs = {k: (out[k][few].float() - plain[k].float()).abs().max().item()
-                    for k in calls}
+            errs = {kernel: (call()[few].float() - plain[kernel].float()).abs().max().item()
+                    for kernel, (call, _) in calls.items()}
             print(json.dumps({"variant": name, "shape": [b, h, n, dh], "num_special": ns,
                               "ms": times[name], "max_abs_err": errs}), flush=True)
     for src in SOURCES:
