@@ -40,7 +40,8 @@ non-zero on failure:
 6. Training path, exact stacked mode: ``train.train`` for one iteration
    with ``Epoch = 1`` (96 launches of each backward kernel).
 7. Flash kernels of ``AttentionImpl = pallas``: K4f / K4b (``ops/flash``,
-   rate 0) and K3f / K3b (``ops/flash_dropout``, rate 0.1) at the acting
+   rate 0) and K3f / K3b (``ops/flash_dropout``, rate 0.1), the forwards on
+   the streaming tensor-core template, at the acting
    shapes ``[64, 8, 198, 32]`` / ``[128, 8, 197, 32]`` and the training
    shapes ``[256, 8, 198, 32]`` / ``[512, 8, 197, 32]`` in bf16, and once in
    float32, against their plain versions; the backward kernels also against
@@ -80,28 +81,37 @@ non-zero on failure:
     stacked iteration with ``Epoch = 1`` (K5q and K5kv 96 each).
 14. Patch 4 (441 patches, N = 443 shared): one ``train.train`` iteration
     with ``Epoch = 1`` on ``pallas_stream``, finite, with its launch counts
-    and frames/s; one minibatch step of 4 frames on ``pallas`` and on
-    ``pallas_qkv``, whose bf16 backward kernels (K3b, K1b) hold N = 443 since
-    they keep the head in bf16, and on ``pallas`` at dropout 0 (K4b): finite
-    gradients, through the kernels (the float32 backward kernels cannot hold
-    N = 443 at ``Dh`` 32, and their wrappers raise there).
-15. Each kernel's limit on N (``Dh`` 32, bf16 and float32): at the longest N
-    that fits in shared memory the wrapper launches its kernel once and
-    matches the plain version; one token more raises before any launch.
+    and frames/s; then one minibatch step of 4 frames on ``pallas`` and
+    ``pallas_qkv`` at each long sequence of ``ROUTE_STEPS``: patch 4 in bf16
+    and in float32 (``pallas`` at dropout 0.1 and 0) and patch 3 (N = 786) in
+    bf16: finite gradients, through the kernels the wrappers pick at that
+    length (the streaming ones past N = 256 and in float32).
+15. ``long_n``: each of the six attention functions of K1, K3 and K4 on its
+    streaming kernel, bf16 and float32, launched once at ``[16, 8, N, 32]``
+    for N = 786 and 1,766 and held to its plain version, timed beside the
+    bytes bound, the plain version and SDPA (bf16), with its shared memory,
+    which does not depend on N.
 
-K1b, K3b and K4b run bf16 inputs on the tensor-core backward
-(``csrc/attn_bwd_mma.cuh``; K4b with delta from O), K1f on the tensor-core
-forward (``csrc/attn_fwd_mma.cuh``). Phase 1 logs each of their
-instantiations' registers and spills from ptxas and fails on a spill at
+K1f, K1b, K3b and K4b have two bf16 kernels each: the whole-head forms
+(``csrc/attn_fwd_head.cuh``, ``csrc/attn_bwd_head.cuh``), which the wrappers
+run where a head fits in shared memory and N <= 256 (the flagship's 198),
+and the
+streaming tensor-core templates (``csrc/attn_fwd_mma.cuh``,
+``csrc/attn_bwd_mma.cuh``), which take any N and which K3f and K4f run at
+every N; float32 runs the streaming CUDA-core template of
+``csrc/flash_stream.cuh``. Each kernel counts under its own launch key (the
+streaming ones as ``*_stream``). Phase 1 logs every tensor-core
+instantiation's registers and spills from ptxas and fails on a spill at
 ``Dh`` <= 32; phase 2 times K1f at the act shapes and at the minibatch
-shape (beside SDPA on the same head-split tensors and mask); phase 7 runs
-K4b at the patch-4 minibatch too, and the cancellation check once at the
-flagship minibatch (keys that are nearly equal, so that dq nearly cancels:
-K3b and K4b, which keep pd and ds in float32 as two bf16 terms, must err at
-most a tenth as much as the dq that rounding ds to bf16 gives) and logs the
-longest N each kernel takes per dtype. No wrapper runs its plain version
-on the card: every row of a kernel phase is logged only after the call it
-times launched the kernel exactly once.
+shape (beside SDPA on the same head-split tensors and mask), and the
+streaming K1f, K1b, K3b and K4b are timed at the same flagship shapes;
+phase 7 runs K4b at the patch-4 minibatch too, and the cancellation check
+once at the flagship minibatch (keys that are nearly equal, so that dq
+nearly cancels: K3b and K4b, which keep pd and ds in float32 as two bf16
+terms, must err at most a tenth as much as the dq that rounding ds to bf16
+gives). No wrapper runs its plain version on the card: every row of a
+kernel phase is logged only after the call it times launched the kernel
+exactly once.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -198,18 +208,31 @@ def ptxas_report(build_log: str):
     return out
 
 
-def mma_ptxas(report, source: str):
-    """The tensor-core templates' instantiations in one source, as
-    ``{"Dh32 rounded dropout": {...}}`` (backward) or ``{"Dh32 fwd dropout":
-    {...}}`` (forward)."""
+def mma_ptxas(report, source: str, kind: str):
+    """The tensor-core templates' instantiations of one kind (``"fwd"`` or
+    ``"bwd"``) in one source, as ``{"Dh32 fwd split dropout": {...}}`` or
+    ``{"Dh32 dq rounded dropout": {...}, "Dh32 dkv rounded dropout": ...}``,
+    the whole-head kernels' as ``"Dh32 fwd head ..."`` and ``"Dh32 bwd head
+    ..."``."""
+    flags = lambda *bits: (" rounded" if bits[0] == "1" else " split") + (  # noqa: E731
+        " dropout" if bits[1] == "1" else "") + (" delta" if bits[2:] == ("1",) else "")
     rows = {}
     for entry, info in report.get(source, {}).items():
-        if m := re.search(r"attn_bwd_mma_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", entry):
-            name = f"Dh{m.group(1)} {'rounded' if m.group(2) == '1' else 'split'}" + (
-                " dropout" if m.group(3) == "1" else "") + (" delta" if m.group(4) == "1" else "")
-            rows[name] = info
-        elif m := re.search(r"attn_fwd_mma_kernelILi(\d+)ELb([01])E", entry):
-            rows[f"Dh{m.group(1)} fwd" + (" dropout" if m.group(2) == "1" else "")] = info
+        if kind == "fwd" and (m := re.search(
+                r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} fwd" + flags(m.group(2), m.group(3))] = info
+        elif kind == "fwd" and (m := re.search(r"attn_fwd_head_kernelILi(\d+)ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} fwd head rounded" + (
+                " dropout" if m.group(2) == "1" else "")] = info
+        elif kind == "bwd" and (m := re.search(
+                r"attn_bwd_head_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} bwd head" + flags(m.group(2), m.group(3), m.group(4))] = info
+        elif kind == "bwd" and (m := re.search(
+                r"attn_dq_mma_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} dq" + flags(m.group(2), m.group(3), m.group(4))] = info
+        elif kind == "bwd" and (m := re.search(
+                r"attn_dkv_mma_kernelILi(\d+)ELb([01])ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} dkv" + flags(m.group(2), m.group(3))] = info
     return rows
 
 
@@ -481,10 +504,9 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
     """K4f, K4b, K3f, K3b at the pallas path's shapes against their plain
     versions, timed; K3r bit for bit; the backward Functions against torch
     autograd through the plain forwards; the cancellation check of K3b, K4b
-    and K1b; the longest N of each kernel."""
+    and K1b."""
     import torch.nn.functional as F
 
-    from eavit_tpu_torch.ops._build import SMEM_LIMIT
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
     heads, dh, seeds, rate = 8, 32, KERNEL_SEEDS, 0.1
@@ -560,7 +582,8 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
                 rate, 7),
         }
         for name, (mod, bwd, plain, r, tensors) in bwds.items():
-            out = once(mod, name, bwd)
+            key = mod.bwd_kernel(n, dh, dtype)  # float32: the streaming kernel
+            out = once(mod, key, bwd)
             ref = plain()
             again = bwd()
             torch.cuda.synchronize()
@@ -569,7 +592,7 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
             del ref, again
             # five products: scores recomputed, dV, dP, dQ, dK
             bms, by = bound_ms(tensors * numel * esize + 4 * bhn, 5 * nn_flops, dname)
-            row = dict(kernel=name, use=use, b=b, n=n, num_special=ns, rate=r,
+            row = dict(kernel=key, use=use, b=b, n=n, num_special=ns, rate=r,
                        dtype=dname, max_abs_err=max(e for e, _ in errs),
                        errs_dq_dk_dv=[e for e, _ in errs], tols_dq_dk_dv=[t for _, t in errs],
                        deterministic=same, bound_ms=bms, bound_by=by, library_ms=lib_bwd)
@@ -621,32 +644,7 @@ def flash_kernel_phase(torch, fl, fd, fq, kp, dev):
         check(err <= tol, f"{name}: Function backward vs autograd of the plain forward")
 
     cancellation_check(torch, fq, fd, fl, dev)
-    log("max_n", smem_limit=SMEM_LIMIT, **longest_n(torch, fq, fl, fd))
     return rows
-
-
-def smem_fns(fq, fl, fd):
-    """kernel -> its shared memory in bytes as a function of (N, Dh, dtype):
-    the test each wrapper raises on before any launch."""
-    return {"flash_qkv_fwd": fq.fwd_smem, "flash_qkv_bwd": fq.bwd_smem,
-            "flash_fwd": lambda n, d, dt: fl.fwd_smem(n, d), "flash_bwd": fl.bwd_smem,
-            "flash_dropout_fwd": lambda n, d, dt: fd.fwd_smem(n, d),
-            "flash_dropout_bwd": fd.bwd_smem}
-
-
-def first_n_past(smem, dim_head: int, dtype) -> int:
-    """The shortest sequence that does not fit in one block's shared memory."""
-    from eavit_tpu_torch.ops._build import SMEM_LIMIT
-
-    return next(m for m in range(1, 4097) if smem(m, dim_head, dtype) > SMEM_LIMIT)
-
-
-def longest_n(torch, fq, fl, fd):
-    """The longest sequence each kernel takes at each head width and dtype:
-    past it the wrapper raises."""
-    return {f"{name} {dt}": {d: first_n_past(smem, d, getattr(torch, dt)) - 1
-                             for d in fl.DIM_HEADS}
-            for name, smem in smem_fns(fq, fl, fd).items() for dt in ("bfloat16", "float32")}
 
 
 def cancellation_check(torch, fq, fd, fl, dev):
@@ -658,7 +656,8 @@ def cancellation_check(torch, fq, fd, fl, dev):
     inputs (K1 rounds pd and ds and draws the same mask). The K1b kernel must
     match that plain K1b at one bf16 rounding. K4b (rate 0, delta from the
     forward's O) is held the same way against its plain version with ds
-    rounded to bf16 before ``ds k``."""
+    rounded to bf16 before ``ds k``. Each on its whole-head and its
+    streaming kernel."""
     import numpy as np
 
     b, h, n, dh, ns = MB_FRAMES, 8, 198, 32, 2
@@ -672,31 +671,32 @@ def cancellation_check(torch, fq, fd, fl, dev):
         return t.transpose(1, 2).reshape(b, n, h * dh).contiguous()
 
     _, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)
-    dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns)[0]
     dq_plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, ns)[0]
     qkv, g = torch.cat([merged(t) for t in (q, k, v)], dim=-1), merged(do)
     args = (h, dh, scale, ns, seeds, rate)
     k1_plain = fq.flash_qkv_bwd_plain(qkv, lse, g, *args)
     dq_rounded = k1_plain[..., :h * dh].reshape(b, n, h, dh).transpose(1, 2)
-    k1 = fq.flash_qkv_bwd(qkv, lse, g, *args)
-    torch.cuda.synchronize()
-    err = (dq.float() - dq_plain.float()).abs().max().item()
     err_rounded = (dq_rounded.float() - dq_plain.float()).abs().max().item()
-    k1_err = (k1.float() - k1_plain.float()).abs().max().item()
     k1_tol = 1e-2 + 8e-3 * k1_plain.float().abs().max().item()  # one bf16 rounding
-    log("cancellation", shape=[b, h, n, dh], rate=rate, k3b_dq_err=err,
-        rounded_ds_dq_err=err_rounded, ratio=err / err_rounded if err_rounded else None,
-        ratio_tol=0.1, dq_max=dq_plain.float().abs().max().item(), k1b_err=k1_err,
-        k1b_tol=k1_tol)
-    check(err_rounded > 0 and err <= 0.1 * err_rounded,
-          f"K3b dq error {err} vs {err_rounded} with ds rounded to bf16")
-    check(k1_err <= k1_tol, f"K1b on cancelling keys: {k1_err} > {k1_tol}")
-    del dq, dq_plain, k1_plain, dq_rounded, k1, qkv, g
+    for choice in ("head", "stream"):
+        dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns, kernel=choice)[0]
+        k1 = fq.flash_qkv_bwd(qkv, lse, g, *args, kernel=choice)
+        torch.cuda.synchronize()
+        err = (dq.float() - dq_plain.float()).abs().max().item()
+        k1_err = (k1.float() - k1_plain.float()).abs().max().item()
+        log("cancellation", kernel=choice, shape=[b, h, n, dh], rate=rate, k3b_dq_err=err,
+            rounded_ds_dq_err=err_rounded,
+            ratio=err / err_rounded if err_rounded else None, ratio_tol=0.1,
+            dq_max=dq_plain.float().abs().max().item(), k1b_err=k1_err, k1b_tol=k1_tol)
+        check(err_rounded > 0 and err <= 0.1 * err_rounded,
+              f"K3b ({choice}) dq error {err} vs {err_rounded} with ds rounded to bf16")
+        check(k1_err <= k1_tol, f"K1b ({choice}) on cancelling keys: {k1_err} > {k1_tol}")
+        del dq, k1
+    del dq_plain, k1_plain, dq_rounded, qkv, g
 
     # K4b: the plain K4b's formulas (flash_bwd_plain) in float32, once with
     # ds as it is and once with ds rounded to bf16 before dq = ds k
     o, lse = fl.flash_fwd(q, k, v, scale, ns)
-    dq = fl.flash_bwd(q, k, v, o, lse, do, scale, ns)[0]
     gf = do.float()
     p = torch.exp(fl.masked_scores(q, k, scale, ns) - lse[..., None])
     dp = torch.matmul(gf, v.float().transpose(-1, -2))
@@ -706,14 +706,17 @@ def cancellation_check(torch, fq, fd, fl, dev):
     dq_plain = torch.matmul(ds, k.float()).to(torch.bfloat16).float()
     dq_rounded = torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(torch.bfloat16).float()
     del ds
-    torch.cuda.synchronize()
-    err = (dq.float() - dq_plain).abs().max().item()
     err_rounded = (dq_rounded - dq_plain).abs().max().item()
-    log("cancellation", kernel="flash_bwd", shape=[b, h, n, dh], rate=0.0, k4b_dq_err=err,
-        rounded_ds_dq_err=err_rounded, ratio=err / err_rounded if err_rounded else None,
-        ratio_tol=0.1, dq_max=dq_plain.abs().max().item())
-    check(err_rounded > 0 and err <= 0.1 * err_rounded,
-          f"K4b dq error {err} vs {err_rounded} with ds rounded to bf16")
+    for choice in ("head", "stream"):
+        dq = fl.flash_bwd(q, k, v, o, lse, do, scale, ns, kernel=choice)[0]
+        torch.cuda.synchronize()
+        err = (dq.float() - dq_plain).abs().max().item()
+        log("cancellation", kernel=f"flash_bwd {choice}", shape=[b, h, n, dh], rate=0.0,
+            k4b_dq_err=err, rounded_ds_dq_err=err_rounded,
+            ratio=err / err_rounded if err_rounded else None, ratio_tol=0.1,
+            dq_max=dq_plain.abs().max().item())
+        check(err_rounded > 0 and err <= 0.1 * err_rounded,
+              f"K4b ({choice}) dq error {err} vs {err_rounded} with ds rounded to bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -743,12 +746,11 @@ def allowed_pairs(n: int, ns: int) -> int:
 def stream_kernel_phase(torch, fs, fl, dev):
     """K5f, K5q and K5kv against their plain versions at every shape of
     ``STREAM_SHAPES`` in bf16 and once in float32, equal bits twice, timed
-    beside the bound, the plain version, SDPA with the same mask and K4
-    where K4's wrapper takes the shape; the backward Function against torch
+    beside the bound, the plain version, SDPA with the same mask and K4 (which
+    takes every N too); the backward Function against torch
     autograd through the plain forward; the shared memory of each kernel."""
     import torch.nn.functional as F
 
-    from eavit_tpu_torch.ops._build import SMEM_LIMIT
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
     def err_tol(out, ref, dtype):
@@ -790,7 +792,7 @@ def stream_kernel_phase(torch, fs, fl, dev):
         }
         lib = {"flash_stream_fwd": None, "bwd": None}
         k4 = {}
-        if timed:  # yardsticks: SDPA with the same mask, and K4 where it fits
+        if timed:  # yardsticks: SDPA with the same mask, and K4
             lib["flash_stream_fwd"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask), iters)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -799,12 +801,9 @@ def stream_kernel_phase(torch, fs, fl, dev):
                 o_lib, leaves, do, retain_graph=True), iters)
             del o_lib, leaves
             # K4b beside K5q + K5kv: both compute dq, dk and dv
-            if fl.fwd_smem(n, dh) <= SMEM_LIMIT:
-                k4["k4_fwd_ms"] = time_ms(torch, lambda: fl.flash_fwd(q, k, v, scale, ns),
-                                          iters)
-            if fl.bwd_smem(n, dh, dtype) <= SMEM_LIMIT:
-                k4["k4_bwd_ms"] = time_ms(torch, lambda: fl.flash_bwd(
-                    q, k, v, o, lse, do, scale, ns), iters)
+            k4["k4_fwd_ms"] = time_ms(torch, lambda: fl.flash_fwd(q, k, v, scale, ns), iters)
+            k4["k4_bwd_ms"] = time_ms(torch, lambda: fl.flash_bwd(
+                q, k, v, o, lse, do, scale, ns), iters)
         for name, (call, plain, nbytes, products) in calls.items():
             out = once(fs, name, call)
             ref = plain()
@@ -1258,12 +1257,37 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     return counts, timing
 
 
+# (attention, dropout, compute dtype, patch size) of the one-step route checks:
+# patch 4 (N = 443) in both dtypes and patch 3 (N = 786) in bf16
+ROUTE_STEPS = (("pallas", 0.1, "bfloat16", 4), ("pallas_qkv", 0.1, "bfloat16", 4),
+               ("pallas", 0.0, "bfloat16", 4), ("pallas", 0.1, "float32", 4),
+               ("pallas", 0.0, "float32", 4), ("pallas_qkv", 0.1, "float32", 4),
+               ("pallas", 0.1, "bfloat16", 3), ("pallas_qkv", 0.1, "bfloat16", 3),
+               ("pallas", 0.0, "bfloat16", 3))
+
+
+def route_kernels(attention: str, dropout: bool, n: int, dtype):
+    """The attention kernels a model on ``attention`` runs at N tokens and
+    ``Dh`` 32 in ``dtype``: ``(forward, backward)`` launch keys (the
+    whole-head bf16 kernels where a head fits, the streaming ones past it and
+    in float32)."""
+    from eavit_tpu_torch.ops import flash as fl
+    from eavit_tpu_torch.ops import flash_dropout as fd
+    from eavit_tpu_torch.ops import flash_qkv as fq
+
+    if attention == "pallas_qkv":
+        return fq.fwd_kernel(n, 32, dtype), fq.bwd_kernel(n, 32, dtype)
+    if dropout:
+        return "flash_dropout_fwd", fd.bwd_kernel(n, 32, dtype)
+    return "flash_fwd", fl.bwd_kernel(n, 32, dtype)
+
+
 def patch4_other_routes(torch, mods, dev):
-    """At patch 4 (N = 443 shared) the bf16 backward kernels of ``pallas``
-    (K3b, and K4b at dropout 0) and ``pallas_qkv`` (K1b) hold the head as
-    bf16 and fit, as do the forwards: one minibatch step of 4 frames on each
-    route must give finite gradients, through the route's kernels (depth 3:
-    three launches of each)."""
+    """One minibatch step of 4 frames on ``pallas`` and ``pallas_qkv`` at the
+    long sequences of ``ROUTE_STEPS`` (float32 patch 4, on both routes and
+    at dropout 0.1 and 0 on ``pallas``; bf16 patch 4 and patch 3): finite
+    gradients, through the route's kernels at that length (depth 3: three
+    launches of each). Returns the launches of all the steps together."""
     import dataclasses
 
     from eavit_tpu_torch.models.layers import Rng
@@ -1271,9 +1295,10 @@ def patch4_other_routes(torch, mods, dev):
 
     n = 4
     batch = TrainBatch(**{k: v.to(dev) for k, v in host_batch(torch, n).items()})
-    for attention, dropout in (("pallas", 0.1), ("pallas_qkv", 0.1), ("pallas", 0.0)):
-        cfg = flagship_cfg(True, attention)
-        agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=4,
+    total = {}
+    for attention, dropout, dtype, patch in ROUTE_STEPS:
+        cfg = flagship_cfg(True, attention).replace(compute_dtype=dtype)
+        agent = RNDAgent(cfg.replace(vit=dataclasses.replace(cfg.vit, patch_size=patch,
                                                              dropout=dropout)), 5)
         agent.init_state(SEED)
         torch.cuda.synchronize()
@@ -1285,78 +1310,211 @@ def patch4_other_routes(torch, mods, dev):
         grads = [p.grad for p in agent.trainable_parameters() if p.grad is not None]
         finite = bool(torch.isfinite(loss).item()) and all(
             torch.isfinite(t).all().item() for t in grads)
-        fwd, (bwd,) = attention_kernels(attention, dropout > 0)
+        tokens = (84 // patch) ** 2 + 2
+        fwd, bwd = route_kernels(attention, dropout > 0, tokens, getattr(torch, dtype))
         expect = {fwd: DEPTH, bwd: DEPTH, "fused_ffn_fwd": DEPTH, "fused_ffn_bwd": DEPTH}
-        what = f"patch 4 on {attention}, dropout {dropout}"
-        log("patch4_route", attention=attention, compute_dtype=cfg.compute_dtype,
-            dropout=dropout, tokens=443, loss=float(loss.detach()), finite=finite,
+        for k_, c in counts.items():
+            total[k_] = total.get(k_, 0) + c
+        what = f"patch {patch} ({tokens} tokens) on {attention}, {dtype}, dropout {dropout}"
+        log("patch4_route", attention=attention, compute_dtype=dtype, dropout=dropout,
+            patch=patch, tokens=tokens, loss=float(loss.detach()), finite=finite,
             grad_tensors=len(grads), launches=counts, expected_launches=expect)
         check(finite and len(grads) > 0, f"{what}: finite gradients")
         check_counts(counts, expect, f"{what}: one minibatch step")
+        del agent, loss, grads
+        torch.cuda.empty_cache()
+    return total
 
 
-def limit_phase(torch, fq, fl, fd, dev):
-    """Each kernel's limit on N at ``Dh`` 32, bf16 and float32: at the
-    longest N that fits in shared memory the wrapper launches its kernel once
-    and matches the plain version; one token more raises before any launch,
-    naming the streaming route that takes any N."""
-    h, dh, seeds, rate, ns = 2, 32, KERNEL_SEEDS, 0.1, 2
+def stream_flagship_phase(torch, fq, fl, fd, dev):
+    """The streaming kernels of K1f, K1b, K3b and K4b at the flagship shapes,
+    where the wrappers run the whole-head kernels: held to the plain version
+    (one bf16 rounding) and timed beside the bound, the plain version and
+    SDPA with the same mask (its backward for a backward kernel), so that
+    both kernels of each function have their times from one call. K1f at the
+    act and minibatch shapes, rate 0.1 and 0; the backward kernels at the
+    minibatch, K1b at rate 0.1 and 0, K3b at 0.1."""
+    import torch.nn.functional as F
+
+    from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+    h, dh, n, ns, seeds = 8, 32, 198, 2, KERNEL_SEEDS
     scale = dh ** -0.5
-    mods = {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}
-
-    def calls(name, n, dtype):
-        g = torch.Generator().manual_seed(n)
-        q, k, v, do = (torch.randn(1, h, n, dh, generator=g).to(dev, dtype) for _ in range(4))
-        if name.startswith("flash_qkv"):
-            qkv = torch.cat([t.transpose(1, 2).reshape(1, n, h * dh) for t in (q, k, v)], -1)
-            gm = do.transpose(1, 2).reshape(1, n, h * dh).contiguous()
+    rows = {}
+    for use, b in (("act", NUM_ENVS), ("train", MB_FRAMES)):
+        g = torch.Generator().manual_seed(b + n + 7)
+        q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16)
+                       for _ in range(4))
+        merged = lambda t: t.transpose(1, 2).reshape(b, n, h * dh).contiguous()  # noqa: E731
+        qkv, gm = torch.cat([merged(t) for t in (q, k, v)], -1), merged(do)
+        mask = dual_query_allowed(n, n, ns, dev)
+        numel, bhn = q.numel(), b * h * n
+        nn_flops = 2.0 * b * h * allowed_pairs(n, ns) * dh
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 20)
+        calls = {}
+        for rate in (0.0, 0.1):
             args = (h, dh, scale, ns, seeds, rate)
-            lse = fq.flash_qkv_fwd_plain(qkv, *args)[1]
-            return {"flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args),
-                                      lambda: fq.flash_qkv_fwd_plain(qkv, *args)),
-                    "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse, gm, *args),),
-                                      lambda: (fq.flash_qkv_bwd_plain(qkv, lse, gm, *args),))
-                    }[name]
-        if name.startswith("flash_dropout"):
-            lse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)[1]
-            bargs = (q, k, v, lse, do, seeds, rate, scale, ns)
-            return {"flash_dropout_fwd": (
-                        lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
-                        lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)),
-                    "flash_dropout_bwd": (lambda: fd.flash_dropout_bwd(*bargs),
-                                          lambda: fd.flash_dropout_bwd_plain(*bargs))}[name]
-        o, lse = fl.flash_fwd_plain(q, k, v, scale, ns)
-        return {"flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
-                              lambda: fl.flash_fwd_plain(q, k, v, scale, ns)),
-                "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, ns),
-                              lambda: fl.flash_bwd_plain(q, k, v, o, lse, do, scale, ns))}[name]
-
-    out = {}
-    for name, smem in smem_fns(fq, fl, fd).items():
-        mod = mods[name.rsplit("_", 1)[0]]
-        for dtype in (torch.bfloat16, torch.float32):
-            n = first_n_past(smem, dh, dtype)
-            call, plain = calls(name, n - 1, dtype)
-            got, want = once(mod, name, call), plain()
+            calls[("flash_qkv_fwd_stream", rate)] = (
+                fq, lambda args=args: fq.flash_qkv_fwd(qkv, *args, kernel="stream"),
+                lambda args=args: fq.flash_qkv_fwd_plain(qkv, *args), 4 * 2 * numel + 4 * bhn,
+                2, lib_fwd)
+        if use == "train":
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, leaves, do, retain_graph=True), 10)
+            del o_lib, leaves
+            for rate in (0.0, 0.1):
+                args = (h, dh, scale, ns, seeds, rate)
+                lse1 = fq.flash_qkv_fwd(qkv, *args)[1]
+                calls[("flash_qkv_bwd_stream", rate)] = (
+                    fq, lambda a=args, l1=lse1: (fq.flash_qkv_bwd(qkv, l1, gm, *a, kernel="stream"),),
+                    lambda a=args, l1=lse1: (fq.flash_qkv_bwd_plain(qkv, l1, gm, *a),),
+                    7 * 2 * numel + 4 * bhn, 5, lib_bwd)
+            lse3 = fd.flash_dropout_fwd(q, k, v, seeds, 0.1, scale, ns)[1]
+            bargs = (q, k, v, lse3, do, seeds, 0.1, scale, ns)
+            calls[("flash_dropout_bwd_stream", 0.1)] = (
+                fd, lambda: fd.flash_dropout_bwd(*bargs, kernel="stream"),
+                lambda: fd.flash_dropout_bwd_plain(*bargs), 7 * 2 * numel + 4 * bhn, 5, lib_bwd)
+            o4, lse4 = fl.flash_fwd(q, k, v, scale, ns)
+            calls[("flash_bwd_stream", 0.0)] = (
+                fl, lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns, kernel="stream"),
+                lambda: fl.flash_bwd_plain(q, k, v, o4, lse4, do, scale, ns),
+                8 * 2 * numel + 4 * bhn, 5, lib_bwd)
+        for (name, rate), (mod, call, plain, nbytes, products, lib) in calls.items():
+            got = once(mod, name, call)
+            want = plain()
             torch.cuda.synchronize()
-            big = max(t.float().abs().max().item() for t in want)
-            tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
-            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            del got, want
-            call, _ = calls(name, n, dtype)
-            launched, raised = mod.launches[name], ""
-            try:
-                call()
-            except ValueError as e:
-                raised = str(e)
+            outs, refs = (got[:-1], want[:-1]) if name.startswith("flash_qkv_fwd") else (got, want)
+            big = max(t.float().abs().max().item() for t in refs)
+            tol = 1e-2 + 8e-3 * big
+            err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, call()))
+            del got, want, outs, refs
+            bms, by = bound_ms(nbytes, products * nn_flops, "bfloat16")
+            rows[(name, use, rate)] = row = dict(
+                kernel=name, use=use, b=b, h=h, n=n, dim_head=dh, num_special=ns, rate=rate,
+                dtype="bfloat16", max_abs_err=err, tol=tol, deterministic=same,
+                ms=time_ms(torch, call, 20), plain_ms=time_ms(torch, plain, 2, warmup=1),
+                library_ms=lib, bound_ms=bms, bound_by=by)
+            log("kernel", **row)
+            check(err <= tol and same, f"{name} {row}")
+        del q, k, v, do, qkv, gm, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def stream_kernel(name: str) -> str:
+    """The launch key of a function's streaming kernel: K1f, K1b, K3b and K4b
+    have a whole-head kernel beside it, K3f and K4f only the streaming one."""
+    two = ("flash_qkv_fwd", "flash_qkv_bwd", "flash_dropout_bwd", "flash_bwd")
+    return name + "_stream" if name in two else name
+
+
+# [B, H, Dh] at the long sequences of patch 3 (N = 786) and patch 2 (1,766)
+LONG_N = (786, 1766)
+LONG_BHD = (16, 8, 32)
+
+
+def long_n_phase(torch, fq, fl, fd, dev):
+    """Each of the six attention functions of K1, K3 and K4 on its streaming
+    kernel, in bf16 and float32, launched once at ``[16, 8, N, 32]`` for N =
+    786 and 1,766 and held to its plain version (one bf16 rounding of each
+    output, or 1e-4 of its scale in float32; lse within 1e-4); timed beside
+    the bytes bound, the plain version and, in bf16, SDPA with the same mask
+    at rate 0 (its backward for a backward kernel); with each kernel's shared
+    memory, a function of Dh and the dtype alone."""
+    import torch.nn.functional as F
+
+    from eavit_tpu_torch.ops.attention import dual_query_allowed
+
+    b, h, dh = LONG_BHD
+    ns, seeds, rate, scale = 2, KERNEL_SEEDS, 0.1, dh ** -0.5
+    smem = {"flash_qkv_fwd": lambda dt: [fq.fwd_smem(dh, dt)],
+            "flash_qkv_bwd": lambda dt: list(fq.bwd_smem(dh, dt)),
+            "flash_fwd": lambda dt: [fl.fwd_smem(dh, dt)],
+            "flash_bwd": lambda dt: list(fl.bwd_smem(dh, dt)),
+            "flash_dropout_fwd": lambda dt: [fd.fwd_smem(dh, dt)],
+            "flash_dropout_bwd": lambda dt: list(fd.bwd_smem(dh, dt))}
+    mods = {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}
+    rows = {}
+    for n in LONG_N:
+        pair_flops = 2.0 * b * h * allowed_pairs(n, ns) * dh  # one [N, N] x [N, Dh] product
+        mask = dual_query_allowed(n, n, ns, dev)
+        for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
-            out[f"{name} {dname}"] = row = dict(
-                longest_n=n - 1, max_abs_err=err, tol=tol, raised_at=n,
-                error=raised, launches_past_limit=mod.launches[name] - launched)
-            check(err <= tol and "shared memory" in raised and "pallas_stream" in raised
-                  and mod.launches[name] == launched, f"{name} {dname} at its limit: {row}")
-    log("n_limits", dim_head=dh, **out)
-    return out
+            g = torch.Generator().manual_seed(n)
+            q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, dtype)
+                           for _ in range(4))
+            numel, esize, bhn = q.numel(), q.element_size(), b * h * n
+            merged = lambda t: t.transpose(1, 2).reshape(b, n, h * dh).contiguous()  # noqa: E731
+            qkv, gm = torch.cat([merged(t) for t in (q, k, v)], -1), merged(do)
+            args = (h, dh, scale, ns, seeds, rate)
+            lse1 = fq.flash_qkv_fwd(qkv, *args)[1]
+            o4, lse4 = fl.flash_fwd(q, k, v, scale, ns)
+            lse3 = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)[1]
+            fwd_bytes, bwd_bytes = 4 * numel * esize + 4 * bhn, 7 * numel * esize + 4 * bhn
+            calls = {  # kernel -> (call, plain call, bytes moved, products)
+                "flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args, kernel="stream"),
+                                  lambda: fq.flash_qkv_fwd_plain(qkv, *args), fwd_bytes, 2),
+                "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse1, gm, *args,
+                                                            kernel="stream"),),
+                                  lambda: (fq.flash_qkv_bwd_plain(qkv, lse1, gm, *args),),
+                                  bwd_bytes, 5),
+                "flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
+                              lambda: fl.flash_fwd_plain(q, k, v, scale, ns), fwd_bytes, 2),
+                "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns,
+                                                   kernel="stream"),
+                              lambda: fl.flash_bwd_plain(q, k, v, o4, lse4, do, scale, ns),
+                              bwd_bytes + numel * esize, 5),
+                "flash_dropout_fwd": (
+                    lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
+                    lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns),
+                    fwd_bytes, 2),
+                "flash_dropout_bwd": (
+                    lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, rate, scale, ns,
+                                                 kernel="stream"),
+                    lambda: fd.flash_dropout_bwd_plain(q, k, v, lse3, do, seeds, rate, scale,
+                                                       ns),
+                    bwd_bytes, 5),
+            }
+            lib = {"fwd": None, "bwd": None}
+            if dtype == torch.bfloat16:  # yardsticks: SDPA with the same mask, rate 0
+                lib["fwd"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), 10)
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+                lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, leaves, do, retain_graph=True), 10)
+                del o_lib, leaves
+            for name, (call, plain, nbytes, products) in calls.items():
+                mod = mods[name.rsplit("_", 1)[0]]
+                name = stream_kernel(name)
+                got = once(mod, name, call)
+                want = plain()
+                torch.cuda.synchronize()
+                fwd = name.endswith("fwd")
+                outs, refs = (got[:-1], want[:-1]) if fwd else (got, want)
+                big = max(t.float().abs().max().item() for t in refs)
+                tol = 1e-2 + 8e-3 * big if dtype == torch.bfloat16 else 1e-4 * max(1.0, big)
+                err = max((a.float() - r.float()).abs().max().item() for a, r in zip(outs, refs))
+                lse_err = (got[-1] - want[-1]).abs().max().item() if fwd else 0.0
+                del got, want, outs, refs
+                bms, by = bound_ms(nbytes, products * pair_flops, dname)
+                rows[(name, n, dname)] = row = dict(
+                    kernel=name, b=b, h=h, n=n, dim_head=dh, num_special=ns, dtype=dname,
+                    rate=0.0 if name in ("flash_fwd", "flash_bwd") else rate,
+                    max_abs_err=err, tol=tol, lse_err=lse_err, lse_tol=1e-4,
+                    ms=time_ms(torch, call, 5), plain_ms=time_ms(torch, plain, 2, warmup=1),
+                    library_ms=lib["fwd" if fwd else "bwd"], bound_ms=bms, bound_by=by,
+                    smem_bytes=smem[name.removesuffix("_stream")](dtype))
+                check(err <= tol and lse_err <= 1e-4, f"{name} at N = {n}: {row}")
+            del q, k, v, do, qkv, gm, lse1, o4, lse4, lse3, calls
+            torch.cuda.empty_cache()
+    log("long_n", shape=[*LONG_BHD[:2], "N", dh], n=list(LONG_N),
+        kernels={f"{k[0]} {k[2]} N={k[1]}": r for k, r in rows.items()})
+    return rows
 
 
 SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
@@ -1374,6 +1532,10 @@ SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
     "flash_stream_fwd": ("flash_stream", "eavit_tpu/ops/flash_stream.py:159"),
     "flash_stream_dq": ("flash_stream", "eavit_tpu/ops/flash_stream.py:285"),
     "flash_stream_dkv": ("flash_stream", "eavit_tpu/ops/flash_stream.py:304"),
+    "flash_qkv_fwd_stream": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
+    "flash_qkv_bwd_stream": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
+    "flash_bwd_stream": ("flash", "eavit_tpu/ops/flash.py:217"),
+    "flash_dropout_bwd_stream": ("flash_dropout", "eavit_tpu/ops/flash_dropout.py:254"),
 }
 
 
@@ -1428,10 +1590,13 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln]
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     report = ptxas_report(build_log)
-    mma = {name: mma_ptxas(report, src) for name, src in (
-        ("flash_qkv_fwd", "flash_qkv.cu"), ("flash_qkv_bwd", "flash_qkv_bwd.cu"),
-        ("flash_bwd", "flash.cu"), ("flash_dropout_bwd", "flash_dropout.cu"))}
-    log("ptxas", kernels="tensor-core templates (attn_fwd_mma.cuh, attn_bwd_mma.cuh)", **mma)
+    mma = {name: mma_ptxas(report, src, kind) for name, src, kind in (
+        ("flash_qkv_fwd", "flash_qkv.cu", "fwd"), ("flash_qkv_bwd", "flash_qkv_bwd.cu", "bwd"),
+        ("flash_fwd", "flash.cu", "fwd"), ("flash_bwd", "flash.cu", "bwd"),
+        ("flash_dropout_fwd", "flash_dropout.cu", "fwd"),
+        ("flash_dropout_bwd", "flash_dropout.cu", "bwd"))}
+    log("ptxas", kernels="tensor-core templates (attn_fwd_mma.cuh, attn_bwd_mma.cuh and "
+        "their whole-head forms attn_fwd_head.cuh, attn_bwd_head.cuh)", **mma)
     if build_log:  # empty when a build directory without its log was reused
         check(all(mma.values()), "ptxas reported no tensor-core kernel")
         spills = {f"{k} {v}": i for k, d in mma.items() for v, i in d.items()
@@ -1442,7 +1607,8 @@ def main() -> int:
     rows.update(train_kernel_phase(torch, fq, ff, dev))
     rows.update(flash_kernel_phase(torch, fl, fd, fq, kernel_prng, dev))
     rows.update(stream_kernel_phase(torch, fs, fl, dev))
-    limit_phase(torch, fq, fl, fd, dev)
+    stream_rows = stream_flagship_phase(torch, fq, fl, fd, dev)
+    long_rows = long_n_phase(torch, fq, fl, fd, dev)
     act_launches = main_path(torch, mods, dev, shared=True)
     main_path(torch, mods, dev, shared=False)
     pallas_act = main_path(torch, mods, dev, shared=True, attention="pallas")
@@ -1472,7 +1638,7 @@ def main() -> int:
         # other routes take one minibatch step below)
         run("stream_patch4", shared=True, epochs=1, updates=1, attention="pallas_stream",
             vit=dict(patch_size=4))
-    patch4_other_routes(torch, mods, dev)
+    route_launches = patch4_other_routes(torch, mods, dev)
 
     # the kernels of the flagship iteration (shared stream): launch counts of
     # the training runs that use them, times at the acting shape ("ms" of the
@@ -1485,7 +1651,7 @@ def main() -> int:
                 "flash_dropout_fwd": pallas_launches["flash_dropout_fwd"]}
     kernels = [
         kernel_entry("flash_qkv_fwd", rows[("flash_qkv_fwd", "act", 198, 0.1)],
-                     train_launches["flash_qkv_fwd"], header="attn_fwd_mma.cuh",
+                     train_launches["flash_qkv_fwd"], header="attn_fwd_head.cuh",
                      ptxas=mma["flash_qkv_fwd"],
                      act_launches_per_rollout=act_launches["flash_qkv_fwd"],
                      train_shape_ms=k1f_train["ms"], train_shape_plain_ms=k1f_train["plain_ms"],
@@ -1493,7 +1659,7 @@ def main() -> int:
                      train_shape_library_ms=k1f_train["library_ms"],
                      train_shape_rate0_ms=rows[("flash_qkv_fwd", "train", 198, 0.0)]["ms"]),
         kernel_entry("flash_qkv_bwd", rows[("flash_qkv_bwd", 198, 0.1)],
-                     train_launches["flash_qkv_bwd"], header="attn_bwd_mma.cuh",
+                     train_launches["flash_qkv_bwd"], header="attn_bwd_head.cuh",
                      ptxas=mma["flash_qkv_bwd"]),
         kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
         kernel_entry("fused_ffn_fwd", rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
@@ -1507,18 +1673,20 @@ def main() -> int:
         # K4 runs on the pallas route at dropout 0 (and in evaluate); K3 while
         # dropout is live
         *(kernel_entry(name, rows[(name, "act", 198, "bfloat16")], launched[name],
+                       header="attn_fwd_mma.cuh", ptxas=mma[name],
                        train_shape_ms=train_ms(name),
                        train_shape_library_ms=train_ms(name, key="library_ms"),
+                       train_shape_bound_ms=train_ms(name, key="bound_ms"),
+                       stacked_train_shape_ms=train_ms(name, n=197),
                        **({"act_launches_per_rollout": pallas_act[name]}
                           if name == "flash_dropout_fwd" else {}))
           for name in ("flash_fwd", "flash_dropout_fwd")),
         kernel_entry("flash_bwd", rows[("flash_bwd", "train", 198, "bfloat16")],
-                     zero_launches["flash_bwd"], header="attn_bwd_mma.cuh",
+                     zero_launches["flash_bwd"], header="attn_bwd_head.cuh",
                      ptxas=mma["flash_bwd"],
-                     stacked_train_shape_ms=train_ms("flash_bwd", n=197),
-                     patch4_train_shape_ms=train_ms("flash_bwd", "train_patch4", 443)),
+                     stacked_train_shape_ms=train_ms("flash_bwd", n=197)),
         kernel_entry("flash_dropout_bwd", rows[("flash_dropout_bwd", "train", 198, "bfloat16")],
-                     pallas_launches["flash_dropout_bwd"], header="attn_bwd_mma.cuh",
+                     pallas_launches["flash_dropout_bwd"], header="attn_bwd_head.cuh",
                      ptxas=mma["flash_dropout_bwd"]),
         kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
                      pallas_launches["flash_dropout_bits"]),
@@ -1534,6 +1702,32 @@ def main() -> int:
                        patch4_train_shape_ms=train_ms(name, "train_patch4", 443))
           for name in ("flash_stream_dq", "flash_stream_dkv")),
     ]
+    # the streaming kernels beside the whole-head ones: their launches come
+    # from the long-sequence minibatch steps (patch 3 in bf16, patch 4 in
+    # float32), their times from the flagship shapes (K1f at the act shape)
+    stream_header = {"flash_qkv_fwd_stream": ("attn_fwd_mma.cuh", "flash_qkv_fwd")}
+    for name, use, rate in (("flash_qkv_fwd_stream", "act", 0.1),
+                            ("flash_qkv_bwd_stream", "train", 0.1),
+                            ("flash_bwd_stream", "train", 0.0),
+                            ("flash_dropout_bwd_stream", "train", 0.1)):
+        header, of = stream_header.get(name, ("attn_bwd_mma.cuh", name.removesuffix("_stream")))
+        extra = {"train_shape_ms": stream_rows[(name, "train", 0.1)]["ms"],
+                 "train_shape_rate0_ms": stream_rows[(name, "train", 0.0)]["ms"],
+                 "train_shape_library_ms": stream_rows[(name, "train", 0.1)]["library_ms"]} \
+            if name == "flash_qkv_fwd_stream" else {}
+        if name == "flash_qkv_bwd_stream":
+            extra = {"rate0_ms": stream_rows[(name, "train", 0.0)]["ms"]}
+        if name in ("flash_bwd_stream", "flash_dropout_bwd_stream"):  # patch 4 runs these
+            extra = {"patch4_train_shape_ms": train_ms(of, "train_patch4", 443)}
+        kernels.append(kernel_entry(name, stream_rows[(name, use, rate)],
+                                    route_launches.get(name, 0), header=header,
+                                    ptxas=mma[of], launches_from="long-sequence minibatch steps",
+                                    **extra))
+    for entry in kernels:  # K1, K3 and K4 at the long sequences, bf16 and float32
+        key = entry["name"]  # the streaming kernels' own rows
+        if (key, LONG_N[0], "bfloat16") in long_rows:
+            entry["long_n_ms"] = {f"{d} N={n}": long_rows[(key, n, d)]["ms"]
+                                  for n in LONG_N for d in ("bfloat16", "float32")}
     by_name = {k["name"]: k for k in kernels}
     log_split("pallas_qkv", timing, {n: by_name[n].get("train_shape_ms", by_name[n]["ms"])
                                      for n in ("flash_qkv_fwd", "fused_ffn_fwd",

@@ -1,9 +1,10 @@
-// Attention backward on Hopper's tensor cores, for bf16 inputs: the template
-// of K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection), K3b
-// (csrc/flash_dropout.cu, on [B, H, N, Dh] with probability dropout) and K4b
-// (csrc/flash.cu, on [B, H, N, Dh], no dropout, delta from the forward's O).
-// Their float32 instantiations keep the CUDA-core code of flash_qkv_bwd.cu
-// and flash_attn.cuh, whose products stay in float32 as the JAX kernels' do.
+// Attention backward on Hopper's tensor cores for bf16 inputs, in two kernels
+// that stream their operands so that no buffer grows with N: the template of
+// K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection), K3b
+// (csrc/flash_dropout.cu, on [B*H, N, Dh] with probability dropout) and K4b
+// (csrc/flash.cu, on [B*H, N, Dh], no dropout, delta from the forward's O).
+// Their float32 forms run on flash_stream.cuh's CUDA-core template, whose
+// products stay in float32 as the JAX kernels' do.
 //
 // What it computes, per batch row b and head h (lse from the forward):
 //   s      = q k^T * scale (f32), the dual-query mask when num_special > 0
@@ -30,33 +31,33 @@
 // q, k, v and dO are bf16 already and enter as they are.
 //
 // What bounds it on an H100: bytes (183 MB at the flagship minibatch [256, 8,
-// 198, 32], 0.055 ms; K4b also reads O), then the mask: 20 M Philox calls of
-// ~100 integer operations each. The design keeps everything but the inputs
-// and the three gradients on chip: one block per (b, h) holds the head's q,
-// k, v and dO in shared memory as bf16 (rows padded by 16 bytes so that
-// ldmatrix reads without bank conflicts; N padded to a multiple of 16 with
-// zero rows), about 73 KB at N = 198, Dh = 32. Three passes, each warp
-// owning one 16-row tile per step, so that every output has one owner and
-// every sum a fixed order (no float atomics; equal bits twice):
-//   0. all warps draw the head's keep bits into a bitmap in the mask's own
-//      element order, while cp.async brings the operands (draw_keep_chunk,
-//      mma_common.cuh: every group of four is drawn once however rows and
-//      groups fall; N = 198 and 197 start rows at other offsets mod 4). K4b
-//      instead sums delta from O, read once from global memory, and dO in
-//      shared memory;
-//   1. rows, one warp per 16-query tile: S = Q K^T and dP = dO V^T by mma
-//      over 16-key tiles, sigma, dsigma and rowsum with quad shuffles; then a
-//      second sweep recomputes S and dP, forms ds and feeds it straight from
-//      the accumulators as the A operand of dQ += dS K (the FlashAttention-2
-//      register re-pack), and writes dq. K4b has delta already and takes
-//      only the second sweep;
-//   2. columns, one warp per 16-key tile: S^T = K Q^T and dP^T = V dO^T, so
-//      that pd^T and ds^T come out in the accumulator layout and feed
-//      dV += pd^T dO and dK += ds^T Q as A operands from registers.
-// That is nine N^2 Dh products for K1b (the row sweep that sums rowsum before
-// any ds exists costs two), twelve mmas' worth for K3b, ten for K4b. B
-// operands come from shared memory by ldmatrix (.trans where the token axis
-// is the product's depth). See PERF.md for the measured times.
+// 198, 32], 0.055 ms; K4b also reads O), then the mask: one Philox call of
+// ~100 integer operations per four elements, drawn in each pass that needs
+// it. The split is FlashAttention-2's, as K5q and K5kv split pallas_stream:
+//   dq kernel, one block of kBwdWarps warps per (b, h, chunk of kBwdWarps x 16
+//     query rows), each warp owning one 16-row tile; the chunk's Q and dO in
+//     shared memory, K and V streamed in tiles of kBwdKeys rows through a
+//     double buffer (cp.async). Sweep 0 (K1b, K3b) recomputes S = Q K^T and
+//     dP = dO V^T by mma and sums rowsum with quad shuffles; K4b sums delta
+//     from O instead. Either is written to a [B, H, N] f32 scratch for the
+//     dk/dv kernel. Sweep 1 recomputes S and dP, forms ds and feeds it
+//     straight from the accumulators as the A operand of dQ += dS K (the
+//     FlashAttention-2 register re-pack), and writes dq.
+//   dk/dv kernel, one block per (b, h, chunk of kBwdWarps x 16 keys), each
+//     warp owning 16 keys; the chunk's K and V in shared memory, Q and dO
+//     streamed in tiles with their lse and rowsum (or delta). It forms S^T =
+//     K Q^T and dP^T = V dO^T, so that pd^T and ds^T come out in the
+//     accumulator layout and feed dV += pd^T dO and dK += ds^T Q as A
+//     operands from registers.
+// Every output has one owner and every sum a fixed order: no float atomics,
+// equal bits twice. Shared memory is (2 x kBwdWarps x 16 + 4 kBwdKeys) rows of
+// Dh + 8 bf16 (the dk/dv kernel also 4 kBwdKeys floats), whatever N is: 30 KB
+// at Dh 32. The mask is drawn in registers where it is used (mma_common.cuh):
+// the dq kernel's quads draw the next four groups of their rows for each
+// 16-key step (keep_rows_step), the dk/dv kernel's the four or five groups of the
+// 16 keys of each query row of a block and hand them across the warp
+// (keep_block_t). B operands come from shared memory by ldmatrix (.trans
+// where the token axis is the product's depth). See PERF.md for the times.
 #pragma once
 
 #include <cstdint>
@@ -65,19 +66,21 @@
 
 namespace {
 
-// Warps of a block, each owning one 16-row tile at a time, and blocks per SM
-// that the register budget must allow at Dh <= 32 (80 registers a thread:
-// three blocks of 73 KB fit beside each other at N = 198). The A fragments of
-// a warp's own tile are reloaded by ldmatrix at every step rather than held,
-// which is what keeps the kernels inside 80 registers without spills
-// (tune_attn_bwd.py measures these choices).
-constexpr int kMmaWarps = 8;
-constexpr int kMinBlocks = 3;
+// Warps of a block, each owning one 16-row tile (query rows in the dq kernel,
+// keys in the dk/dv kernel), keys or queries of a streamed tile, and blocks
+// per SM that the register budget must allow at Dh <= 32 (128 registers).
+// The A fragments of a warp's own tile are reloaded by ldmatrix at every
+// step rather than held. tune_attn_bwd.py measures these choices: eight
+// warps at 80 registers spilled up to 84 bytes; at [16, 8, 786, 32] eight
+// warps x two blocks ran 1.05x slower than this, 128-key tiles no faster.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdKeys = 64;
+constexpr int kBwdMinBlocks = 4;
 
 // Operand layout of one kernel: element (b, h, token t, dim d) of q, k, v, dq,
 // dk and dv sits at ptr + b*x_batch + h*x_head + t*x_tok + d; of dO (and O)
 // with the g_ strides. K1b: the merged qkv [B, N, 3*H*Dh]; K3b and K4b:
-// [B*H, N, Dh] with H = 1.
+// [B*H, N, Dh] with H = 1. lse and rowterm are [B, H, N].
 struct MmaBwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -87,7 +90,8 @@ struct MmaBwdArgs {
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  const float* lse;  // [B, H, N]
+  const float* lse;
+  float* rowterm;  // rowsum or delta: written by the dq kernel, read by the dk/dv kernel
   long long x_batch, x_head, x_tok;
   long long g_batch, g_head, g_tok;
   int B, H, N;
@@ -98,15 +102,15 @@ struct MmaBwdArgs {
   uint32_t s0, s1;
 };
 
-// Words of the head's keep bitmap
-__host__ __device__ constexpr int mma_bit_words(int n) {
-  return keep_bit_words(static_cast<long long>(n) * n);
+// shared memory of one block of either kernel: its chunk's two operands and
+// two double-buffered streamed ones (the dk/dv kernel adds the streamed rows'
+// lse and rowterm)
+constexpr size_t mma_dq_smem_bytes(int DH) {
+  return static_cast<size_t>(2 * kBwdWarps * 16 + 4 * kBwdKeys) * mma_ld(DH) *
+         sizeof(__nv_bfloat16);
 }
-
-size_t mma_bwd_smem_bytes(int N, int DH, bool dropout) {
-  const size_t np = mma_pad16(N);
-  return 4 * np * mma_ld(DH) * sizeof(__nv_bfloat16) + 2 * np * sizeof(float) +
-         (dropout ? mma_bit_words(N) * sizeof(uint32_t) : 0);
+constexpr size_t mma_dkv_smem_bytes(int DH) {
+  return mma_dq_smem_bytes(DH) + 4 * kBwdKeys * sizeof(float);
 }
 
 // s[2] (16 x 16) = A (16 x DH) * Y[tok0 .. tok0+15]^T, and p[2] likewise with
@@ -150,251 +154,334 @@ __device__ __forceinline__ void probs(float s, float dp, float lse2, bool valid,
   }
 }
 
+// The block's (b, h) and chunk: blockIdx.x = bh * chunks + chunk
+__device__ __forceinline__ void block_chunk(const MmaBwdArgs& a, int& bh, int& c0) {
+  const int chunks = (a.N + kBwdWarps * 16 - 1) / (kBwdWarps * 16);
+  bh = blockIdx.x / chunks;
+  c0 = (blockIdx.x % chunks) * (kBwdWarps * 16);
+}
+
 // The block's offset into q, k, v and their gradients, recomputed where the
-// gradients are written: a value the compiler kept across the passes cost
-// K4b a spill at Dh 32 (the volatile read of ctaid stops it from hoisting)
+// gradients are written: a value the compiler kept across the loop cost a
+// spill (the volatile read of ctaid stops it from hoisting)
 __device__ __forceinline__ long long block_x_offset(const MmaBwdArgs& a) {
-  unsigned bh;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bh));
+  unsigned blk;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(blk));
+  const int chunks = (a.N + kBwdWarps * 16 - 1) / (kBwdWarps * 16);
+  const unsigned bh = blk / chunks;
   return static_cast<long long>(bh / a.H) * a.x_batch +
          static_cast<long long>(bh % a.H) * a.x_head;
 }
 
+// ---- dq: one block per (b, h, chunk of query rows), K and V streamed ----
 template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
-__global__ void __launch_bounds__(kMmaWarps * 32, DH >= 64 ? 1 : kMinBlocks)
-    attn_bwd_mma_kernel(MmaBwdArgs a) {
+__global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
+    attn_dq_mma_kernel(MmaBwdArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8;
+  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8, KT = kBwdKeys;
+  constexpr int ROWS = kBwdWarps * 16;
   extern __shared__ float4 smem4[];
-  const int N = a.N, Np = mma_pad16(N), T = Np / 16;
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [Np][LD] each
-  bf16* ks = qs + Np * LD;
-  bf16* vs = ks + Np * LD;
-  bf16* gs = vs + Np * LD;
-  float* ls = reinterpret_cast<float*>(gs + Np * LD);  // [Np] lse * log2(e)
-  float* rs = ls + Np;                                 // [Np] rowsum or delta
-  uint32_t* bits = reinterpret_cast<uint32_t*>(rs + Np);  // mma_bit_words(N), dropout only
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [ROWS][LD]
+  bf16* gs = qs + ROWS * LD;                  // [ROWS][LD] dO
+  bf16* ks = gs + ROWS * LD;                  // [2][KT][LD]
+  bf16* vs = ks + 2 * KT * LD;                // [2][KT][LD]
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  int bh, q0;
+  block_chunk(a, bh, q0);
+  const int N = a.N, T = (N + KT - 1) / KT;
+  const int b = bh / a.H, h = bh % a.H;
   const long long xo = b * a.x_batch + h * a.x_head, go = b * a.g_batch + h * a.g_head;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int i0 = q0 + warp * 16;
+  const bool active = i0 < N;  // warp-uniform: a tile past N only loads and syncs
+  const int rows[2] = {i0 + g, i0 + g + 8};
+  const bool live[2] = {rows[0] < N, rows[1] < N};
+  constexpr int SWEEPS = DELTA_FROM_O ? 1 : 2;  // sweep 0 sums rowsum
 
-  // ---- operands by cp.async, zero rows past N ----
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int c = tid; c < Np * CH; c += blockDim.x) {
-    const int t = c / CH, d = (c % CH) * 8, so = t * LD + d;
-    if (t < N) {
-      const long long x = xo + t * a.x_tok + d;
-      cp_async16(qs + so, a.q + x);
-      cp_async16(ks + so, a.k + x);
-      cp_async16(vs + so, a.v + x);
-      cp_async16(gs + so, a.g + go + t * a.g_tok + d);
-    } else {
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(qs + so) = z;
-      *reinterpret_cast<uint4*>(ks + so) = z;
-      *reinterpret_cast<uint4*>(vs + so) = z;
-      *reinterpret_cast<uint4*>(gs + so) = z;
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int t = tid; t < Np; t += blockDim.x)
-    ls[t] = t < N ? a.lse[static_cast<long long>(bh) * N + t] * kLog2e : 0.f;
+  auto issue = [&](int s) {
+    const int t = s % T, buf = s & 1;
+    load_rows<DH>(ks + buf * KT * LD, a.k + xo, a.x_tok, t * KT, KT, N);
+    load_rows<DH>(vs + buf * KT * LD, a.v + xo, a.x_tok, t * KT, KT, N);
+    cp_async_commit();
+  };
+  load_rows<DH>(qs, a.q + xo, a.x_tok, q0, ROWS, N);
+  load_rows<DH>(gs, a.g + go, a.g_tok, q0, ROWS, N);
+  issue(0);  // Q and dO ride in the first group
 
-  // ---- keep bits: bit p is element base + p, (i, j) at p = off + i*N + j ----
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const uint64_t e_head = static_cast<uint64_t>(bh) * N * N, base = e_head & ~31ull;
-  const int off = static_cast<int>(e_head - base);
-  if constexpr (DROPOUT) {
-    for (int c = warp; c < mma_bit_words(N) / 4; c += kMmaWarps)
-      draw_keep_chunk(bits, base, c, lane, a.thresh, a.s0, a.s1);
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-
-  if constexpr (DELTA_FROM_O) {
-    // delta_t = sum_d dO[t, d] O[t, d] in f32: CH consecutive lanes share a
-    // row, 8 dims each from one 16-byte load of O (global) and of dO (shared
-    // memory), then a shuffle tree. CH divides 32, so a row's lanes sit in
-    // one warp, and every lane of the block runs every step of the loop.
-    for (int c0 = 0; c0 < Np * CH; c0 += blockDim.x) {
-      const int c = c0 + tid, t = c / CH, d = (c % CH) * 8;
-      float part = 0.f;
-      if (t < N) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(a.o + go + t * a.g_tok + d);
-        const uint4 gv = *reinterpret_cast<const uint4*>(gs + t * LD + d);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+  float l2[2], rterm[2] = {0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
-          part = fmaf(gf.x, of.x, part);
-          part = fmaf(gf.y, of.y, part);
-        }
-      }
+  for (int r = 0; r < 2; ++r)
+    l2[r] = live[r] ? a.lse[static_cast<long long>(bh) * N + rows[r]] * kLog2e : 0.f;
+  float dq[NT][4];
 #pragma unroll
-      for (int m = 1; m < CH; m <<= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
-      if (c % CH == 0 && t < Np) rs[t] = part;
-    }
-    __syncthreads();
-  }
-
+  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
   const float scale2 = a.scale * kLog2e, ik = DROPOUT ? a.inv_keep : 1.f;
   const int ns = a.num_special;
+  const uint64_t e_head = static_cast<uint64_t>(bh) * N * N;
+  uint32_t kcur[2];  // keep bits of the current 16-key step (keep_rows_step)
+  const uint64_t e_row = e_head + static_cast<uint64_t>(rows[0]) * N;  // row g's key 0
 
-  // ---- pass 1: rows -> rowsum, dq ----
-  for (int it = warp; it < T; it += kMmaWarps) {
-    const int i0 = it * 16;
-    const int rows[2] = {i0 + g, i0 + g + 8};
-    const float l2[2] = {ls[rows[0]], ls[rows[1]]};
-    float rsum[2] = {0.f, 0.f};
-    float dq[NT][4];
+  for (int s = 0; s < SWEEPS * T; ++s) {
+    if (s + 1 < SWEEPS * T) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t = s % T, sweep = DELTA_FROM_O ? 1 : s / T;
+    const bf16* kt = ks + (s & 1) * KT * LD;
+    const bf16* vt = vs + (s & 1) * KT * LD;
+    if (active) {
+      if constexpr (DELTA_FROM_O) {
+        if (s == 0) {
+          // delta = sum_d dO * O in f32: lane t4 of quad g sums a quarter of
+          // the dims of rows g and g+8 (O from global memory, dO from shared),
+          // then the quad adds its parts
 #pragma unroll
-    for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-    // sweep 0 sums rowsum (not with delta from O); sweep 1 recomputes the
-    // tiles and forms ds
+          for (int r = 0; r < 2; ++r) {
+            float part = 0.f;
+            if (live[r]) {
+              constexpr int DQ = DH / 4;  // 4, 8 or 16 dims
 #pragma unroll
-    for (int sweep = DELTA_FROM_O ? 1 : 0; sweep < 2; ++sweep) {
-      for (int jt = 0; jt < T; ++jt) {
-        const int j0 = jt * 16;
-        uint32_t qa[KS][4], ga[KS][4];
-        load_a<DH>(qa, qs, i0, lane);
-        load_a<DH>(ga, gs, i0, lane);
-        float s[2][4], p[2][4];
-        two_products<DH>(s, p, qa, ga, ks, vs, j0, lane);
-        // every pair valid: no padding and no dual-query mask in the tile
-        const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
-        uint32_t kw[2] = {~0u, ~0u};  // keep bits of columns j0 .. j0+15
-        if constexpr (DROPOUT) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            kw[r] = rows[r] < N ? keep_window(bits, off + rows[r] * N + j0) : 0u;
+              for (int dd = 0; dd < DQ; dd += 2) {
+                const int d = t4 * DQ + dd;
+                const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    a.o + go + static_cast<long long>(rows[r]) * a.g_tok + d));
+                const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    gs + (warp * 16 + g + 8 * r) * LD + d));
+                part = fmaf(gf.x, of.x, part);
+                part = fmaf(gf.y, of.y, part);
+              }
+            }
+            part += __shfl_xor_sync(0xffffffffu, part, 1);
+            part += __shfl_xor_sync(0xffffffffu, part, 2);
+            rterm[r] = part;
+            if (t4 == 0 && live[r]) a.rowterm[static_cast<long long>(bh) * N + rows[r]] = part;
+          }
         }
+      }
+      if constexpr (DROPOUT) {
+        if (t == 0) keep_rows_start(kcur, e_row, N, live, t4, a.thresh, a.s0, a.s1);
+      }
+#pragma unroll
+      for (int sb = 0; sb < KT / 16; ++sb) {
+        const int j0 = t * KT + sb * 16;
+        if (j0 >= N) break;
+        // keep bits of keys j0 .. j0+15, drawn before the products so that
+        // the Philox rounds and the score fragments are never live together
+        uint32_t kw[2] = {~0u, ~0u};
+        if constexpr (DROPOUT)
+          keep_rows_step(kcur, kw, e_row + j0, N, live, t4, a.thresh, a.s0, a.s1);
+        uint32_t qa[KS][4], ga[KS][4];
+        load_a<DH>(qa, qs, warp * 16, lane);
+        load_a<DH>(ga, gs, warp * 16, lane);
+        float sc[2][4], dp[2][4];
+        two_products<DH>(sc, dp, qa, ga, kt, vt, sb * 16, lane);
+        // every pair valid: no padding and no dual-query mask in the block
+        const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
         float ds[2][4];
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1, col = 8 * n + 2 * t4 + (e & 1), i = rows[r], j = j0 + col;
-            const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
+            const int r = e >> 1, col = 8 * n + 2 * t4 + (e & 1), j = j0 + col;
+            const bool valid = full || (live[r] && j < N && dual_query_allowed(rows[r], j, ns));
             float sg, pd, dsg;
-            probs<DROPOUT>(s[n][e], p[n][e], l2[r], valid, (kw[r] >> col) & 1u, scale2, ik,
+            probs<DROPOUT>(sc[n][e], dp[n][e], l2[r], valid, (kw[r] >> col) & 1u, scale2, ik,
                            sg, pd, dsg);
             if (sweep == 0) {
-              rsum[r] = fmaf(dsg, sg, rsum[r]);
+              rterm[r] = fmaf(dsg, sg, rterm[r]);
             } else {
-              const float rowsum = DELTA_FROM_O ? rs[rows[r]] : rsum[r];
-              ds[n][e] = sg * (dsg - rowsum) * a.scale;
+              ds[n][e] = sg * (dsg - rterm[r]) * a.scale;
             }
           }
         if (sweep == 1) {
           uint32_t hi[4], lo[4];
           to_a<ROUND>(ds, hi, lo);
-          acc_times_rows<DH, ROUND>(dq, hi, lo, ks, j0, lane);
+          acc_times_rows<DH, ROUND>(dq, hi, lo, kt, sb * 16, lane);
         }
       }
-      if (sweep == 0) {
+      if (!DELTA_FROM_O && s == T - 1) {
+        // end of sweep 0: the quad adds its columns' parts of rowsum
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-          if (t4 == 0) rs[rows[r]] = rsum[r];
+          rterm[r] += __shfl_xor_sync(0xffffffffu, rterm[r], 1);
+          rterm[r] += __shfl_xor_sync(0xffffffffu, rterm[r], 2);
+          if (t4 == 0 && live[r]) a.rowterm[static_cast<long long>(bh) * N + rows[r]] = rterm[r];
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= N) continue;
-      bf16* out = a.dq + block_x_offset(a) + rows[r] * a.x_tok + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-            __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
-    }
+    __syncthreads();  // the buffer is refilled two steps on
   }
-  __syncthreads();  // rowsum of every row
 
-  // ---- pass 2: columns -> dk, dv ----
-  for (int jt = warp; jt < T; jt += kMmaWarps) {
-    const int j0 = jt * 16;
-    const int keys[2] = {j0 + g, j0 + g + 8};
-    float dk[NT][4], dv[NT][4];
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!live[r]) continue;
+    bf16* out = a.dq + block_x_offset(a) + rows[r] * a.x_tok + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+  }
+}
 
-    for (int it = 0; it < T; ++it) {
-      const int i0 = it * 16;
-      uint32_t ka[KS][4], va[KS][4];
-      load_a<DH>(ka, ks, j0, lane);
-      load_a<DH>(va, vs, j0, lane);
-      float st[2][4], pt[2][4];  // S^T, dP^T: rows are keys, columns queries
-      two_products<DH>(st, pt, ka, va, qs, gs, i0, lane);
-      const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
-      float pd[2][4], ds[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = i0 + 8 * n + 2 * t4 + c;
-          const float l2 = ls[i], rsum = rs[i];
-          uint32_t kw = ~0u;  // keep bits of keys j0 .. j0+15 in row i
-          if constexpr (DROPOUT) kw = i < N ? keep_window(bits, off + i * N + j0) : 0u;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int j = keys[r], e = 2 * r + c;
-            const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
-            float sg, dsg;
-            probs<DROPOUT>(st[n][e], pt[n][e], l2, valid, (kw >> (j - j0)) & 1u, scale2, ik,
-                           sg, pd[n][e], dsg);
-            ds[n][e] = sg * (dsg - rsum) * a.scale;
-          }
-        }
-      uint32_t hi[4], lo[4];
-      to_a<ROUND>(pd, hi, lo);
-      acc_times_rows<DH, ROUND>(dv, hi, lo, gs, i0, lane);
-      to_a<ROUND>(ds, hi, lo);
-      acc_times_rows<DH, ROUND>(dk, hi, lo, qs, i0, lane);
+// ---- dk, dv: one block per (b, h, chunk of keys), Q and dO streamed ----
+template <int DH, bool ROUND, bool DROPOUT>
+__global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
+    attn_dkv_mma_kernel(MmaBwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8, QT = kBwdKeys;
+  constexpr int ROWS = kBwdWarps * 16;
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);  // [ROWS][LD]
+  bf16* vs = ks + ROWS * LD;                  // [ROWS][LD]
+  bf16* qs = vs + ROWS * LD;                  // [2][QT][LD]
+  bf16* gs = qs + 2 * QT * LD;                // [2][QT][LD] dO
+  float* ls = reinterpret_cast<float*>(gs + 2 * QT * LD);  // [2][QT] lse * log2(e)
+  float* rs = ls + 2 * QT;                                 // [2][QT] rowsum or delta
+
+  int bh, k0;
+  block_chunk(a, bh, k0);
+  const int N = a.N, T = (N + QT - 1) / QT;
+  const int b = bh / a.H, h = bh % a.H;
+  const long long xo = b * a.x_batch + h * a.x_head, go = b * a.g_batch + h * a.g_head;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int j0 = k0 + warp * 16;
+  const bool active = j0 < N;
+  const int keys[2] = {j0 + g, j0 + g + 8};
+
+  auto issue = [&](int t) {
+    const int buf = t & 1;
+    load_rows<DH>(qs + buf * QT * LD, a.q + xo, a.x_tok, t * QT, QT, N);
+    load_rows<DH>(gs + buf * QT * LD, a.g + go, a.g_tok, t * QT, QT, N);
+    cp_async_commit();
+    for (int r = tid; r < QT; r += blockDim.x) {
+      const int i = t * QT + r;
+      const long long at = static_cast<long long>(bh) * N + i;
+      ls[buf * QT + r] = i < N ? a.lse[at] * kLog2e : 0.f;
+      rs[buf * QT + r] = i < N ? a.rowterm[at] : 0.f;
     }
+  };
+  load_rows<DH>(ks, a.k + xo, a.x_tok, k0, ROWS, N);
+  load_rows<DH>(vs, a.v + xo, a.x_tok, k0, ROWS, N);
+  issue(0);  // K and V ride in the first group
+
+  float dk[NT][4], dv[NT][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (keys[r] >= N) continue;
-      const long long o = block_x_offset(a) + keys[r] * a.x_tok + 2 * t4;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(a.dk + o + 8 * n) =
-            __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(a.dv + o + 8 * n) =
-            __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float scale2 = a.scale * kLog2e, ik = DROPOUT ? a.inv_keep : 1.f;
+  const int ns = a.num_special;
+  const uint64_t e_head = static_cast<uint64_t>(bh) * N * N;
+
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qt = qs + (t & 1) * QT * LD;
+    const bf16* gt = gs + (t & 1) * QT * LD;
+    const float* lt = ls + (t & 1) * QT;
+    const float* rt = rs + (t & 1) * QT;
+    if (active) {
+#pragma unroll
+      for (int sb = 0; sb < QT / 16; ++sb) {
+        const int i0 = t * QT + sb * 16;
+        if (i0 >= N) break;
+        // bit 16 n + 8 r + g of kw[c]: see keep_block_t; drawn before the
+        // products, as in the dq kernel
+        uint32_t kw[2] = {~0u, ~0u};
+        if constexpr (DROPOUT) keep_block_t(kw, e_head, N, i0, j0, lane, a.thresh, a.s0, a.s1);
+        uint32_t ka[KS][4], va[KS][4];
+        load_a<DH>(ka, ks, warp * 16, lane);
+        load_a<DH>(va, vs, warp * 16, lane);
+        float st[2][4], pt[2][4];  // S^T, dP^T: rows are keys, columns queries
+        two_products<DH>(st, pt, ka, va, qt, gt, sb * 16, lane);
+        const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
+        float pd[2][4], ds[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int il = sb * 16 + 8 * n + 2 * t4 + c, i = t * QT + il;
+            const float l2 = lt[il], rsum = rt[il];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int j = keys[r], e = 2 * r + c;
+              const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
+              float sg, dsg;
+              probs<DROPOUT>(st[n][e], pt[n][e], l2, valid, (kw[c] >> (16 * n + 8 * r + g)) & 1u,
+                             scale2, ik, sg, pd[n][e], dsg);
+              ds[n][e] = sg * (dsg - rsum) * a.scale;
+            }
+          }
+        uint32_t hi[4], lo[4];
+        to_a<ROUND>(pd, hi, lo);
+        acc_times_rows<DH, ROUND>(dv, hi, lo, gt, sb * 16, lane);
+        to_a<ROUND>(ds, hi, lo);
+        acc_times_rows<DH, ROUND>(dk, hi, lo, qt, sb * 16, lane);
       }
+    }
+    __syncthreads();  // the buffers are refilled two steps on
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= N) continue;
+    const long long o = block_x_offset(a) + keys[r] * a.x_tok + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(a.dk + o + 8 * n) =
+          __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(a.dv + o + 8 * n) =
+          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
 
 template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
 cudaError_t launch_mma_bwd_t(const MmaBwdArgs& a, cudaStream_t stream) {
-  const size_t smem = mma_bwd_smem_bytes(a.N, DH, DROPOUT);
-  cudaError_t err = allow_smem(attn_bwd_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>, smem);
+  constexpr size_t dq_smem = mma_dq_smem_bytes(DH), dkv_smem = mma_dkv_smem_bytes(DH);
+  cudaError_t err = allow_smem(attn_dq_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>, dq_smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>
-      <<<a.B * a.H, kMmaWarps * 32, smem, stream>>>(a);
+  err = allow_smem(attn_dkv_mma_kernel<DH, ROUND, DROPOUT>, dkv_smem);
+  if (err != cudaSuccess) return err;
+  const long long chunks = (a.N + kBwdWarps * 16 - 1) / (kBwdWarps * 16);
+  const long long blocks = chunks * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  attn_dq_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>
+      <<<grid, kBwdWarps * 32, dq_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_dkv_mma_kernel<DH, ROUND, DROPOUT><<<grid, kBwdWarps * 32, dkv_smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Dh in {16, 32, 64} -> one instantiation
+// Dh in {16, 32, 64} -> one instantiation of each kernel
 template <bool ROUND, bool DROPOUT, bool DELTA_FROM_O = false>
 cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
-  if (a.B <= 0 || a.H <= 0 || a.N <= 0 ||
-      static_cast<long long>(a.B) * a.H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   switch (DH) {
     case 16: return launch_mma_bwd_t<16, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
     case 32: return launch_mma_bwd_t<32, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
     case 64: return launch_mma_bwd_t<64, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// shared-memory bytes of each kernel at head width DH (any N); which: 0 = dq,
+// 1 = dk/dv
+inline size_t mma_bwd_smem_by_dh(int DH, int which) {
+  if (DH != 16 && DH != 32 && DH != 64) return 0;
+  return which == 0 ? mma_dq_smem_bytes(DH) : mma_dkv_smem_bytes(DH);
 }
 
 }  // namespace

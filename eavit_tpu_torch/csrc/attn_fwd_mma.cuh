@@ -1,39 +1,50 @@
-// Attention forward on Hopper's tensor cores, for bf16 inputs: the template of
-// the bf16 K1f (csrc/flash_qkv.cu, from the merged qkv projection). The
-// float32 K1f keeps the CUDA-core kernel of flash_qkv.cu. Operands are taken
-// by strides, so K3f and K4f ([B*H, N, Dh]) can move onto the same template.
+// Attention forward on Hopper's tensor cores for bf16 inputs, streaming K and
+// V so that no buffer grows with N: the template of the bf16 K1f
+// (csrc/flash_qkv.cu, from the merged qkv projection), K3f
+// (csrc/flash_dropout.cu) and K4f (csrc/flash.cu), both on [B*H, N, Dh].
+// Their float32 forms run on flash_stream.cuh's CUDA-core template.
 //
-// What it computes, per batch row b and head h (eavit_tpu/ops/flash_qkv.py
-// `_head_fwd`, 223-239):
+// What it computes, per batch row b and head h:
 //   s      = q k^T * scale (f32), the dual-query mask when num_special > 0
 //   m, l   = max_j s, sum_j exp(s - m);  lse = m + log l
 //   sigma  = exp(s - lse)                       (0 where masked or padded)
 //   keep   = Philox (philox.cuh), stream 0, element ((b*H + h)*N + i)*N + j,
 //            keep = (bits >> 8) < thresh (DROPOUT only)
-//   sigma' = keep ? sigma * inv_keep : 0, ROUNDED TO bf16
+//   sigma' = keep ? sigma * inv_keep : 0
 //   o      = sigma' v with f32 accumulation, written in bf16
-// The rounding of the normalised, dropped sigma' is part of the function, so
-// the kernel takes two sweeps over the keys instead of an online softmax (an
-// FA-2 accumulator rescaled as the maximum moves would round other numbers):
-//   A. S = Q K^T over 16-key tiles; each lane keeps a running (max, sum) of
+// ROUND selects how sigma' enters o = sigma' v:
+//   K1f (eavit_tpu/ops/flash_qkv.py `_head_fwd`, 223-239) rounds the
+//     normalised, dropped sigma' to bf16, so one bf16 mma with f32
+//     accumulation is its product exactly, apart from the order of the sums;
+//   K3f (eavit_tpu/ops/flash_dropout.py `_fwd_kernel`, 123-147) and K4f
+//     (eavit_tpu/ops/flash.py `_fwd_kernel`, 74-104, at rate 0: o = (p / l) v)
+//     keep sigma' f32: it enters as two bf16 terms, hi = bf16(x) and lo =
+//     bf16(x - hi), two mmas per product (relative error ~2^-17).
+// K1f's rounding after normalising and dropping is part of its function, and
+// an online softmax (an FA-2 accumulator rescaled as the maximum moves) would
+// round other numbers, so the kernel takes two sweeps over the keys:
+//   A. S = Q K^T over 16-key steps; each lane keeps a running (max, sum) of
 //      its columns, and a quad-shuffle combine gives the row's lse;
-//   B. S again; sigma' = exp2(s scale log2e - lse log2e) * keep * inv_keep,
-//      rounded to bf16 straight from the accumulators as the A operand of
-//      O += sigma' V (V by ldmatrix.trans), the register re-pack of
-//      attn_bwd_mma.cuh.
-// Three N^2 Dh products, all bf16 mma.sync m16n8k16 with f32 accumulators.
+//   B. S again; sigma' = exp2(s scale log2e - lse log2e) * keep * inv_keep
+//      straight from the accumulators as the A operand of O += sigma' V
+//      (V by ldmatrix.trans), the register re-pack of attn_bwd_mma.cuh.
+// (A one-sweep online softmax for K3f and K4f, which round nothing, is a later
+// option.) Three N^2 Dh products, all bf16 mma.sync m16n8k16 with f32
+// accumulators (four with hi + lo).
 //
 // What bounds it on an H100: bytes (26 MB at the act shape [64, 198, 768],
 // 0.008 ms; 105 MB at the minibatch), then the exp and the mask (one Philox
-// call per four elements at rate 0.1). The design: one block of kMmaFwdWarps
-// warps per (b, h), the head's q, k and v in shared memory as bf16 (cp.async,
-// rows padded by 16 bytes so ldmatrix reads without bank conflicts, N padded
-// to 16 with zero rows; 52 KB at N = 198, Dh = 32), each warp owning one
-// 16-query tile at a time, so every output has one owner and every sum a
-// fixed order (equal bits twice, no atomics). A warp draws the keep bits of
-// its own 16 rows into a bitmap of its own (draw_keep_chunk, mma_common.cuh),
-// 16 N bits rather than the head's N^2, so the mask costs the N limit
-// little. See PERF.md for the measured times.
+// call per four elements at rate 0.1). The design: one block of kFwdWarps
+// warps per (b, h, chunk of kFwdWarps x 16 query rows), each warp owning one
+// 16-row tile, so every output has one owner and every sum a fixed order
+// (equal bits twice, no atomics). The chunk's Q is loaded once; K and V come
+// in tiles of kFwdKeys rows through a double buffer filled by cp.async (rows
+// padded by 16 bytes so that ldmatrix reads without bank conflicts, zero rows
+// past N): sweep A streams K, sweep B K and V. Shared memory is (kFwdWarps x
+// 16 + 4 kFwdKeys) rows of Dh + 8 bf16, whatever N is: 30 KB at Dh 32. The
+// mask is drawn in registers in sweep B (keep_rows_step, mma_common.cuh): the four
+// lanes of a quad draw the next four groups of their row for each 16-key
+// step, so every group of the mask is drawn once. See PERF.md for the times.
 #pragma once
 
 #include <cstdint>
@@ -42,16 +53,24 @@
 
 namespace {
 
-// Warps of a block and the blocks per SM the register budget must allow at
-// Dh <= 32: four blocks of 53 KB at N = 198 (64 registers, no spills).
-// tune_attn_bwd.py measures these choices: at [256, 8, 198, 32] rate 0.1,
-// 3 blocks / 2 blocks / 16 warps x 2 blocks ran 1.13 / 1.12 / 1.06x this.
-constexpr int kMmaFwdWarps = 8;
-constexpr int kMmaFwdMinBlocks = 4;
+// Warps of a block (one 16-row tile each), keys of a streamed tile, the
+// blocks per SM the register budget must allow at Dh <= 32 with the mask (80
+// registers) and without it (64), and the 16-key steps of a tile the compiler
+// may interleave with the mask (without it, all of a tile's): interleaving
+// overlaps the steps' loads and Philox rounds but costs registers, and at 80
+// the masked kernels spilled 4-12 bytes. tune_attn_bwd.py measures these
+// choices: at [256, 8, 198, 32] two blocks ran K3f 1.17x and K4f 1.35x
+// slower than this, 128-key tiles no faster, four warps slower.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdKeys = 64;
+constexpr int kFwdMinBlocks = 3;
+constexpr int kFwdMinBlocksNoMask = 4;
+constexpr int kFwdStepUnroll = 1;
 
 // Operand layout: element (b, h, token t, dim d) of q, k and v sits at
 // ptr + b*x_batch + h*x_head + t*x_tok + d, of o with the o_ strides; lse is
-// [B, H, N]. K1f: the merged qkv [B, N, 3*H*Dh] and o [B, N, H*Dh].
+// [B, H, N]. K1f: the merged qkv [B, N, 3*H*Dh] and o [B, N, H*Dh]; K3f and
+// K4f: [B*H, N, Dh] with H = 1.
 struct MmaFwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -68,15 +87,10 @@ struct MmaFwdArgs {
   uint32_t s0, s1;
 };
 
-// Words of one warp's keep bitmap: its 16 rows of the head's mask
-__host__ __device__ constexpr int mma_strip_words(int n) {
-  return keep_bit_words(16LL * n);
-}
-
-size_t mma_fwd_smem_bytes(int N, int DH, bool dropout) {
-  const size_t np = mma_pad16(N);
-  return 3 * np * mma_ld(DH) * sizeof(__nv_bfloat16) +
-         (dropout ? kMmaFwdWarps * mma_strip_words(N) * sizeof(uint32_t) : 0);
+// shared memory of one block: the chunk's Q and two K and two V tiles
+constexpr size_t mma_fwd_smem_bytes(int DH) {
+  return static_cast<size_t>(kFwdWarps * 16 + 4 * kFwdKeys) * mma_ld(DH) *
+         sizeof(__nv_bfloat16);
 }
 
 // s[2] (16 x 16) = A (16 x DH) * Y[tok0 .. tok0+15]^T: the scores of one
@@ -99,175 +113,186 @@ __device__ __forceinline__ void score_tile(float (&s)[2][4], const uint32_t (&a)
   }
 }
 
-template <int DH, bool DROPOUT>
-__global__ void __launch_bounds__(kMmaFwdWarps * 32, DH >= 64 ? 1 : kMmaFwdMinBlocks)
+template <int DH, bool ROUND, bool DROPOUT>
+__global__ void __launch_bounds__(kFwdWarps * 32,
+                                  DH >= 64 ? 1 : DROPOUT ? kFwdMinBlocks : kFwdMinBlocksNoMask)
     attn_fwd_mma_kernel(MmaFwdArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8;
+  constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8, KT = kFwdKeys;
+  constexpr int ROWS = kFwdWarps * 16;
   extern __shared__ float4 smem4[];
-  const int N = a.N, Np = mma_pad16(N), T = Np / 16;
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [Np][LD] each
-  bf16* ks = qs + Np * LD;
-  bf16* vs = ks + Np * LD;
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [ROWS][LD]
+  bf16* ks = qs + ROWS * LD;                  // [2][KT][LD]
+  bf16* vs = ks + 2 * KT * LD;                // [2][KT][LD]
+
+  const int N = a.N, chunks = (N + ROWS - 1) / ROWS, T = (N + KT - 1) / KT;
+  const int bh = blockIdx.x / chunks, q0 = (blockIdx.x % chunks) * ROWS;
+  const int b = bh / a.H, h = bh % a.H;
+  const long long xo = b * a.x_batch + h * a.x_head;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  // this warp's keep bitmap, mma_strip_words(N), dropout only
-  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + Np * LD) + warp * mma_strip_words(N);
-
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const long long xo = b * a.x_batch + h * a.x_head, oo = b * a.o_batch + h * a.o_head;
-
-  // ---- operands by cp.async, zero rows past N ----
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int c = tid; c < Np * CH; c += blockDim.x) {
-    const int t = c / CH, d = (c % CH) * 8, so = t * LD + d;
-    if (t < N) {
-      const long long x = xo + t * a.x_tok + d;
-      cp_async16(qs + so, a.q + x);
-      cp_async16(ks + so, a.k + x);
-      cp_async16(vs + so, a.v + x);
-    } else {
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(qs + so) = z;
-      *reinterpret_cast<uint4*>(ks + so) = z;
-      *reinterpret_cast<uint4*>(vs + so) = z;
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-
+  const int i0 = q0 + warp * 16;
+  const bool active = i0 < N;  // warp-uniform: a tile past N only loads and syncs
+  const int rows[2] = {i0 + g, i0 + g + 8};
+  const bool live[2] = {rows[0] < N, rows[1] < N};
   const float scale2 = a.scale * kLog2e;
   const int ns = a.num_special;
-  const uint64_t e_head = static_cast<uint64_t>(bh) * N * N;
 
-  for (int it = warp; it < T; it += kMmaFwdWarps) {
-    const int i0 = it * 16;
-    const int rows[2] = {i0 + g, i0 + g + 8};
-    // keep bits of rows i0 .. i0+15: bit p is element base + p, (i, j) at
-    // p = off + (i - i0)*N + j
-    const uint64_t e_strip = e_head + static_cast<uint64_t>(i0) * N, base = e_strip & ~31ull;
-    const int off = static_cast<int>(e_strip - base);
-    if constexpr (DROPOUT) {
-      __syncwarp();  // the warp's previous tile has read its windows
-      for (int c = 0; c < mma_strip_words(N) / 4; ++c)
-        draw_keep_chunk(bits, base, c, lane, a.thresh, a.s0, a.s1);
-      __syncwarp();
+  // steps 0 .. T-1 stream K tiles (sweep A), T .. 2T-1 K and V tiles (sweep B)
+  auto issue = [&](int s) {
+    const int t = s < T ? s : s - T, buf = s & 1;
+    load_rows<DH>(ks + buf * KT * LD, a.k + xo, a.x_tok, t * KT, KT, N);
+    if (s >= T) load_rows<DH>(vs + buf * KT * LD, a.v + xo, a.x_tok, t * KT, KT, N);
+    cp_async_commit();
+  };
+  load_rows<DH>(qs, a.q + xo, a.x_tok, q0, ROWS, N);
+  issue(0);  // Q rides in the first group
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, lse2[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  uint32_t kcur[2];  // keep bits of the current 16-key step (keep_rows_step)
+  const uint64_t e_row = (static_cast<uint64_t>(bh) * N + rows[0]) * N;  // row g's key 0
+
+  for (int s = 0; s < 2 * T; ++s) {
+    if (s + 1 < 2 * T) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    uint32_t qa[KS][4];
-    load_a<DH>(qa, qs, i0, lane);
-
-    // ---- sweep A: running (max, sum) per lane and row, in log2 units ----
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int jt = 0; jt < T; ++jt) {
-      const int j0 = jt * 16;
-      float s[2][4];
-      score_tile<DH>(s, qa, ks, j0, lane);
-      // every pair valid: no padding and no dual-query mask in the tile
-      const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
+    __syncthreads();
+    const int t = s < T ? s : s - T;
+    const bf16* kt = ks + (s & 1) * KT * LD;
+    const bf16* vt = vs + (s & 1) * KT * LD;
+    if (active) {
+      if (s == T) {
+        // end of sweep A: combine the four lanes of a row, so that every lane
+        // ends with the same bits
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float x[4], mt = -INFINITY;
+        for (int r = 0; r < 2; ++r) {
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int j = j0 + 8 * n + 2 * t4 + c;
-            const bool valid = full || (rows[r] < N && j < N && dual_query_allowed(rows[r], j, ns));
-            x[2 * n + c] = valid ? s[n][2 * r + c] * scale2 : -INFINITY;
-            mt = fmaxf(mt, x[2 * n + c]);
+          for (int o = 1; o < 4; o <<= 1) {
+            const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+            const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+            const float mn = fmaxf(m[r], mo);
+            if (mn != -INFINITY) {
+              l[r] = (m[r] == -INFINITY ? 0.f : l[r] * ex2(m[r] - mn)) +
+                     (mo == -INFINITY ? 0.f : lo * ex2(mo - mn));
+            }
+            m[r] = mn;
           }
-        if (mt > m[r]) {
-          l[r] *= ex2(m[r] - mt);  // m = -inf: l is 0 and stays 0
-          m[r] = mt;
+          lse2[r] = m[r] + log2f(l[r]);  // rows past N: never used
         }
-        if (m[r] != -INFINITY) {
+        if constexpr (DROPOUT) keep_rows_start(kcur, e_row, N, live, t4, a.thresh, a.s0, a.s1);
+      }
+#pragma unroll(DROPOUT ? kFwdStepUnroll : kFwdKeys / 16)
+      for (int sb = 0; sb < KT / 16; ++sb) {
+        const int j0 = t * KT + sb * 16;
+        if (j0 >= N) break;
+        // keep bits of keys j0 .. j0+15, drawn before the scores exist so
+        // that the Philox rounds and the score fragments are never live
+        // together
+        uint32_t kw[2] = {~0u, ~0u};
+        if constexpr (DROPOUT) {
+          if (s >= T) keep_rows_step(kcur, kw, e_row + j0, N, live, t4, a.thresh, a.s0, a.s1);
+        }
+        // the warp's Q fragments, reloaded at every step rather than held in
+        // registers: that keeps three blocks per SM without spills
+        uint32_t qa[KS][4];
+        load_a<DH>(qa, qs, warp * 16, lane);
+        float sc[2][4];
+        score_tile<DH>(sc, qa, kt, sb * 16, lane);
+        // every pair valid: no padding and no dual-query mask in the block
+        const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
+        if (s < T) {
+          // ---- sweep A: running (max, sum) per lane and row, log2 units ----
 #pragma unroll
-          for (int e = 0; e < 4; ++e) l[r] += ex2(x[e] - m[r]);  // ex2(-inf) = 0
+          for (int r = 0; r < 2; ++r) {
+            float x[4], mt = -INFINITY;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int j = j0 + 8 * n + 2 * t4 + c;
+                const bool valid = full || (rows[r] < N && j < N &&
+                                            dual_query_allowed(rows[r], j, ns));
+                x[2 * n + c] = valid ? sc[n][2 * r + c] * scale2 : -INFINITY;
+                mt = fmaxf(mt, x[2 * n + c]);
+              }
+            if (mt > m[r]) {
+              l[r] *= ex2(m[r] - mt);  // m = -inf: l is 0 and stays 0
+              m[r] = mt;
+            }
+            if (m[r] != -INFINITY) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) l[r] += ex2(x[e] - m[r]);  // ex2(-inf) = 0
+            }
+          }
+        } else {
+          // ---- sweep B: O += sigma' V ----
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, col = 8 * n + 2 * t4 + (e & 1), j = j0 + col;
+              const bool valid = full || (rows[r] < N && j < N &&
+                                          dual_query_allowed(rows[r], j, ns));
+              float sg = valid ? ex2(fmaf(sc[n][e], scale2, -lse2[r])) : 0.f;
+              if constexpr (DROPOUT) sg = (kw[r] >> col) & 1u ? sg * a.inv_keep : 0.f;
+              sc[n][e] = sg;
+            }
+          uint32_t hi[4], lo[4];
+          to_a<ROUND>(sc, hi, lo);
+          acc_times_rows<DH, ROUND>(acc, hi, lo, vt, sb * 16, lane);
         }
       }
     }
-    // combine the four lanes of a row: every lane ends with the same bits
-    float lse2[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
-        const float mn = fmaxf(m[r], mo);
-        if (mn != -INFINITY) {
-          l[r] = (m[r] == -INFINITY ? 0.f : l[r] * ex2(m[r] - mn)) +
-                 (mo == -INFINITY ? 0.f : lo * ex2(mo - mn));
-        }
-        m[r] = mn;
-      }
-      lse2[r] = m[r] + log2f(l[r]);  // rows past N: never used
-    }
+    __syncthreads();  // the buffer is refilled two steps on
+  }
 
-    // ---- sweep B: O += bf16(sigma') V ----
-    float acc[NT][4];
+  if (!active) return;
+  const long long oo = b * a.o_batch + h * a.o_head;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int jt = 0; jt < T; ++jt) {
-      const int j0 = jt * 16;
-      float s[2][4];
-      score_tile<DH>(s, qa, ks, j0, lane);
-      const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
-      uint32_t kw[2] = {~0u, ~0u};  // keep bits of columns j0 .. j0+15
-      if constexpr (DROPOUT) {
+  for (int r = 0; r < 2; ++r) {
+    if (!live[r]) continue;
+    bf16* out = a.o + oo + rows[r] * a.o_tok + 2 * t4;
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          kw[r] = rows[r] < N ? keep_window(bits, off + (rows[r] - i0) * N + j0) : 0u;
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, col = 8 * n + 2 * t4 + (e & 1), i = rows[r], j = j0 + col;
-          const bool valid = full || (i < N && j < N && dual_query_allowed(i, j, ns));
-          float sg = valid ? ex2(fmaf(s[n][e], scale2, -lse2[r])) : 0.f;
-          if constexpr (DROPOUT) sg = (kw[r] >> col) & 1u ? sg * a.inv_keep : 0.f;
-          s[n][e] = sg;
-        }
-      uint32_t hi[4], lo[4];
-      to_a<true>(s, hi, lo);
-      acc_times_rows<DH, true>(acc, hi, lo, vs, j0, lane);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= N) continue;
-      bf16* out = a.o + oo + rows[r] * a.o_tok + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-      if (t4 == 0) a.lse[static_cast<long long>(bh) * N + rows[r]] = lse2[r] / kLog2e;
-    }
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+    if (t4 == 0) a.lse[static_cast<long long>(bh) * N + rows[r]] = lse2[r] / kLog2e;
   }
 }
 
-template <int DH, bool DROPOUT>
+template <int DH, bool ROUND, bool DROPOUT>
 cudaError_t launch_mma_fwd_t(const MmaFwdArgs& a, cudaStream_t stream) {
-  const size_t smem = mma_fwd_smem_bytes(a.N, DH, DROPOUT);
-  cudaError_t err = allow_smem(attn_fwd_mma_kernel<DH, DROPOUT>, smem);
+  constexpr size_t smem = mma_fwd_smem_bytes(DH);
+  cudaError_t err = allow_smem(attn_fwd_mma_kernel<DH, ROUND, DROPOUT>, smem);
   if (err != cudaSuccess) return err;
-  attn_fwd_mma_kernel<DH, DROPOUT><<<a.B * a.H, kMmaFwdWarps * 32, smem, stream>>>(a);
+  const long long chunks = (a.N + kFwdWarps * 16 - 1) / (kFwdWarps * 16);
+  const long long blocks = chunks * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attn_fwd_mma_kernel<DH, ROUND, DROPOUT>
+      <<<static_cast<unsigned>(blocks), kFwdWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Dh in {16, 32, 64} -> one instantiation
-template <bool DROPOUT>
+template <bool ROUND, bool DROPOUT>
 cudaError_t launch_mma_fwd(int DH, const MmaFwdArgs& a, cudaStream_t stream) {
-  if (a.B <= 0 || a.H <= 0 || a.N <= 0 ||
-      static_cast<long long>(a.B) * a.H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_mma_fwd_t<16, DROPOUT>(a, stream);
-    case 32: return launch_mma_fwd_t<32, DROPOUT>(a, stream);
-    case 64: return launch_mma_fwd_t<64, DROPOUT>(a, stream);
+    case 16: return launch_mma_fwd_t<16, ROUND, DROPOUT>(a, stream);
+    case 32: return launch_mma_fwd_t<32, ROUND, DROPOUT>(a, stream);
+    case 64: return launch_mma_fwd_t<64, ROUND, DROPOUT>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// shared-memory bytes of the instantiation at head width DH (any N)
+inline size_t mma_fwd_smem_by_dh(int DH) {
+  return DH == 16 || DH == 32 || DH == 64 ? mma_fwd_smem_bytes(DH) : 0;
 }
 
 }  // namespace

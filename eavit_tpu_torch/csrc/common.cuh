@@ -33,12 +33,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // The dual-query shared-KV mask (ops/attention.py dual_query_allowed): with
 // num_special tokens first in the sequence, patch row i attends to patch
 // columns only, special row i to itself and the patches.

@@ -3,59 +3,113 @@
 //
 // Replaces the TPU kernels eavit_tpu/ops/flash.py `_fwd_kernel` (line 74,
 // launched by `_fwd` at line 125) and `_bwd_kernel` (line 147, launched by
-// `_bwd` at line 217). The forward, and the backward for float32 inputs, are
-// the DROPOUT = false instantiations of flash_attn.cuh, which documents the
-// math and the design. The backward for bf16 inputs is the tensor-core
-// template of attn_bwd_mma.cuh with p and ds kept f32 as hi + lo bf16 terms
-// (ROUND = false), no mask, and delta = sum(dO * O) from the given O
-// (DELTA_FROM_O).
+// `_bwd` at line 217). The forward takes f32 scores, p = exp(s - m) and o =
+// (p v) / l with p unrounded; the backward p = exp(s - lse), delta = sum(dO *
+// O) per row from the O the forward wrote (flash.py:179), ds = p (dO v^T -
+// delta) scale, and writes dq, dk and dv once each.
+//
+// bf16 inputs run the tensor-core templates: the forward attn_fwd_mma.cuh at
+// rate 0 with sigma = p / l kept f32 as hi + lo bf16 terms (ROUND = false),
+// the backward attn_bwd_mma.cuh with p and ds as hi + lo terms, no mask and
+// delta from O (DELTA_FROM_O). float32 inputs run the CUDA-core template of
+// flash_stream.cuh (the forward is K5f's instantiation, the dq pass sums
+// delta from O). All stream their operands, so they take any N. Where a
+// bf16 head fits in shared memory and N <= 256 the wrapper runs the
+// backward's whole-head form instead, attn_bwd_head.cuh, the faster one at
+// the flagship N = 198.
 //
 // What bounds them on an H100: bytes. At the flagship minibatch ([256, 8, 198,
 // 32] bf16) the forward must move 105 MB (q, k, v read once, o and lse written
 // once) against 5.1 GFLOP, the backward 209 MB (q, k, v, o, dO, lse read,
 // dq, dk, dv written) against 12.8 GFLOP of five products: far below the 295
 // FLOP/byte where the bf16 tensor cores would be the limit. The design keeps
-// scores and probabilities out of device memory and reads each input once per
-// block. The forward and the float32 backward compute on the CUDA cores in
-// f32; see PERF.md for the times.
+// scores and probabilities out of device memory; see PERF.md for the times.
+#include "attn_bwd_head.cuh"
 #include "attn_bwd_mma.cuh"
-#include "flash_attn.cuh"
+#include "attn_fwd_mma.cuh"
+#include "flash_stream.cuh"
 
 extern "C" {
 
-// Shared-memory bytes each kernel needs for a sequence of N tokens.
-size_t eavit_flash_fwd_smem(int N, int DH) { return fwd_smem_bytes(N, DH); }
-// The backward's depends on the dtype (common.cuh's codes).
-size_t eavit_flash_bwd_smem(int N, int DH, int dtype) {
-  return dtype == kBF16 ? mma_bwd_smem_bytes(N, DH, false) : bwd_smem_bytes(N, DH, false);
+// Shared-memory bytes of each kernel at head width DH in the given dtype
+// (common.cuh's codes), whatever N is; the backward's which: 0 = dq, 1 = dk/dv.
+size_t eavit_flash_fwd_smem(int DH, int dtype) {
+  return dtype == kBF16 ? mma_fwd_smem_by_dh(DH) : stream_smem_by_dh(kFwd, DH);
+}
+size_t eavit_flash_bwd_smem(int DH, int dtype, int which) {
+  return dtype == kBF16 ? mma_bwd_smem_by_dh(DH, which)
+                        : stream_smem_by_dh(which == 0 ? kDq : kDkv, DH);
 }
 
-// Each returns the cudaError_t of its launch (0 on success). BH = B * H.
+// Each returns the cudaError_t of its launches (0 on success). BH = B * H.
 int eavit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                     int BH, int N, int DH, int dtype, float scale, int num_special,
                     void* stream) {
-  FwdArgs a{q, k, v, o, static_cast<float*>(lse), N, scale, num_special, 0u, 1.f, 0u, 0u};
-  return launch<false>(dtype, DH, BH, a, stream);
-}
-
-int eavit_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                    const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                    int BH, int N, int DH, int dtype, float scale, int num_special,
-                    void* stream) {
-  if (dtype == kBF16) {  // the tensor-core kernel, one (b, h) row of [BH, N, Dh] each
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
     using bf16 = __nv_bfloat16;
-    const long long head = static_cast<long long>(N) * DH;
-    MmaBwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                 static_cast<const bf16*>(o), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                 static_cast<bf16*>(dv), static_cast<const float*>(lse), head, 0, DH, head, 0,
-                 DH, BH, 1, N, scale, num_special, 0u, 1.f, 0u, 0u};
-    return launch_mma_bwd<false, false, true>(DH, a, static_cast<cudaStream_t>(stream));
+    MmaFwdArgs a{};
+    a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
+    a.v = static_cast<const bf16*>(v), a.o = static_cast<bf16*>(o);
+    a.lse = static_cast<float*>(lse), a.scale = scale, a.num_special = num_special;
+    mma_head_major(a, BH, N, DH);
+    a.o_batch = a.x_batch, a.o_head = 0, a.o_tok = DH;
+    return launch_mma_fwd<false, false>(DH, a, st);
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
-  BwdArgs a{q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,
-            N, scale, num_special, 0u, 1.f, 0u, 0u};
-  return launch_bwd<false>(DH, BH, a, stream);
+  StreamArgs a{};
+  a.q = q, a.k = k, a.v = v, a.out = o, a.lse_out = static_cast<float*>(lse);
+  a.N = N, a.scale = scale, a.num_special = num_special;
+  head_major(a, N, DH);
+  return launch_stream<kFwd, float>(DH, BH, a, st);
+}
+
+// delta: a [BH, N] f32 scratch
+int eavit_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                    void* delta, int BH, int N, int DH, int dtype, float scale,
+                    int num_special, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    using bf16 = __nv_bfloat16;
+    MmaBwdArgs a{};
+    a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
+    a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
+    a.o = static_cast<const bf16*>(o), a.dq = static_cast<bf16*>(dq);
+    a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
+    a.lse = static_cast<const float*>(lse), a.rowterm = static_cast<float*>(delta);
+    a.scale = scale, a.num_special = num_special, a.inv_keep = 1.f;
+    mma_head_major(a, BH, N, DH);
+    a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
+    return launch_mma_bwd<false, false, true>(DH, a, st);
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  StreamArgs a{};
+  a.q = q, a.k = k, a.v = v, a.o = o, a.dout = dout, a.lse = static_cast<const float*>(lse);
+  a.rowterm = static_cast<float*>(delta), a.dq = dq, a.dk = dk, a.dv = dv;
+  a.N = N, a.scale = scale, a.num_special = num_special;
+  head_major(a, N, DH);
+  return launch_stream_bwd_f32<false, kDeltaFromO>(DH, BH, a, st);
+}
+
+// The whole-head bf16 K4b (attn_bwd_head.cuh), which the wrapper runs where
+// it fits: its shared memory at N tokens, then the launch.
+size_t eavit_flash_bwd_head_smem(int N, int DH) { return head_bwd_smem_bytes(N, DH, false); }
+
+int eavit_flash_bwd_head(const void* q, const void* k, const void* v, const void* o,
+                         const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                         int BH, int N, int DH, float scale, int num_special, void* stream) {
+  using bf16 = __nv_bfloat16;
+  MmaBwdArgs a{};
+  a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
+  a.o = static_cast<const bf16*>(o), a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
+  a.lse = static_cast<const float*>(lse), a.scale = scale, a.num_special = num_special;
+  a.inv_keep = 1.f;
+  mma_head_major(a, BH, N, DH);
+  a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
+  return launch_head_bwd<false, false, true>(DH, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

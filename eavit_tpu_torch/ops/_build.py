@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,12 @@ NVCC_FLAGS = [
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the shared memory one block of an H100 may opt in to
 SMEM_LIMIT = 227 * 1024
+# The longest sequence on which a wrapper with a whole-head bf16 kernel picks
+# it over the streaming one: the whole-head K1f, K1b, K3b and K4b were the
+# faster ones at the flagship's N = 198, and at N = 443 the streaming K1f and
+# K4b were 13% and 29% faster (tune_attn_bwd.py, PERF.md); the crossover
+# between is not measured.
+HEAD_MAX_N = 256
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -113,16 +119,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def check_smem(what: str, need: int, n: int, dim_head: int) -> None:
-    """Raise, before any launch, for a sequence whose head needs more shared
-    memory than a block has: the kernels of K1, K3 and K4 hold a whole head
-    there, and none of them runs its plain version on the card in place of
-    the kernel. The KV-streaming kernels of ``AttentionImpl =
-    pallas_stream`` take any N."""
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"{what}: N={n} with dim_head={dim_head} needs {need} bytes of shared "
-            f"memory, more than {SMEM_LIMIT}; AttentionImpl = pallas_stream takes any N")
+def whole_head(what: str, kernel: Optional[str], fits: bool, preferred: bool) -> bool:
+    """Resolve the ``kernel`` argument of a wrapper with two bf16 kernels:
+    ``None`` takes the whole-head kernel where the shape prefers it
+    (``preferred``: it fits in shared memory and N <= ``HEAD_MAX_N``) and the
+    streaming one otherwise; ``"head"`` and ``"stream"`` take one, and
+    ``"head"`` raises where the head does not fit in one block's shared
+    memory (``fits``)."""
+    if kernel is None:
+        return preferred
+    if kernel == "stream":
+        return False
+    if kernel == "head":
+        if not fits:
+            raise ValueError(f"{what}: the whole-head kernel takes bf16 heads that fit "
+                             f"in {SMEM_LIMIT} bytes of shared memory")
+        return True
+    raise ValueError(f"{what}: kernel {kernel!r} is not None, 'head' or 'stream'")
 
 
 def check_aligned(what: str, *tensors: torch.Tensor) -> None:

@@ -17,18 +17,30 @@ Two versions of each function:
 - :func:`flash_fwd_plain` / :func:`flash_bwd_plain`: plain torch, the oracle;
 - the CUDA kernels of ``csrc/flash.cu`` (K4f ``flash_fwd``, which replaces
   ``_fwd_kernel`` launched at flash.py:125, and K4b ``flash_bwd``, which
-  replaces ``_bwd_kernel`` launched at line 217; bf16 K4b runs on the
-  tensor cores, ``csrc/attn_bwd_mma.cuh``, float32 on the CUDA cores).
+  replaces ``_bwd_kernel`` launched at line 217). bf16 inputs run on the
+  tensor cores (``csrc/attn_fwd_mma.cuh``, ``csrc/attn_bwd_mma.cuh``),
+  float32 on the CUDA cores (``csrc/flash_stream.cuh``). All stream K and V
+  (the backward's dk/dv pass Q and dO) through shared memory in tiles of a
+  fixed size, so they take any N, as ``eavit_tpu``'s kernel does by
+  blocking its rows down to one per cell (flash.py:63-66);
+  :func:`fwd_smem` and :func:`bwd_smem` report the bytes, which depend on
+  ``Dh`` and the dtype only.
 
 :func:`flash_fwd` and :func:`flash_bwd` take the plain version for a tensor
 on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the
 kernel does not take (another dtype or layout, ``Dh`` not in 16 / 32 / 64,
-or N past what fits in shared memory, :func:`fwd_smem` / :func:`bwd_smem`)
-raises before any launch. ``eavit_tpu``'s kernel blocks its rows down to
-one per cell there (flash.py:63-66); in the port ``AttentionImpl =
-pallas_stream`` takes any N. :func:`flash_attention` is differentiable
-through one ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
-``_flash_fwd`` does (line 244). ``launches`` counts kernel launches.
+bf16 not on a 16-byte boundary) raises before any launch.
+:func:`flash_attention` is differentiable through one
+``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
+``_flash_fwd`` does (line 244). K4b has two bf16 kernels: where a head fits
+in one block's shared memory and N <= 256 (``_build.HEAD_MAX_N``) the
+wrapper runs the whole-head form (``csrc/attn_bwd_head.cuh``, the faster
+one at the flagship N = 198), past that the streaming one
+(:func:`bwd_kernel` says which; ``kernel="head"`` / ``"stream"`` takes
+one). ``launches`` counts wrapper
+calls that launched a kernel, each kernel under its own key (``flash_bwd``
+the whole-head K4b, ``flash_bwd_stream`` the streaming one, two CUDA
+launches, a dq pass that also sums delta and a dk/dv pass, counted once).
 """
 
 from __future__ import annotations
@@ -42,8 +54,9 @@ from torch.autograd.function import once_differentiable
 from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops.attention import dual_query_allowed
 
-# launches of each kernel since the last reset (chip_smoke.py reads them)
-launches = {"flash_fwd": 0, "flash_bwd": 0}
+# wrapper calls that launched each kernel since the last reset (chip_smoke.py
+# reads them)
+launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_stream": 0}
 
 DIM_HEADS = (16, 32, 64)
 
@@ -59,11 +72,15 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.eavit_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, f, i, vp]
         lib.eavit_flash_fwd.restype = i
-        lib.eavit_flash_bwd.argtypes = [vp] * 9 + [i, i, i, i, f, i, vp]
+        lib.eavit_flash_bwd.argtypes = [vp] * 10 + [i, i, i, i, f, i, vp]
         lib.eavit_flash_bwd.restype = i
-        lib.eavit_flash_fwd_smem.argtypes = [i, i]
-        lib.eavit_flash_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
-        for name in ("eavit_flash_fwd_smem", "eavit_flash_bwd_smem"):
+        lib.eavit_flash_bwd_head.argtypes = [vp] * 9 + [i, i, i, f, i, vp]
+        lib.eavit_flash_bwd_head.restype = i
+        lib.eavit_flash_fwd_smem.argtypes = [i, i]  # Dh, dtype
+        lib.eavit_flash_bwd_smem.argtypes = [i, i, i]  # Dh, dtype, pass
+        lib.eavit_flash_bwd_head_smem.argtypes = [i, i]  # N, Dh
+        for name in ("eavit_flash_fwd_smem", "eavit_flash_bwd_smem",
+                     "eavit_flash_bwd_head_smem"):
             getattr(lib, name).restype = ctypes.c_size_t
         lib._eavit_typed = True
     return lib
@@ -131,14 +148,31 @@ def check_kernel_args(what: str, q: torch.Tensor, *like_q: torch.Tensor,
                          f"{tuple(q.shape[:3])} on {q.device}")
 
 
-def fwd_smem(n: int, dim_head: int) -> int:
-    """Bytes of shared memory K4f needs for a head of ``n`` tokens."""
-    return _lib().eavit_flash_fwd_smem(n, dim_head)
+def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of one K4f block; N does not enter."""
+    return _lib().eavit_flash_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
 
 
-def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory K4b needs for a head of ``n`` tokens."""
-    return _lib().eavit_flash_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
+def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of shared memory of one block of K4b's dq and dk/dv passes; N
+    does not enter."""
+    code = _build.DTYPE_CODES[dtype]
+    return tuple(_lib().eavit_flash_bwd_smem(dim_head, code, w) for w in (0, 1))
+
+
+def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
+    """Whether the whole-head bf16 K4b holds a head of ``n`` tokens in one
+    block's shared memory."""
+    return (dtype == torch.bfloat16 and
+            _lib().eavit_flash_bwd_head_smem(n, dim_head) <= _build.SMEM_LIMIT)
+
+
+def bwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
+    """The ``launches`` key of the kernel a CUDA K4b call runs: the whole-head
+    bf16 kernel where a head fits and N <= ``_build.HEAD_MAX_N``, else the
+    streaming one."""
+    head = n <= _build.HEAD_MAX_N and head_fits(n, dim_head, dtype)
+    return "flash_bwd" if head else "flash_bwd_stream"
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -148,7 +182,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         return flash_fwd_plain(q, k, v, scale, num_special)
     check_kernel_args("flash_fwd", q, k, v)
     b, h, n, dh = q.shape
-    _build.check_smem("flash_fwd", fwd_smem(n, dh), n, dh)
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned("flash_fwd", q, k, v)
     lib = _lib()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -163,23 +198,33 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
               lse: torch.Tensor, do: torch.Tensor, scale: float,
-              num_special: int = 0) -> Tuple[torch.Tensor, ...]:
-    """K4b: ``(dq, dk, dv)``; plain version on the CPU, the kernel on CUDA."""
+              num_special: int = 0, kernel: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+    """K4b: ``(dq, dk, dv)``; plain version on the CPU, a kernel on CUDA (the
+    whole-head or the streaming one, :func:`bwd_kernel`; ``kernel`` =
+    ``"head"`` or ``"stream"`` takes one)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
     check_kernel_args("flash_bwd", q, k, v, o, do, lse=lse)
     b, h, n, dh = q.shape
-    _build.check_smem("flash_bwd", bwd_smem(n, dh, q.dtype), n, dh)
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_bwd", q, k, v, o, do)
     lib = _lib()
+    head = _build.whole_head("flash_bwd", kernel, head_fits(n, dh, q.dtype),
+                             bwd_kernel(n, dh, q.dtype) == "flash_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = lib.eavit_flash_bwd(
-        *(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv)),
-        b * h, n, dh, _build.DTYPE_CODES[q.dtype], float(scale), int(num_special),
-        _build.stream_ptr(q))
-    _build.check(err, "flash_bwd")
-    launches["flash_bwd"] += 1
+    tail = (b * h, n, dh)
+    common = (float(scale), int(num_special), _build.stream_ptr(q))
+    if head:
+        err = lib.eavit_flash_bwd_head(
+            *(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv)), *tail, *common)
+    else:
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # scratch
+        err = lib.eavit_flash_bwd(
+            *(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, delta)), *tail,
+            _build.DTYPE_CODES[q.dtype], *common)
+    name = "flash_bwd" if head else "flash_bwd_stream"
+    _build.check(err, name)
+    launches[name] += 1
     return dq, dk, dv
 
 

@@ -27,16 +27,26 @@ Two versions of each function: :func:`flash_dropout_fwd_plain`,
 torch, and the CUDA kernels of ``csrc/flash_dropout.cu`` (K3f, replacing
 ``_fwd_kernel`` launched at flash_dropout.py:225; K3b, replacing
 ``_bwd_kernel`` launched at line 254; K3r, replacing ``_bits_kernel``
-launched at line 349). K3b takes bf16 inputs on the tensor cores
-(``csrc/attn_bwd_mma.cuh``, pd and ds as two bf16 terms each, so that they
-keep float32 precision) and float32 inputs on the CUDA cores. The wrappers
-take the plain version for a CPU tensor and the kernel for a CUDA tensor.
-In place of ``supports()`` (line 94), which sends long sequences to the
-XLA path, a CUDA call whose N does not fit in shared memory
-(:func:`fwd_smem`, :func:`bwd_smem`) raises before any launch, as another
-dtype, layout or ``Dh`` does: no plain version stands in for the kernel on
-the card (``AttentionImpl = pallas_stream`` takes any N). ``launches``
-counts kernel launches.
+launched at line 349). K3f and K3b take bf16 inputs on the tensor cores
+(``csrc/attn_fwd_mma.cuh``, ``csrc/attn_bwd_mma.cuh``; sigma', pd and ds
+as two bf16 terms each, so that they keep float32 precision) and float32
+inputs on the CUDA cores (``csrc/flash_stream.cuh``). All stream their
+operands through shared memory in tiles of a fixed size, so they take any
+N, where ``supports()`` (line 94) sends long sequences to the XLA path of
+the same function; :func:`fwd_smem` and :func:`bwd_smem` report the
+bytes, which depend on ``Dh`` and the dtype only. The wrappers take the
+plain version for a CPU tensor and the kernel for a CUDA tensor; a CUDA
+tensor the kernel does not take (another dtype or layout, ``Dh`` not in
+16 / 32 / 64, bf16 not on a 16-byte boundary) raises before any launch.
+K3b has two bf16 kernels: where a head fits in one block's shared memory
+and N <= 256 (``_build.HEAD_MAX_N``) the wrapper runs the whole-head form
+(``csrc/attn_bwd_head.cuh``, one kernel that draws the mask once per head,
+the faster one at the flagship N = 198), past that the streaming one
+(:func:`bwd_kernel` says which; ``kernel="head"`` / ``"stream"`` takes one).
+``launches`` counts wrapper calls that launched a kernel, each kernel under
+its own key (``flash_dropout_bwd`` the whole-head K3b,
+``flash_dropout_bwd_stream`` the streaming one, two CUDA launches, a dq
+pass that also sums rowsum and a dk/dv pass, counted once).
 """
 
 from __future__ import annotations
@@ -51,8 +61,10 @@ from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops import flash
 from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 
-# launches of each kernel since the last reset (chip_smoke.py reads them)
-launches = {"flash_dropout_fwd": 0, "flash_dropout_bwd": 0, "flash_dropout_bits": 0}
+# wrapper calls that launched each kernel since the last reset (chip_smoke.py
+# reads them)
+launches = {"flash_dropout_fwd": 0, "flash_dropout_bwd": 0, "flash_dropout_bwd_stream": 0,
+            "flash_dropout_bits": 0}
 
 
 def reset_launches() -> None:
@@ -67,11 +79,15 @@ def _lib():
         tail = [i, i, i, i, f, i, u, f, u, u, vp]
         lib.eavit_flash_dropout_fwd.argtypes = [vp] * 5 + tail
         lib.eavit_flash_dropout_fwd.restype = i
-        lib.eavit_flash_dropout_bwd.argtypes = [vp] * 8 + tail
+        lib.eavit_flash_dropout_bwd.argtypes = [vp] * 9 + tail
         lib.eavit_flash_dropout_bwd.restype = i
-        lib.eavit_flash_dropout_fwd_smem.argtypes = [i, i]
-        lib.eavit_flash_dropout_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
-        for name in ("eavit_flash_dropout_fwd_smem", "eavit_flash_dropout_bwd_smem"):
+        lib.eavit_flash_dropout_bwd_head.argtypes = [vp] * 8 + tail[:3] + tail[4:]
+        lib.eavit_flash_dropout_bwd_head.restype = i
+        lib.eavit_flash_dropout_fwd_smem.argtypes = [i, i]  # Dh, dtype
+        lib.eavit_flash_dropout_bwd_smem.argtypes = [i, i, i]  # Dh, dtype, pass
+        lib.eavit_flash_dropout_bwd_head_smem.argtypes = [i, i]  # N, Dh
+        for name in ("eavit_flash_dropout_fwd_smem", "eavit_flash_dropout_bwd_smem",
+                     "eavit_flash_dropout_bwd_head_smem"):
             getattr(lib, name).restype = ctypes.c_size_t
         lib.eavit_flash_dropout_bits.argtypes = [vp, ctypes.c_ulonglong, u, u, vp]
         lib.eavit_flash_dropout_bits.restype = i
@@ -79,14 +95,31 @@ def _lib():
     return lib
 
 
-def fwd_smem(n: int, dim_head: int) -> int:
-    """Bytes of shared memory K3f needs for a head of ``n`` tokens."""
-    return _lib().eavit_flash_dropout_fwd_smem(n, dim_head)
+def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of one K3f block; N does not enter."""
+    return _lib().eavit_flash_dropout_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
 
 
-def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory K3b needs for a head of ``n`` tokens."""
-    return _lib().eavit_flash_dropout_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
+def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of shared memory of one block of K3b's dq and dk/dv passes; N
+    does not enter."""
+    code = _build.DTYPE_CODES[dtype]
+    return tuple(_lib().eavit_flash_dropout_bwd_smem(dim_head, code, w) for w in (0, 1))
+
+
+def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
+    """Whether the whole-head bf16 K3b holds a head of ``n`` tokens in one
+    block's shared memory."""
+    return (dtype == torch.bfloat16 and
+            _lib().eavit_flash_dropout_bwd_head_smem(n, dim_head) <= _build.SMEM_LIMIT)
+
+
+def bwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
+    """The ``launches`` key of the kernel a CUDA K3b call runs: the whole-head
+    bf16 kernel where a head fits and N <= ``_build.HEAD_MAX_N``, else the
+    streaming one."""
+    head = n <= _build.HEAD_MAX_N and head_fits(n, dim_head, dtype)
+    return "flash_dropout_bwd" if head else "flash_dropout_bwd_stream"
 
 
 def _keep(q: torch.Tensor, seeds, thresh: int) -> torch.Tensor:
@@ -154,7 +187,8 @@ def flash_dropout_fwd(
         return flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_fwd", q, k, v)
     b, h, n, dh = q.shape
-    _build.check_smem("flash_dropout_fwd", fwd_smem(n, dh), n, dh)
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned("flash_dropout_fwd", q, k, v)
     lib = _lib()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -170,25 +204,35 @@ def flash_dropout_fwd(
 def flash_dropout_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, seeds, rate: float, scale: float, num_special: int = 0,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """K3b: ``(dq, dk, dv)``; plain version on the CPU, the kernel on CUDA."""
+    """K3b: ``(dq, dk, dv)``; plain version on the CPU, a kernel on CUDA (the
+    whole-head or the streaming one, :func:`bwd_kernel`; ``kernel`` =
+    ``"head"`` or ``"stream"`` takes one)."""
     thresh, inv_keep, s0, s1 = _dropout_args("flash_dropout_bwd", seeds, rate)
     if q.device.type == "cpu":
         return flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_bwd", q, k, v, do, lse=lse)
     b, h, n, dh = q.shape
-    _build.check_smem("flash_dropout_bwd", bwd_smem(n, dh, q.dtype), n, dh)
     lib = _lib()
-    code = _build.DTYPE_CODES[q.dtype]
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_dropout_bwd", q, k, v, do)
+    head = _build.whole_head("flash_dropout_bwd", kernel, head_fits(n, dh, q.dtype),
+                             bwd_kernel(n, dh, q.dtype) == "flash_dropout_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = lib.eavit_flash_dropout_bwd(
-        *(_build.ptr(t) for t in (q, k, v, lse, do, dq, dk, dv)), b * h, n, dh,
-        code, float(scale), int(num_special), thresh,
-        float(inv_keep), s0, s1, _build.stream_ptr(q))
-    _build.check(err, "flash_dropout_bwd")
-    launches["flash_dropout_bwd"] += 1
+    common = (float(scale), int(num_special), thresh, float(inv_keep), s0, s1,
+              _build.stream_ptr(q))
+    if head:
+        err = lib.eavit_flash_dropout_bwd_head(
+            *(_build.ptr(t) for t in (q, k, v, lse, do, dq, dk, dv)), b * h, n, dh, *common)
+    else:
+        rowsum = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # scratch
+        err = lib.eavit_flash_dropout_bwd(
+            *(_build.ptr(t) for t in (q, k, v, lse, do, dq, dk, dv, rowsum)), b * h, n, dh,
+            _build.DTYPE_CODES[q.dtype], *common)
+    name = "flash_dropout_bwd" if head else "flash_dropout_bwd_stream"
+    _build.check(err, name)
+    launches[name] += 1
     return dq, dk, dv
 
 

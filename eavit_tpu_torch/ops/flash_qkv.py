@@ -28,18 +28,32 @@ Two versions of each function:
   at line 715) and of ``csrc/flash_qkv_bwd.cu`` (K1b ``flash_qkv_bwd``,
   which replaces ``_bwd_kernel`` at line 305 launched at line 580). bf16
   inputs run on the tensor cores (``csrc/attn_fwd_mma.cuh`` for K1f,
-  ``csrc/attn_bwd_mma.cuh`` for K1b), float32 inputs on the CUDA cores.
+  ``csrc/attn_bwd_mma.cuh`` for K1b), float32 inputs on the CUDA cores
+  (``csrc/flash_stream.cuh``). Every one streams K and V (and the backward
+  Q and dO) through shared memory in tiles of a fixed size, so each takes
+  any N, as ``flash_mha_qkv`` does (its XLA path past ``supports(n)``,
+  lines 185-192 and 660-665, computes the same function);
+  :func:`fwd_smem` and :func:`bwd_smem` report the bytes, which depend on
+  ``Dh`` and the dtype only.
 
 :func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
 tensor; a CUDA tensor the kernel does not take (another dtype or layout,
-``Dh`` not in 16 / 32 / 64, or N past what fits in shared memory,
-:func:`fwd_smem` / :func:`bwd_smem`) raises before any launch. Where
-``flash_mha_qkv`` takes the XLA path past ``supports(n)`` (lines 185-192,
-660-665), the port has no stand-in for the kernel on the card;
-``AttentionImpl = pallas_stream`` takes any N. :func:`flash_mha_qkv` is
-differentiable through one ``torch.autograd.Function`` whose backward is
-:func:`flash_qkv_bwd`. ``launches`` counts kernel launches.
+``Dh`` not in 16 / 32 / 64, bf16 not on a 16-byte boundary) raises before
+any launch. :func:`flash_mha_qkv` is differentiable through one
+``torch.autograd.Function`` whose backward is :func:`flash_qkv_bwd`.
+
+K1f and K1b each have two bf16 kernels: where a head fits in one block's
+shared memory and N <= 256 (``_build.HEAD_MAX_N``) the wrapper runs the
+whole-head forms (``csrc/attn_fwd_head.cuh``,
+``csrc/attn_bwd_head.cuh``; the faster ones at the flagship N = 198), past
+that the streaming ones (:func:`fwd_kernel` / :func:`bwd_kernel` say which;
+``kernel="head"`` / ``"stream"`` takes one). ``launches`` counts wrapper
+calls that launched a kernel, each kernel under its own key
+(``flash_qkv_fwd`` / ``flash_qkv_bwd`` the whole-head kernels,
+``flash_qkv_fwd_stream`` / ``flash_qkv_bwd_stream`` the streaming ones; the
+streaming K1b is two CUDA launches, a dq pass and a dk/dv pass, counted
+once).
 """
 
 from __future__ import annotations
@@ -54,8 +68,10 @@ from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops.attention import dual_query_allowed
 from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 
-# launches of each kernel since the last reset (chip_smoke.py reads them)
-launches = {"flash_qkv_fwd": 0, "flash_qkv_bwd": 0, "flash_qkv_bits": 0}
+# wrapper calls that launched each kernel since the last reset (chip_smoke.py
+# reads them)
+launches = {"flash_qkv_fwd": 0, "flash_qkv_fwd_stream": 0, "flash_qkv_bwd": 0,
+            "flash_qkv_bwd_stream": 0, "flash_qkv_bits": 0}
 
 _DIM_HEADS = (16, 32, 64)
 
@@ -70,10 +86,15 @@ def _bwd_lib():
     if not getattr(lib, "_eavit_typed", False):
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         lib.eavit_flash_qkv_bwd.argtypes = [
-            vp, vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
+            vp, vp, vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
         lib.eavit_flash_qkv_bwd.restype = i
-        lib.eavit_flash_qkv_bwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
-        lib.eavit_flash_qkv_bwd_smem.restype = ctypes.c_size_t
+        lib.eavit_flash_qkv_bwd_head.argtypes = [
+            vp, vp, vp, vp, i, i, i, i, f, i, u, f, u, u, i, vp]
+        lib.eavit_flash_qkv_bwd_head.restype = i
+        lib.eavit_flash_qkv_bwd_smem.argtypes = [i, i, i]  # Dh, dtype, pass
+        lib.eavit_flash_qkv_bwd_head_smem.argtypes = [i, i]  # N, Dh
+        for name in ("eavit_flash_qkv_bwd_smem", "eavit_flash_qkv_bwd_head_smem"):
+            getattr(lib, name).restype = ctypes.c_size_t
         lib._eavit_typed = True
     return lib
 
@@ -85,22 +106,53 @@ def _lib():
         lib.eavit_flash_qkv_fwd.argtypes = [
             vp, vp, vp, i, i, i, i, i, f, i, u, f, u, u, i, vp]
         lib.eavit_flash_qkv_fwd.restype = i
-        lib.eavit_flash_qkv_fwd_smem.argtypes = [i, i, i]  # N, Dh, dtype
-        lib.eavit_flash_qkv_fwd_smem.restype = ctypes.c_size_t
+        lib.eavit_flash_qkv_fwd_head.argtypes = [vp, vp, vp, i, i, i, i, f, i, u, f, u, u, i, vp]
+        lib.eavit_flash_qkv_fwd_head.restype = i
+        lib.eavit_flash_qkv_fwd_smem.argtypes = [i, i]  # Dh, dtype
+        lib.eavit_flash_qkv_fwd_head_smem.argtypes = [i, i]  # N, Dh
+        for name in ("eavit_flash_qkv_fwd_smem", "eavit_flash_qkv_fwd_head_smem"):
+            getattr(lib, name).restype = ctypes.c_size_t
         lib.eavit_flash_qkv_bits.argtypes = [vp, ctypes.c_ulonglong, u, u, vp]
         lib.eavit_flash_qkv_bits.restype = i
         lib._eavit_typed = True
     return lib
 
 
-def fwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory K1f needs for a head of ``n`` tokens."""
-    return _lib().eavit_flash_qkv_fwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
+def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of one K1f block; N does not enter."""
+    return _lib().eavit_flash_qkv_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
 
 
-def bwd_smem(n: int, dim_head: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory K1b needs for a head of ``n`` tokens."""
-    return _bwd_lib().eavit_flash_qkv_bwd_smem(n, dim_head, _build.DTYPE_CODES[dtype])
+def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of shared memory of one block of K1b's dq and dk/dv passes; N
+    does not enter."""
+    code = _build.DTYPE_CODES[dtype]
+    return tuple(_bwd_lib().eavit_flash_qkv_bwd_smem(dim_head, code, w) for w in (0, 1))
+
+
+def head_fits(which: str, n: int, dim_head: int, dtype: torch.dtype) -> bool:
+    """Whether the whole-head bf16 kernel of K1f (``"fwd"``) or K1b
+    (``"bwd"``) holds a head of ``n`` tokens in one block's shared memory."""
+    if dtype != torch.bfloat16:
+        return False
+    smem = (_lib().eavit_flash_qkv_fwd_head_smem if which == "fwd"
+            else _bwd_lib().eavit_flash_qkv_bwd_head_smem)
+    return smem(n, dim_head) <= _build.SMEM_LIMIT
+
+
+def fwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
+    """The ``launches`` key of the kernel a CUDA K1f call runs: the whole-head
+    bf16 kernel where a head fits and N <= ``_build.HEAD_MAX_N``, else the
+    streaming one."""
+    head = n <= _build.HEAD_MAX_N and head_fits("fwd", n, dim_head, dtype)
+    return "flash_qkv_fwd" if head else "flash_qkv_fwd_stream"
+
+
+def bwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
+    """The ``launches`` key of the kernel a CUDA K1b call runs (as
+    :func:`fwd_kernel`)."""
+    head = n <= _build.HEAD_MAX_N and head_fits("bwd", n, dim_head, dtype)
+    return "flash_qkv_bwd" if head else "flash_qkv_bwd_stream"
 
 
 def flash_qkv_fwd_plain(
@@ -147,28 +199,34 @@ def _check_kernel_args(what: str, qkv: torch.Tensor, heads: int, dim_head: int) 
 
 def flash_qkv_fwd(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
-    num_special: int = 0, seeds=None, rate: float = 0.0,
+    num_special: int = 0, seeds=None, rate: float = 0.0, kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1f: ``(o, lse)``; plain version on the CPU, the kernel on CUDA."""
+    """K1f: ``(o, lse)``; plain version on the CPU, a kernel on CUDA (the
+    whole-head or the streaming one, :func:`fwd_kernel`; ``kernel`` =
+    ``"head"`` or ``"stream"`` takes one)."""
     if qkv.device.type == "cpu":
         return flash_qkv_fwd_plain(qkv, heads, dim_head, scale, num_special, seeds, rate)
     _check_kernel_args("flash_qkv_fwd", qkv, heads, dim_head)
     b, n, _ = qkv.shape
-    _build.check_smem("flash_qkv_fwd", fwd_smem(n, dim_head, qkv.dtype), n, dim_head)
     if qkv.dtype == torch.bfloat16:
         _build.check_aligned("flash_qkv_fwd", qkv)
     lib = _lib()
+    head = _build.whole_head("flash_qkv_fwd", kernel, head_fits("fwd", n, dim_head, qkv.dtype),
+                             fwd_kernel(n, dim_head, qkv.dtype) == "flash_qkv_fwd")
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     o = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    err = lib.eavit_flash_qkv_fwd(
-        _build.ptr(qkv), _build.ptr(o), _build.ptr(lse), b, n, heads, dim_head,
-        _build.DTYPE_CODES[qkv.dtype], float(scale), int(num_special),
-        thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
-        _build.stream_ptr(qkv),
-    )
-    _build.check(err, "flash_qkv_fwd")
-    launches["flash_qkv_fwd"] += 1
+    common = (float(scale), int(num_special), thresh or 0, float(inv_keep), s0, s1,
+              int(thresh is not None), _build.stream_ptr(qkv))
+    if head:
+        err = lib.eavit_flash_qkv_fwd_head(_build.ptr(qkv), _build.ptr(o), _build.ptr(lse),
+                                           b, n, heads, dim_head, *common)
+    else:
+        err = lib.eavit_flash_qkv_fwd(_build.ptr(qkv), _build.ptr(o), _build.ptr(lse), b, n,
+                                      heads, dim_head, _build.DTYPE_CODES[qkv.dtype], *common)
+    name = "flash_qkv_fwd" if head else "flash_qkv_fwd_stream"
+    _build.check(err, name)
+    launches[name] += 1
     return o, lse
 
 
@@ -214,9 +272,10 @@ def flash_qkv_bwd_plain(
 def flash_qkv_bwd(
     qkv: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, heads: int,
     dim_head: int, scale: float, num_special: int = 0, seeds=None,
-    rate: float = 0.0,
+    rate: float = 0.0, kernel: Optional[str] = None,
 ) -> torch.Tensor:
-    """K1b: ``dqkv``; plain version on the CPU, the kernel on CUDA."""
+    """K1b: ``dqkv``; plain version on the CPU, a kernel on CUDA (as
+    :func:`flash_qkv_fwd`, :func:`bwd_kernel`)."""
     if qkv.device.type == "cpu":
         return flash_qkv_bwd_plain(qkv, lse, do, heads, dim_head, scale, num_special,
                                    seeds, rate)
@@ -228,23 +287,28 @@ def flash_qkv_bwd(
                 or not t.is_contiguous()):
             raise ValueError(f"flash_qkv_bwd: {name} must be contiguous {dtype} "
                              f"{shape} on {qkv.device}")
-    if b > 65535:
-        raise ValueError(f"flash_qkv_bwd: batch {b} exceeds the grid limit 65535")
-    _build.check_smem("flash_qkv_bwd", bwd_smem(n, dim_head, qkv.dtype), n, dim_head)
     lib = _bwd_lib()
-    code = _build.DTYPE_CODES[qkv.dtype]
     if qkv.dtype == torch.bfloat16:
         _build.check_aligned("flash_qkv_bwd", qkv, do)
+    fits = head_fits("bwd", n, dim_head, qkv.dtype) and b <= 65535  # the whole-head grid
+    head = _build.whole_head("flash_qkv_bwd", kernel, fits,
+                             fits and bwd_kernel(n, dim_head, qkv.dtype) == "flash_qkv_bwd")
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     dqkv = torch.empty_like(qkv)
-    err = lib.eavit_flash_qkv_bwd(
-        _build.ptr(qkv), _build.ptr(lse), _build.ptr(do), _build.ptr(dqkv), b, n,
-        heads, dim_head, code, float(scale),
-        int(num_special), thresh or 0, float(inv_keep), s0, s1,
-        int(thresh is not None), _build.stream_ptr(qkv),
-    )
-    _build.check(err, "flash_qkv_bwd")
-    launches["flash_qkv_bwd"] += 1
+    common = (float(scale), int(num_special), thresh or 0, float(inv_keep), s0, s1,
+              int(thresh is not None), _build.stream_ptr(qkv))
+    if head:
+        err = lib.eavit_flash_qkv_bwd_head(
+            _build.ptr(qkv), _build.ptr(lse), _build.ptr(do), _build.ptr(dqkv), b, n, heads,
+            dim_head, *common)
+    else:
+        rowsum = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)  # scratch
+        err = lib.eavit_flash_qkv_bwd(
+            _build.ptr(qkv), _build.ptr(lse), _build.ptr(do), _build.ptr(dqkv),
+            _build.ptr(rowsum), b, n, heads, dim_head, _build.DTYPE_CODES[qkv.dtype], *common)
+    name = "flash_qkv_bwd" if head else "flash_qkv_bwd_stream"
+    _build.check(err, name)
+    launches[name] += 1
     return dqkv
 
 

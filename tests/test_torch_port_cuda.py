@@ -23,10 +23,10 @@ to autograd through the plain forward, and give equal bits twice. K5 (the
 KV-streaming kernels) is held to its plain version at the same tolerances,
 at N up to 640 and in one call at 3,137, and gives equal bits twice.
 
-K1b and K3b in bf16 run on the tensor cores (csrc/attn_bwd_mma.cuh), with
-N padded to 16-row tiles: they are held to their plain versions at N around
-the tiles (15, 16, 17, 37, 197, 198, 199, and 443, which only the bf16
-kernels hold, at Dh 16 and 32), Dh 16 / 32 / 64, num_special 0 / 2 and an
+K1b and K3b in bf16 run on the tensor cores (csrc/attn_bwd_mma.cuh), on
+16-row tiles with zero rows past N: they are held to their plain versions
+at N around the tiles (15, 16, 17, 37, 197, 198, 199, and 443 at Dh 16
+and 32), Dh 16 / 32 / 64, num_special 0 / 2 and an
 odd batch, at one bf16 rounding of each output (2^-8 relative, as above:
 K1b's products are the plain version's exactly, pd and ds rounded to bf16
 as the JAX kernel rounds them, and only the sum order differs; K3b's pd and
@@ -38,13 +38,20 @@ pd and ds in float32 as the JAX kernel does, must err at most a tenth as
 much as the dq that rounding ds gives (the plain K1b on the same inputs);
 the K1b kernel matches that plain K1b at one bf16 rounding.
 
-The bf16 K1f (csrc/attn_fwd_mma.cuh) and K4b (attn_bwd_mma.cuh with delta
-from O) run on the tensor cores too: they are held to their plain versions
-at N 11, 197, 198 and 443, Dh 16 / 32 / 64, num_special 0 / 2 (K1f also at
-rate 0 and 0.1), at one bf16 rounding of each output and 1e-4 on lse, with
-equal bits twice. At Dh 32 each wrapper launches its kernel at the longest
-N that fits in shared memory, and one token more raises before any launch;
-a dtype or Dh the kernels refuse raises at any N.
+The bf16 K1f, K3f and K4f (csrc/attn_fwd_mma.cuh) and K4b (attn_bwd_mma.cuh
+with delta from O) run on the tensor cores too: they are held to their plain
+versions at N 11, 197, 198 and 443, Dh 16 / 32 / 64, num_special 0 / 2 (K1f
+also at rate 0 and 0.1), at one bf16 rounding of each output and 1e-4 on
+lse, with equal bits twice; the cancellation test also holds K4b. Every
+function of K1, K3 and K4 has a kernel that streams its operands through
+shared memory of a size that depends on Dh and the dtype only; K1f, K1b,
+K3b and K4b also have a whole-head bf16 kernel, which their wrappers run
+where a head fits in shared memory. Each function, in bf16 and float32, by
+shape and forced onto its streaming kernel, is held to its plain version at
+N = 37, 198, 443, 786 and 1,766 with one launch per call under the launch
+key of the kernel that ran and equal bits twice, and runs at N = 3,137; the
+ragged-N, cancellation and tensor-core tests run both kernels; a dtype or
+Dh the kernels refuse raises at any N.
 """
 
 import math
@@ -117,17 +124,13 @@ def test_flash_qkv_kernel_rejects_what_it_does_not_take(cuda):
         fq.flash_qkv_fwd(x, 2, 24, 0.2)  # dim_head 24 has no kernel
     with pytest.raises(TypeError):
         fq.flash_qkv_fwd(x.half(), 2, 24, 0.2)
-    # the backward has the same limits, and more shared memory per token
+    # the backward refuses the same, and operands that do not match qkv
     ok = torch.zeros(2, 5, 3 * 2 * 32, device=cuda)
     lse, do = torch.zeros(2, 2, 5, device=cuda), torch.zeros(2, 5, 2 * 32, device=cuda)
     with pytest.raises(ValueError):
         fq.flash_qkv_bwd(ok, lse, do.half(), 2, 32, 0.2)  # dO in another dtype
     with pytest.raises(ValueError):
         fq.flash_qkv_bwd(ok, lse[:, :1], do, 2, 32, 0.2)  # lse of another shape
-    long = torch.zeros(1, 700, 3 * 2 * 64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fq.flash_qkv_bwd(long, torch.zeros(1, 2, 700, device=cuda),
-                         torch.zeros(1, 700, 2 * 64, device=cuda), 2, 64, 0.2)
 
 
 def _ffn_inputs(rows, dim, hidden, device, dtype):
@@ -194,11 +197,12 @@ def test_flash_qkv_bwd_kernel_matches_plain(cuda, b, n, num_special, dim_head, d
                      generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
     args = (heads, dim_head, dim_head ** -0.5, num_special, seeds, rate)
     _, lse = fq.flash_qkv_fwd(x, *args)
-    before = fq.launches["flash_qkv_bwd"]
+    key = fq.bwd_kernel(n, dim_head, dtype)
+    before = fq.launches[key]
     d = fq.flash_qkv_bwd(x, lse, do, *args)
     p = fq.flash_qkv_bwd_plain(x, lse, do, *args)
     torch.cuda.synchronize()
-    assert fq.launches["flash_qkv_bwd"] == before + 1
+    assert fq.launches[key] == before + 1
     assert d.dtype == dtype and d.shape == x.shape
     tol = _bf16_tol(p) if dtype == torch.bfloat16 else 1e-4 * p.abs().max().item()
     assert _max_err(d, p) <= tol
@@ -248,8 +252,8 @@ def test_flash_qkv_function_matches_autograd_of_plain_forward(cuda, num_special)
     before = dict(fq.launches)
     fq.flash_mha_qkv(mine, heads, dh, seeds=seeds, rate=rate,
                      num_special=num_special).backward(do)
-    assert fq.launches["flash_qkv_fwd"] == before["flash_qkv_fwd"] + 1
-    assert fq.launches["flash_qkv_bwd"] == before["flash_qkv_bwd"] + 1
+    for key in (fq.fwd_kernel(45, dh, torch.float32), fq.bwd_kernel(45, dh, torch.float32)):
+        assert fq.launches[key] == before[key] + 1
     assert _max_err(mine.grad, ref_in.grad) <= 1e-4 * ref_in.grad.abs().max().item()
 
 
@@ -318,24 +322,30 @@ def _tol(ref, dtype):
 @pytest.mark.parametrize("num_special", [0, 2])
 @pytest.mark.parametrize("n", [15, 16, 17, 37, 197, 198, 199])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_flash_kernels_match_plain(cuda, rate, n, num_special, dim_head, dtype):
-    """K4f / K4b at rate 0, K3f / K3b at rate 0.1, forward and backward."""
+@pytest.mark.parametrize("path", ["auto", "stream"])
+def test_flash_kernels_match_plain(cuda, path, rate, n, num_special, dim_head, dtype):
+    """K4f / K4b at rate 0, K3f / K3b at rate 0.1, forward and backward; the
+    backward by shape (``auto``) and on the streaming kernel (``stream``)."""
     q, k, v, do = _heads(2, 3, n, dim_head, cuda, dtype)
     scale, seeds = dim_head ** -0.5, (31, 41)
+    choice = None if path == "auto" else "stream"
     if rate:
         fwd = lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, num_special)  # noqa: E731
         o, lse = fwd()
         po, plse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, num_special)
         bwd = lambda: fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale,  # noqa: E731
-                                           num_special)
+                                           num_special, kernel=choice)
         plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, num_special)
-        count, name = fd.launches, "flash_dropout_bwd"
+        count, name = fd.launches, fd.bwd_kernel(n, dim_head, dtype)
     else:
         o, lse = fl.flash_fwd(q, k, v, scale, num_special)
         po, plse = fl.flash_fwd_plain(q, k, v, scale, num_special)
-        bwd = lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)  # noqa: E731
+        bwd = lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, num_special,  # noqa: E731
+                                   kernel=choice)
         plain = fl.flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
-        count, name = fl.launches, "flash_bwd"
+        count, name = fl.launches, fl.bwd_kernel(n, dim_head, dtype)
+    if choice:
+        name = name.removesuffix("_stream") + "_stream"
     before = count[name]
     grads = bwd()
     torch.cuda.synchronize()
@@ -372,7 +382,8 @@ def test_flash_functions_match_autograd_of_plain_forward(cuda, num_special, rate
     before = {**fl.launches, **fd.launches}
     fd.flash_attention_dropout(*mine, seeds, rate, num_special=num_special).backward(do)
     after = {**fl.launches, **fd.launches}
-    names = ("flash_dropout_fwd", "flash_dropout_bwd") if rate else ("flash_fwd", "flash_bwd")
+    names = (("flash_dropout_fwd", fd.bwd_kernel(45, 16, torch.float32)) if rate
+             else ("flash_fwd", fl.bwd_kernel(45, 16, torch.float32)))
     assert all(after[n] == before[n] + 1 for n in names)
     for a, b in zip(mine, ref_in):
         assert _max_err(a.grad, b.grad) <= 1e-4 * b.grad.abs().max().item()
@@ -394,13 +405,6 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         fl.flash_bwd(q, k, v, o, lse[:, :1].contiguous(), do, 0.2)  # lse of another shape
     with pytest.raises(ValueError):
         fd.flash_dropout_bwd(q, k, v, lse, do.cpu(), (1, 2), 0.1, 0.2)  # dO on the CPU
-    long = _heads(1, 1, 700, 64, cuda, torch.float32, count=3)
-    for call in (lambda: fl.flash_bwd(*long, long[0], torch.zeros(1, 1, 700, device=cuda),
-                                      long[0], 0.2),
-                 lambda: fd.flash_dropout_fwd(*_heads(1, 1, 1000, 64, cuda, torch.float32,
-                                                      count=3), (1, 2), 0.1, 0.2)):
-        with pytest.raises(ValueError, match="shared memory"):
-            call()
 
 
 def test_flash_backward_runs_on_the_current_stream(cuda):
@@ -526,17 +530,18 @@ def _merged(t):
     return t.transpose(1, 2).reshape(b, n, h * dh)
 
 
-def test_bf16_backward_keeps_a_cancelling_dq(cuda):
+@pytest.mark.parametrize("choice", ["head", "stream"])
+def test_bf16_backward_keeps_a_cancelling_dq(cuda, choice):
     """K3b keeps pd and ds in float32 (as two bf16 terms each): its dq error
     against the plain version is at most a tenth of the error of the dq that
     rounding ds to bf16 gives. That rounded dq is the plain K1b on the same
     inputs (K1 rounds pd and ds, and draws the same mask), which the K1b
-    kernel itself must match at one bf16 rounding."""
+    kernel itself must match at one bf16 rounding; both kernels of each."""
     b, h, n, dh, ns = 2, 4, 198, 32, 2
     q, k, v, do = _cancelling_heads(b, h, n, dh, cuda)
     scale, seeds, rate = dh ** -0.5, (5, 9), 0.1
     _, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)
-    dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns)[0]
+    dq = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns, kernel=choice)[0]
     dq_plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, ns)[0]
     qkv = torch.cat([_merged(t) for t in (q, k, v)], dim=-1).contiguous()
     args = (h, dh, scale, ns, seeds, rate)
@@ -545,16 +550,15 @@ def test_bf16_backward_keeps_a_cancelling_dq(cuda):
     torch.cuda.synchronize()
     err, err_rounded = _max_err(dq, dq_plain), _max_err(dq_rounded, dq_plain)
     assert err_rounded > 0 and err <= 0.1 * err_rounded, (err, err_rounded)
-    d1 = fq.flash_qkv_bwd(qkv, lse, _merged(do).contiguous(), *args)
+    d1 = fq.flash_qkv_bwd(qkv, lse, _merged(do).contiguous(), *args, kernel=choice)
     assert _max_err(d1, rounded) <= _bf16_tol(rounded)
 
 
 @pytest.mark.parametrize("num_special", [0, 2])
 @pytest.mark.parametrize("dim_head", [16, 32])
 def test_bf16_backward_kernels_take_patch4_sequences(cuda, dim_head, num_special):
-    """N = 443 (patch 4): the bf16 K1b and K3b hold the head as bf16 and take
-    it, matching their plain versions; at Dh = 32 the float32 kernels still
-    refuse it."""
+    """N = 443 (patch 4): the bf16 K1b and K3b take it, matching their plain
+    versions with equal bits twice."""
     b, h, n, seeds, rate = 3, 2, 443, (8, 9), 0.1
     scale = dim_head ** -0.5
     q, k, v, do = _heads(b, h, n, dim_head, cuda, torch.bfloat16, seed=7)
@@ -572,13 +576,6 @@ def test_bf16_backward_kernels_take_patch4_sequences(cuda, dim_head, num_special
     for a, r in zip(grads, plain):
         assert _max_err(a, r) <= _bf16_tol(r)
     assert all(torch.equal(a, r) for a, r in zip(grads, fd.flash_dropout_bwd(*bargs)))
-    if dim_head == 16:
-        return  # the float32 kernels hold N = 443 at Dh = 16 (up to 492)
-    f32 = [t.float() for t in (q, k, v, do)]
-    with pytest.raises(ValueError, match="shared memory"):
-        fd.flash_dropout_bwd(*f32[:3], lse, f32[3], seeds, rate, scale, num_special)
-    with pytest.raises(ValueError, match="shared memory"):
-        fq.flash_qkv_bwd(qkv.float(), lse, g.float(), *args)
 
 
 # ---------------------------------------------------------------------------
@@ -589,69 +586,62 @@ def test_bf16_backward_kernels_take_patch4_sequences(cuda, dim_head, num_special
 MMA_N = (11, 197, 198, 443)
 
 
+@pytest.mark.parametrize("path", ["head", "stream"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dim_head", [16, 32, 64])
 @pytest.mark.parametrize("num_special", [0, 2])
 @pytest.mark.parametrize("n", MMA_N)
-def test_bf16_flash_qkv_forward_kernel_matches_plain(cuda, n, num_special, dim_head, rate):
+def test_bf16_flash_qkv_forward_kernel_matches_plain(cuda, n, num_special, dim_head, rate,
+                                                     path):
     """sigma' is rounded to bf16 after normalisation and dropout, as
-    ``_head_fwd`` rounds it: o within one bf16 rounding, lse within 1e-4."""
+    ``_head_fwd`` rounds it: o within one bf16 rounding, lse within 1e-4;
+    the whole-head and the streaming kernel."""
     heads, seeds = 2, (123, 456)
     x = _qkv(3, n, heads, dim_head, cuda, torch.bfloat16)
     args = (heads, dim_head, dim_head ** -0.5, num_special, seeds, rate)
-    before = fq.launches["flash_qkv_fwd"]
-    o, lse = fq.flash_qkv_fwd(x, *args)
+    key = "flash_qkv_fwd" if path == "head" else "flash_qkv_fwd_stream"
+    before = fq.launches[key]
+    o, lse = fq.flash_qkv_fwd(x, *args, kernel=path)
     po, plse = fq.flash_qkv_fwd_plain(x, *args)
     torch.cuda.synchronize()
-    assert fq.launches["flash_qkv_fwd"] == before + 1
+    assert fq.launches[key] == before + 1
     assert o.dtype == torch.bfloat16 and o.shape == (3, n, heads * dim_head)
     assert _max_err(o, po) <= _bf16_tol(po)
     assert _max_err(lse, plse) <= 1e-4
-    o2, lse2 = fq.flash_qkv_fwd(x, *args)
+    o2, lse2 = fq.flash_qkv_fwd(x, *args, kernel=path)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)  # deterministic
 
 
+@pytest.mark.parametrize("path", ["auto", "stream"])
 @pytest.mark.parametrize("dim_head", [16, 32, 64])
 @pytest.mark.parametrize("num_special", [0, 2])
 @pytest.mark.parametrize("n", MMA_N)
-def test_bf16_flash_backward_kernel_matches_plain(cuda, n, num_special, dim_head):
+def test_bf16_flash_backward_kernel_matches_plain(cuda, n, num_special, dim_head, path):
     """K4b on the tensor cores: p and ds as two bf16 terms each, delta =
-    sum(dO * O) from the forward's O; one bf16 rounding of each output. At
-    Dh = 64 the kernel holds N <= 384, so N = 443 raises before any launch."""
+    sum(dO * O) from the forward's O; one bf16 rounding of each output; the
+    kernel the shape picks and the streaming one."""
     q, k, v, do = _heads(3, 2, n, dim_head, cuda, torch.bfloat16, seed=3)
     scale = dim_head ** -0.5
-    # the forward's outputs from the plain version: K4f holds N <= 424 at Dh 64
+    choice = None if path == "auto" else "stream"
     o, lse = fl.flash_fwd_plain(q, k, v, scale, num_special)
-    before = fl.launches["flash_bwd"]
-    if n == 443 and dim_head == 64:
-        with pytest.raises(ValueError, match="shared memory"):
-            fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
-        assert fl.launches["flash_bwd"] == before
-        return
-    grads = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
+    key = fl.bwd_kernel(n, dim_head, torch.bfloat16) if choice is None else "flash_bwd_stream"
+    before = fl.launches[key]
+    grads = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special, kernel=choice)
     plain = fl.flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
     torch.cuda.synchronize()
-    assert fl.launches["flash_bwd"] == before + 1
+    assert fl.launches[key] == before + 1
     for a, p in zip(grads, plain):
         assert a.dtype == torch.bfloat16 and a.shape == q.shape
         assert _max_err(a, p) <= _bf16_tol(p)
-    again = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special)
+    again = fl.flash_bwd(q, k, v, o, lse, do, scale, num_special, kernel=choice)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # deterministic
 
 
-# kernel -> its shared memory in bytes as a function of (N, Dh, dtype)
-SMEM = {
-    "flash_qkv_fwd": fq.fwd_smem, "flash_qkv_bwd": fq.bwd_smem,
-    "flash_fwd": lambda n, dh, dtype: fl.fwd_smem(n, dh), "flash_bwd": fl.bwd_smem,
-    "flash_dropout_fwd": lambda n, dh, dtype: fd.fwd_smem(n, dh),
-    "flash_dropout_bwd": fd.bwd_smem,
-}
-
-
-def _calls(kernel, n, dh, h, dtype, device):
+def _calls(kernel, n, dh, h, dtype, device, ns=2, choice=None):
     """``(kernel call, plain call)`` of one wrapper at ``[1, h, n, dh]``, each
-    returning a tuple of outputs."""
-    seeds, rate, ns = (3, 5), 0.1, 2
+    returning a tuple of outputs (lse last for a forward); ``choice`` goes to
+    the ``kernel`` argument of the wrappers that have one."""
+    seeds, rate = (3, 5), 0.1
     scale = dh ** -0.5
     q, k, v, do = _heads(1, h, n, dh, device, dtype, seed=4)
     if kernel.startswith("flash_qkv"):
@@ -660,9 +650,9 @@ def _calls(kernel, n, dh, h, dtype, device):
         args = (h, dh, scale, ns, seeds, rate)
         lse = fq.flash_qkv_fwd_plain(qkv, *args)[1]
         return {
-            "flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args),
+            "flash_qkv_fwd": (lambda: fq.flash_qkv_fwd(qkv, *args, kernel=choice),
                               lambda: fq.flash_qkv_fwd_plain(qkv, *args)),
-            "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse, g, *args),),
+            "flash_qkv_bwd": (lambda: (fq.flash_qkv_bwd(qkv, lse, g, *args, kernel=choice),),
                               lambda: (fq.flash_qkv_bwd_plain(qkv, lse, g, *args),)),
         }[kernel]
     if kernel.startswith("flash_dropout"):
@@ -672,38 +662,138 @@ def _calls(kernel, n, dh, h, dtype, device):
             "flash_dropout_fwd": (lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns),
                                   lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate,
                                                                      scale, ns)),
-            "flash_dropout_bwd": (lambda: fd.flash_dropout_bwd(*bargs),
+            "flash_dropout_bwd": (lambda: fd.flash_dropout_bwd(*bargs, kernel=choice),
                                   lambda: fd.flash_dropout_bwd_plain(*bargs)),
         }[kernel]
     o, lse = fl.flash_fwd_plain(q, k, v, scale, ns)
     return {
         "flash_fwd": (lambda: fl.flash_fwd(q, k, v, scale, ns),
                       lambda: fl.flash_fwd_plain(q, k, v, scale, ns)),
-        "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, ns),
+        "flash_bwd": (lambda: fl.flash_bwd(q, k, v, o, lse, do, scale, ns, kernel=choice),
                       lambda: fl.flash_bwd_plain(q, k, v, o, lse, do, scale, ns)),
     }[kernel]
 
 
+# ---------------------------------------------------------------------------
+# K1, K3 and K4 stream their operands: any N
+# ---------------------------------------------------------------------------
+
+ATTENTION_KERNELS = ("flash_qkv_fwd", "flash_qkv_bwd", "flash_fwd", "flash_bwd",
+                     "flash_dropout_fwd", "flash_dropout_bwd")
+
+
+def _module(kernel):
+    return {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}[kernel.rsplit("_", 1)[0]]
+
+
+def _key(kernel, n, dim_head, dtype, choice):
+    """The ``launches`` key of a call of ``kernel`` with ``kernel=choice``."""
+    mod = _module(kernel)
+    picked = getattr(mod, "fwd_kernel" if kernel.endswith("fwd") else "bwd_kernel", None)
+    if picked is None:  # K3f, K4f: one kernel
+        return kernel
+    return picked(n, dim_head, dtype) if choice is None else kernel + "_stream"
+
+
+@pytest.mark.parametrize("path", ["auto", "stream"])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("n", [37, 198, 443, 786, 1766])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kernel", list(SMEM))
-def test_wrappers_raise_past_the_kernel_limit(cuda, kernel, dtype):
-    """At ``Dh`` 32 the longest N a kernel holds in shared memory launches it
-    and matches the plain version; one token more raises before any launch,
-    naming the streaming route that takes any N."""
-    mod = {"flash_qkv": fq, "flash": fl, "flash_dropout": fd}[kernel.rsplit("_", 1)[0]]
-    dh, h = 32, 2
-    n = next(m for m in range(64, 4096) if SMEM[kernel](m, dh, dtype) > _build.SMEM_LIMIT)
-    call, plain = _calls(kernel, n - 1, dh, h, dtype, cuda)
-    launched = mod.launches[kernel]
-    got, want = call(), plain()
+@pytest.mark.parametrize("kernel", ATTENTION_KERNELS)
+def test_attention_kernels_take_any_n(cuda, kernel, dtype, n, dim_head, num_special, path):
+    """Every function of K1, K3 and K4 in both dtypes, at the sequences of
+    patch 4, 3 and 2 and at 37 and 198: by shape (``auto``: the whole-head
+    bf16 kernel where it fits) and on the streaming kernel (``stream``), one
+    launch per call under the kernel's own key, within one bf16 rounding
+    (bf16) or 1e-4 of scale (float32) of the plain version, lse within 1e-4,
+    equal bits twice."""
+    mod = _module(kernel)
+    choice = None if path == "auto" else "stream"
+    call, plain = _calls(kernel, n, dim_head, 2, dtype, cuda, ns=num_special, choice=choice)
+    key = _key(kernel, n, dim_head, dtype, choice)
+    before = mod.launches[key]
+    got = call()
+    want = plain()
     torch.cuda.synchronize()
-    assert mod.launches[kernel] == launched + 1
-    for a, p in zip(got, want):
+    assert mod.launches[key] == before + 1
+    outs = got[:-1] if kernel.endswith("fwd") else got
+    refs = want[:-1] if kernel.endswith("fwd") else want
+    for a, p in zip(outs, refs):
+        assert a.dtype == dtype
         assert _max_err(a, p) <= _tol(p, dtype)
-    call, _ = _calls(kernel, n, dh, h, dtype, cuda)
-    with pytest.raises(ValueError, match="shared memory.*pallas_stream"):
-        call()
-    assert mod.launches[kernel] == launched + 1
+    if kernel.endswith("fwd"):
+        assert _max_err(got[-1], want[-1]) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))  # deterministic
+
+
+def test_attention_shared_memory_does_not_grow_with_n(cuda):
+    """Each kernel's shared memory is a function of Dh and the dtype alone,
+    within one block's limit; every kernel launches at N = 3,137."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in (16, 32, 64):
+            sizes = [fq.fwd_smem(dh, dtype), *fq.bwd_smem(dh, dtype), fl.fwd_smem(dh, dtype),
+                     *fl.bwd_smem(dh, dtype), fd.fwd_smem(dh, dtype), *fd.bwd_smem(dh, dtype)]
+            assert all(0 < b <= _build.SMEM_LIMIT for b in sizes), (dtype, dh, sizes)
+    for kernel in ATTENTION_KERNELS:
+        mod = _module(kernel)
+        call, _ = _calls(kernel, 3137, 64, 1, torch.bfloat16, cuda)
+        key = _key(kernel, 3137, 64, torch.bfloat16, None)
+        assert key.endswith("_stream") or kernel in ("flash_fwd", "flash_dropout_fwd")
+        before = mod.launches[key]
+        out = call()
+        torch.cuda.synchronize()
+        assert mod.launches[key] == before + 1
+        assert all(torch.isfinite(t.float()).all() for t in out)
+
+
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", MMA_N)
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dropout_fwd"])
+def test_bf16_flash_forward_kernels_match_plain(cuda, kernel, n, num_special, dim_head):
+    """K4f (rate 0) and K3f (rate 0.1) on the tensor cores, sigma' kept f32
+    as two bf16 terms: o within one bf16 rounding, lse within 1e-4, equal
+    bits twice."""
+    q, k, v = _heads(3, 2, n, dim_head, cuda, torch.bfloat16, count=3, seed=6)
+    scale, seeds = dim_head ** -0.5, (123, 456)
+    if kernel == "flash_fwd":
+        call = lambda: fl.flash_fwd(q, k, v, scale, num_special)  # noqa: E731
+        po, plse = fl.flash_fwd_plain(q, k, v, scale, num_special)
+    else:
+        call = lambda: fd.flash_dropout_fwd(q, k, v, seeds, 0.1, scale, num_special)  # noqa: E731
+        po, plse = fd.flash_dropout_fwd_plain(q, k, v, seeds, 0.1, scale, num_special)
+    mod = _module(kernel)
+    before = mod.launches[kernel]
+    o, lse = call()
+    torch.cuda.synchronize()
+    assert mod.launches[kernel] == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert _max_err(o, po) <= _bf16_tol(po)
+    assert _max_err(lse, plse) <= 1e-4
+    o2, lse2 = call()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # deterministic
+
+
+@pytest.mark.parametrize("choice", ["head", "stream"])
+def test_bf16_flash_backward_keeps_a_cancelling_dq(cuda, choice):
+    """K4b keeps p and ds in float32 (two bf16 terms each): on keys that make
+    dq nearly cancel, its dq errs at most a tenth as much as the dq of the
+    same formulas with ds rounded to bf16 before ``ds k``; both kernels."""
+    b, h, n, dh, ns = 2, 4, 198, 32, 2
+    q, k, v, do = _cancelling_heads(b, h, n, dh, cuda)
+    scale = dh ** -0.5
+    o, lse = fl.flash_fwd(q, k, v, scale, ns)
+    dq = fl.flash_bwd(q, k, v, o, lse, do, scale, ns, kernel=choice)[0]
+    gf = do.float()
+    p = torch.exp(fl.masked_scores(q, k, scale, ns) - lse[..., None])
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = p * (dp - (gf * o.float()).sum(dim=-1, keepdim=True)) * scale
+    dq_plain = torch.matmul(ds, k.float()).to(torch.bfloat16).float()
+    dq_rounded = torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    err, err_rounded = _max_err(dq, dq_plain), _max_err(dq_rounded, dq_plain)
+    assert err_rounded > 0 and err <= 0.1 * err_rounded, (err, err_rounded)
 
 
 def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):

@@ -2,20 +2,25 @@
 """Build variants of the tensor-core attention kernels and time them on one GPU.
 
 Each variant is ``eavit_tpu_torch/csrc/`` with some constants of the
-tensor-core templates replaced: ``kMmaWarps`` and ``kMinBlocks`` of
-``attn_bwd_mma.cuh`` (the bf16 K1b, K3b and K4b), ``kMmaFwdWarps`` and
-``kMmaFwdMinBlocks`` of ``attn_fwd_mma.cuh`` (the bf16 K1f). Every variant
-is compiled into ``flash_qkv.cu`` (K1f), ``flash_qkv_bwd.cu`` (K1b),
-``flash_dropout.cu`` (K3b) and ``flash.cu`` (K4b) with the flags of
+tensor-core templates replaced: the streaming templates' ``kFwdWarps``,
+``kFwdKeys`` and ``kFwdMinBlocks`` (``attn_fwd_mma.cuh``: the bf16 K3f, K4f
+and the streaming K1f) and ``kBwdWarps``, ``kBwdKeys`` and ``kBwdMinBlocks``
+(``attn_bwd_mma.cuh``: the streaming K1b, K3b and K4b), and the whole-head
+kernels' ``kHeadFwdWarps`` / ``kHeadFwdMinBlocks`` (``attn_fwd_head.cuh``,
+K1f) and ``kHeadWarps`` / ``kHeadMinBlocks`` (``attn_bwd_head.cuh``, K1b, K3b
+and K4b). Every variant is compiled into ``flash_qkv.cu``,
+``flash_qkv_bwd.cu``, ``flash_dropout.cu`` and ``flash.cu`` with the flags of
 ``ops/_build.py``, all at once. Per variant it prints the registers and
 spills ptxas reports for the ``Dh`` = 32 kernels, holds each kernel to its
 plain version on a few heads, and times them with CUDA events at the
-flagship minibatch ``[256, 8, 198, 32]`` (K1f and K1b at rate 0 and 0.1,
-K3b at 0.1, K4b), the stacked one ``[512, 8, 197, 32]`` and, for K1f, the
-act shape ``[64, 8, 198, 32]``, in turns (every variant once, then again in
-reverse order). Run from the root of a checkout on a machine with a GPU:
+flagship minibatch ``[256, 8, 198, 32]``, the stacked one ``[512, 8, 197,
+32]``, the act shape ``[64, 8, 198, 32]`` (forwards), the patch-4 and
+patch-3 sequences ``[64, 8, 443, 32]`` and ``[16, 8, 786, 32]`` (the
+whole-head kernels where a head fits), in turns (every variant once, then
+again in reverse order). Run from the root of a checkout on a
+machine with a GPU:
 
-    python3 tune_attn_bwd.py '{"base": {}, "w4": {"kMmaWarps": 4}}'
+    python3 tune_attn_bwd.py '{"base": {}, "k128": {"kFwdKeys": 128}}'
 
 Builds go to ``_archive/tune_bwd/`` (listed in ``.gitignore``).
 """
@@ -31,9 +36,19 @@ import subprocess
 import sys
 
 SOURCES = ("flash_qkv", "flash_qkv_bwd", "flash_dropout", "flash")
-HEADERS = ("attn_bwd_mma.cuh", "attn_fwd_mma.cuh")
-# (B, N, num_special, backward kernels too) at H = 8, Dh = 32
-SHAPES = [(256, 198, 2, True), (512, 197, 0, True), (64, 198, 2, False)]
+HEADERS = ("attn_bwd_mma.cuh", "attn_fwd_mma.cuh", "attn_bwd_head.cuh", "attn_fwd_head.cuh")
+# (B, N, num_special, which kernels) at H = 8, Dh = 32: "all" or "fwd" (the
+# forwards); the whole-head kernels only where a head fits
+SHAPES = [(256, 198, 2, "all"), (512, 197, 0, "all"), (64, 198, 2, "fwd"),
+          (64, 443, 2, "all"), (16, 786, 2, "all")]
+# a kernel name of ptxas -> the variant label of its report
+KERNEL_RE = (
+    (r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", "fwd"),
+    (r"attn_dq_mma_kernelILi(\d+)ELb([01])ELb([01])ELb[01]E", "dq"),
+    (r"attn_dkv_mma_kernelILi(\d+)ELb([01])ELb([01])E", "dkv"),
+    (r"attn_fwd_head_kernelILi(\d+)()ELb([01])E", "fwd head"),
+    (r"attn_bwd_head_kernelILi(\d+)ELb([01])ELb([01])ELb[01]E", "bwd head"),
+)
 
 
 def build(variants, out_dir):
@@ -68,15 +83,17 @@ def build(variants, out_dir):
         log = proc.communicate()[0]
         regs, kernel = {}, None
         for line in log.splitlines():
-            m = (re.search(r"attn_bwd_mma_kernelILi(\d+)ELb[01]ELb([01])ELb[01]E", line)
-                 or re.search(r"attn_fwd_mma_kernelILi(\d+)ELb([01])E", line))
-            if m:
-                kernel = f"Dh{m.group(1)}{' dropout' if m.group(2) == '1' else ''}"
-            elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
-                regs.setdefault(kernel, {})["spill_stores"] = int(m.group(1))
-            elif kernel and (m := re.search(r"Used (\d+) registers", line)):
-                regs.setdefault(kernel, {})["registers"] = int(m.group(1))
-                kernel = None
+            for pattern, kind in KERNEL_RE:
+                if m := re.search(pattern, line):
+                    kernel = (f"Dh{m.group(1)} {kind}" + (" rounded" if m.group(2) == "1" else "")
+                              + (" dropout" if m.group(3) == "1" else ""))
+                    break
+            else:
+                if kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
+                    regs.setdefault(kernel, {})["spill_stores"] = int(m.group(1))
+                elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+                    regs.setdefault(kernel, {})["registers"] = int(m.group(1))
+                    kernel = None
         print(json.dumps({"variant": name, "source": src, "constants": variants[name],
                           "rc": proc.returncode,
                           "ptxas": {k: v for k, v in regs.items() if k.startswith("Dh32")}}),
@@ -130,7 +147,7 @@ def main() -> int:
 
     h, dh, seeds = 8, 32, (0x1234ABCD, 0x0BADF00D)
     scale = dh ** -0.5
-    for b, n, ns, backward in SHAPES:
+    for b, n, ns, which in SHAPES:
         g = torch.Generator().manual_seed(n)
         q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16)
                        for _ in range(4))
@@ -140,27 +157,45 @@ def main() -> int:
         o4, lse4 = fl.flash_fwd(q, k, v, scale, ns)
         lse1 = {r: fq.flash_qkv_fwd(qkv, h, dh, scale, ns, seeds, r)[1] for r in (0.0, 0.1)}
         few = slice(0, 4)  # the plain versions on four batch rows
+        fits = {"k1f": fq.head_fits("fwd", n, dh, torch.bfloat16),
+                "k1b": fq.head_fits("bwd", n, dh, torch.bfloat16),
+                "k3b": fd.head_fits(n, dh, torch.bfloat16),
+                "k4b": fl.head_fits(n, dh, torch.bfloat16)}
         calls = {  # kernel -> (call, plain call on the first rows, output compared)
-            **{f"k1f_rate{r}": (
-                lambda r=r: fq.flash_qkv_fwd(qkv, h, dh, scale, ns, seeds, r)[0],
-                lambda r=r: fq.flash_qkv_fwd_plain(qkv[few], h, dh, scale, ns, seeds, r)[0])
-               for r in (0.0, 0.1)},
+            "k3f": (lambda: fd.flash_dropout_fwd(q, k, v, seeds, 0.1, scale, ns)[0],
+                    lambda: fd.flash_dropout_fwd_plain(q[few], k[few], v[few], seeds, 0.1,
+                                                       scale, ns)[0]),
+            "k4f": (lambda: fl.flash_fwd(q, k, v, scale, ns)[0],
+                    lambda: fl.flash_fwd_plain(q[few], k[few], v[few], scale, ns)[0]),
         }
-        if backward:
+        for kern in ("head", "stream"):
+            calls.update({f"k1f_{kern}_rate{r}": (
+                lambda r=r, kern=kern: fq.flash_qkv_fwd(qkv, h, dh, scale, ns, seeds, r,
+                                                        kernel=kern)[0],
+                lambda r=r: fq.flash_qkv_fwd_plain(qkv[few], h, dh, scale, ns, seeds, r)[0])
+                for r in (0.0, 0.1)})
+            if which == "fwd":
+                continue
             calls.update({
-                **{f"k1b_rate{r}": (
-                    lambda r=r: fq.flash_qkv_bwd(qkv, lse1[r], gm, h, dh, scale, ns, seeds, r),
+                **{f"k1b_{kern}_rate{r}": (
+                    lambda r=r, kern=kern: fq.flash_qkv_bwd(qkv, lse1[r], gm, h, dh, scale, ns,
+                                                            seeds, r, kernel=kern),
                     lambda r=r: fq.flash_qkv_bwd_plain(qkv[few], lse1[r][few], gm[few], h, dh,
                                                        scale, ns, seeds, r))
                    for r in (0.0, 0.1)},
-                "k3b_rate0.1": (
-                    lambda: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, 0.1, scale, ns)[0],
+                f"k3b_{kern}_rate0.1": (
+                    lambda kern=kern: fd.flash_dropout_bwd(q, k, v, lse3, do, seeds, 0.1, scale,
+                                                           ns, kernel=kern)[0],
                     lambda: fd.flash_dropout_bwd_plain(q[few], k[few], v[few], lse3[few],
                                                        do[few], seeds, 0.1, scale, ns)[0]),
-                "k4b": (lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns)[0],
-                        lambda: fl.flash_bwd_plain(q[few], k[few], v[few], o4[few], lse4[few],
-                                                   do[few], scale, ns)[0]),
+                f"k4b_{kern}": (
+                    lambda kern=kern: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns,
+                                                   kernel=kern)[0],
+                    lambda: fl.flash_bwd_plain(q[few], k[few], v[few], o4[few], lse4[few],
+                                               do[few], scale, ns)[0]),
             })
+        calls = {c: f for c, f in calls.items()  # no whole-head kernel where a head does not fit
+                 if "_head" not in c or fits[c.split("_")[0]]}
         plain = {kernel: p() for kernel, (_, p) in calls.items()}
         times = {name: {} for name in built}
         for name in built + built[::-1]:

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Build variants of the KV-streaming kernels and time them on one GPU.
 
-Each variant is ``eavit_tpu_torch/csrc/flash_stream.cu`` with some of its
-tile constants replaced (``kDims``, ``kFwdChunk``, ``kBwdChunk``, ``kRows``,
-``kTile``); every variant is compiled by its own ``nvcc`` (all at once, with
+Each variant is ``eavit_tpu_torch/csrc/flash_stream.cu`` with some of the
+tile constants of its template ``flash_stream.cuh`` replaced (``kDims``,
+``kFwdChunk``, ``kBwdChunk``, ``kRows``, ``kTile``); every variant is
+compiled by its own ``nvcc`` (all at once, with
 the flags of ``ops/_build.py``), its registers and stack per kernel are read
 from ptxas, and K5f, K5q and K5kv are held to the plain versions on a few
 heads and timed with CUDA events at the flagship minibatch and at long
-sequences. Run from the root of a checkout on a machine with a GPU:
+sequences, every variant once and then again in reverse order. A variant
+``{"csrc": DIR}`` builds ``DIR/flash_stream.cu`` as it is instead (another
+checkout's K5, whose C interface is the same), to compare two commits in
+one call. Run from the root of a checkout on a machine with a GPU:
 
     python3 tune_flash_stream.py '{"base": {}, "chunk8": {"kBwdChunk": 8}}'
 
@@ -30,18 +34,29 @@ SHAPES = [(256, 8, 198, 32, 2), (64, 8, 198, 16, 2), (64, 8, 785, 64, 0),
 def build(variants, out_dir):
     from eavit_tpu_torch.ops import _build
 
-    src = (_build.CSRC / "flash_stream.cu").read_text()
+    src = (_build.CSRC / "flash_stream.cuh").read_text()
     procs = {}
     for name, subs in variants.items():
+        if "csrc" in subs:  # another checkout's sources, as they are
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", subs["csrc"],
+                   "-o", os.path.join(out_dir, f"{name}.so"),
+                   os.path.join(subs["csrc"], "flash_stream.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+            continue
         text = src
         for key, value in subs.items():
             text, n = re.subn(rf"constexpr int {key} = \d+;", f"constexpr int {key} = {value};",
                               text)
             if n != 1:
                 raise SystemExit(f"{name}: no constant {key}")
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as fh:
+        vdir = os.path.join(out_dir, name)  # the variant's template beside its source
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "flash_stream.cuh"), "w") as fh:
             fh.write(text)
+        path = os.path.join(vdir, "flash_stream.cu")
+        with open(path, "w") as fh:
+            fh.write((_build.CSRC / "flash_stream.cu").read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", os.path.join(out_dir, f"{name}.so"), path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -104,7 +119,7 @@ def main() -> int:
         ref_delta = fs.stream_delta(ref_o, do[few])
         ref = fs.flash_stream_bwd_plain(q[few], k[few], v[few], ref_lse, ref_delta, do[few],
                                         sc, ns)
-        for name in built:
+        for name in built + built[::-1]:
             _build._libs["flash_stream"] = ctypes.CDLL(os.path.abspath(
                 os.path.join(out_dir, f"{name}.so")))
             sub = [t[few].contiguous() for t in (q, k, v, do)]
