@@ -1,9 +1,11 @@
 // Attention backward on Hopper's tensor cores for bf16 inputs, in two kernels
 // that stream their operands so that no buffer grows with N: the template of
 // K1b (csrc/flash_qkv_bwd.cu, from the merged qkv projection), K3b
-// (csrc/flash_dropout.cu, on [B*H, N, Dh] with probability dropout) and K4b
-// (csrc/flash.cu, on [B*H, N, Dh], no dropout, delta from the forward's O).
-// Their float32 forms run on flash_stream.cuh's CUDA-core template, whose
+// (csrc/flash_dropout.cu, on [B*H, N, Dh] with probability dropout), K4b
+// (csrc/flash.cu, on [B*H, N, Dh], no dropout, delta from the forward's O)
+// and K5q / K5kv (csrc/flash_stream.cu, on [B*H, N, Dh], no dropout, delta
+// given), which launch the dq and the dk/dv kernel as two functions. Their
+// float32 forms run on flash_stream.cuh's CUDA-core template, whose
 // products stay in float32 as the JAX kernels' do.
 //
 // What it computes, per batch row b and head h (lse from the forward):
@@ -12,9 +14,11 @@
 //   keep   = the forward's mask: Philox (philox.cuh), stream 0, element
 //            ((b*H + h)*N + i)*N + j, keep = (bits >> 8) < thresh
 //   pd     = keep ? sigma * inv_keep : 0,  dsigma = keep ? (dO v^T) * inv_keep : 0
-//   rowsum = sum_j dsigma * sigma            (f32, from the unrounded sigma)
-//            or, with DELTA_FROM_O, delta = sum_d dO * O from the O the
-//            forward wrote (K4b, eavit_tpu/ops/flash.py:179)
+//   rowsum = sum_j dsigma * sigma            (f32, from the unrounded sigma;
+//            ROWTERM = kRowsum, K1b and K3b), or delta = sum_d dO * O from
+//            the O the forward wrote (kDeltaFromO, K4b,
+//            eavit_tpu/ops/flash.py:179), or the caller's delta (kGiven, K5,
+//            eavit_tpu/ops/flash_stream.py:273-274)
 //   ds     = sigma * (dsigma - rowsum) * scale
 //   dv = pd^T dO,  dq = ds k,  dk = ds^T q
 // with every sum in f32. The kernels differ in how pd and ds enter their
@@ -23,8 +27,10 @@
 //     rounded to bf16 (`pd.astype(dt)`, `ds.astype(dt)`), so one bf16
 //     m16n8k16 mma with f32 accumulation is that kernel's product exactly,
 //     apart from the order of the sums;
-//   K3b (eavit_tpu/ops/flash_dropout.py `_bwd_kernel`, 150-196) and K4b
-//     (eavit_tpu/ops/flash.py `_bwd_kernel`, 147-189): pd and ds stay f32.
+//   K3b (eavit_tpu/ops/flash_dropout.py `_bwd_kernel`, 150-196), K4b
+//     (eavit_tpu/ops/flash.py `_bwd_kernel`, 147-189) and K5q / K5kv
+//     (eavit_tpu/ops/flash_stream.py `_bwd_dq_kernel` 183-218,
+//     `_bwd_dkv_kernel` 221-262): pd and ds stay f32.
 //     Each row of ds sums to about 0, so dq = ds k cancels and a bf16 ds
 //     would swamp it: pd and ds enter as two bf16 terms, hi = bf16(x) and
 //     lo = bf16(x - hi), two mmas per product (relative error ~2^-17).
@@ -40,15 +46,17 @@
 //     double buffer (cp.async). Sweep 0 (K1b, K3b) recomputes S = Q K^T and
 //     dP = dO V^T by mma and sums rowsum with quad shuffles; K4b sums delta
 //     from O instead. Either is written to a [B, H, N] f32 scratch for the
-//     dk/dv kernel. Sweep 1 recomputes S and dP, forms ds and feeds it
-//     straight from the accumulators as the A operand of dQ += dS K (the
-//     FlashAttention-2 register re-pack), and writes dq.
+//     dk/dv kernel. K5 reads the caller's delta and writes nothing but dq.
+//     Sweep 1 (the only one but for kRowsum) recomputes S and dP, forms ds
+//     and feeds it straight from the accumulators as the A operand of dQ +=
+//     dS K (the FlashAttention-2 register re-pack), and writes dq.
 //   dk/dv kernel, one block per (b, h, chunk of kBwdWarps x 16 keys), each
 //     warp owning 16 keys; the chunk's K and V in shared memory, Q and dO
 //     streamed in tiles with their lse and rowsum (or delta). It forms S^T =
 //     K Q^T and dP^T = V dO^T, so that pd^T and ds^T come out in the
 //     accumulator layout and feed dV += pd^T dO and dK += ds^T Q as A
-//     operands from registers.
+//     operands from registers. It reads the row term of each streamed query
+//     row and never writes it, so K5kv may run first, or alone.
 // Every output has one owner and every sum a fixed order: no float atomics,
 // equal bits twice. Shared memory is (2 x kBwdWarps x 16 + 4 kBwdKeys) rows of
 // Dh + 8 bf16 (the dk/dv kernel also 4 kBwdKeys floats), whatever N is: 30 KB
@@ -80,18 +88,21 @@ constexpr int kBwdMinBlocks = 4;
 // Operand layout of one kernel: element (b, h, token t, dim d) of q, k, v, dq,
 // dk and dv sits at ptr + b*x_batch + h*x_head + t*x_tok + d; of dO (and O)
 // with the g_ strides. K1b: the merged qkv [B, N, 3*H*Dh]; K3b and K4b:
-// [B*H, N, Dh] with H = 1. lse and rowterm are [B, H, N].
+// [B*H, N, Dh] with H = 1. lse and the row term are [B, H, N].
 struct MmaBwdArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const __nv_bfloat16* g;  // dO
-  const __nv_bfloat16* o;  // the forward's output, DELTA_FROM_O only
+  const __nv_bfloat16* o;  // the forward's output, kDeltaFromO only
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   const float* lse;
-  float* rowterm;  // rowsum or delta: written by the dq kernel, read by the dk/dv kernel
+  const float* rowterm;  // rowsum or delta as the dk/dv kernel (and the dq kernel
+                         // under kGiven) reads it
+  float* rowterm_out;    // the same buffer, where the dq kernel writes it under
+                         // kDeltaFromO and kRowsum
   long long x_batch, x_head, x_tok;
   long long g_batch, g_head, g_tok;
   int B, H, N;
@@ -101,6 +112,25 @@ struct MmaBwdArgs {
   float inv_keep;
   uint32_t s0, s1;
 };
+
+// The arguments of a backward on contiguous [B*H, N, Dh] operands (K3b, K4b,
+// K5q, K5kv): H = 1, dO laid out as q, no dropout; the caller adds O, the row
+// term and the mask where its kernel takes them
+inline MmaBwdArgs mma_bwd_head_major(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, void* dq, void* dk,
+                                     void* dv, int BH, int N, int DH, float scale,
+                                     int num_special) {
+  using bf16 = __nv_bfloat16;
+  MmaBwdArgs a{};
+  a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
+  a.dq = static_cast<bf16*>(dq), a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
+  a.lse = static_cast<const float*>(lse), a.scale = scale, a.num_special = num_special;
+  a.inv_keep = 1.f;
+  mma_head_major(a, BH, N, DH);
+  a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
+  return a;
+}
 
 // shared memory of one block of either kernel: its chunk's two operands and
 // two double-buffered streamed ones (the dk/dv kernel adds the streamed rows'
@@ -174,7 +204,7 @@ __device__ __forceinline__ long long block_x_offset(const MmaBwdArgs& a) {
 }
 
 // ---- dq: one block per (b, h, chunk of query rows), K and V streamed ----
-template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
+template <int DH, bool ROUND, bool DROPOUT, int ROWTERM>
 __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
     attn_dq_mma_kernel(MmaBwdArgs a) {
   using bf16 = __nv_bfloat16;
@@ -196,7 +226,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
   const bool active = i0 < N;  // warp-uniform: a tile past N only loads and syncs
   const int rows[2] = {i0 + g, i0 + g + 8};
   const bool live[2] = {rows[0] < N, rows[1] < N};
-  constexpr int SWEEPS = DELTA_FROM_O ? 1 : 2;  // sweep 0 sums rowsum
+  constexpr int SWEEPS = ROWTERM == kRowsum ? 2 : 1;  // sweep 0 sums rowsum
 
   auto issue = [&](int s) {
     const int t = s % T, buf = s & 1;
@@ -212,6 +242,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     l2[r] = live[r] ? a.lse[static_cast<long long>(bh) * N + rows[r]] * kLog2e : 0.f;
+  if constexpr (ROWTERM == kGiven) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rterm[r] = live[r] ? a.rowterm[static_cast<long long>(bh) * N + rows[r]] : 0.f;
+  }
   float dq[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
@@ -229,11 +264,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int t = s % T, sweep = DELTA_FROM_O ? 1 : s / T;
+    const int t = s % T, sweep = SWEEPS == 1 ? 1 : s / T;
     const bf16* kt = ks + (s & 1) * KT * LD;
     const bf16* vt = vs + (s & 1) * KT * LD;
     if (active) {
-      if constexpr (DELTA_FROM_O) {
+      if constexpr (ROWTERM == kDeltaFromO) {
         if (s == 0) {
           // delta = sum_d dO * O in f32: lane t4 of quad g sums a quarter of
           // the dims of rows g and g+8 (O from global memory, dO from shared),
@@ -257,7 +292,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
             part += __shfl_xor_sync(0xffffffffu, part, 1);
             part += __shfl_xor_sync(0xffffffffu, part, 2);
             rterm[r] = part;
-            if (t4 == 0 && live[r]) a.rowterm[static_cast<long long>(bh) * N + rows[r]] = part;
+            if (t4 == 0 && live[r])
+              a.rowterm_out[static_cast<long long>(bh) * N + rows[r]] = part;
           }
         }
       }
@@ -302,13 +338,14 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
           acc_times_rows<DH, ROUND>(dq, hi, lo, kt, sb * 16, lane);
         }
       }
-      if (!DELTA_FROM_O && s == T - 1) {
+      if (ROWTERM == kRowsum && s == T - 1) {
         // end of sweep 0: the quad adds its columns' parts of rowsum
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           rterm[r] += __shfl_xor_sync(0xffffffffu, rterm[r], 1);
           rterm[r] += __shfl_xor_sync(0xffffffffu, rterm[r], 2);
-          if (t4 == 0 && live[r]) a.rowterm[static_cast<long long>(bh) * N + rows[r]] = rterm[r];
+          if (t4 == 0 && live[r])
+            a.rowterm_out[static_cast<long long>(bh) * N + rows[r]] = rterm[r];
         }
       }
     }
@@ -446,35 +483,68 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
   }
 }
 
-template <int DH, bool ROUND, bool DROPOUT, bool DELTA_FROM_O>
-cudaError_t launch_mma_bwd_t(const MmaBwdArgs& a, cudaStream_t stream) {
-  constexpr size_t dq_smem = mma_dq_smem_bytes(DH), dkv_smem = mma_dkv_smem_bytes(DH);
-  cudaError_t err = allow_smem(attn_dq_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>, dq_smem);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(attn_dkv_mma_kernel<DH, ROUND, DROPOUT>, dkv_smem);
-  if (err != cudaSuccess) return err;
+// The grid of either kernel: one block per (b, h, chunk of kBwdWarps x 16 rows)
+inline bool mma_bwd_grid(const MmaBwdArgs& a, unsigned& grid) {
   const long long chunks = (a.N + kBwdWarps * 16 - 1) / (kBwdWarps * 16);
   const long long blocks = chunks * a.B * a.H;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const unsigned grid = static_cast<unsigned>(blocks);
-  attn_dq_mma_kernel<DH, ROUND, DROPOUT, DELTA_FROM_O>
-      <<<grid, kBwdWarps * 32, dq_smem, stream>>>(a);
-  err = cudaGetLastError();
+  grid = static_cast<unsigned>(blocks);
+  return blocks <= 0x7fffffffLL;
+}
+
+template <int DH, bool ROUND, bool DROPOUT, int ROWTERM>
+cudaError_t launch_mma_dq_t(const MmaBwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = mma_dq_smem_bytes(DH);
+  const cudaError_t err = allow_smem(attn_dq_mma_kernel<DH, ROUND, DROPOUT, ROWTERM>, smem);
   if (err != cudaSuccess) return err;
-  attn_dkv_mma_kernel<DH, ROUND, DROPOUT><<<grid, kBwdWarps * 32, dkv_smem, stream>>>(a);
+  unsigned grid;
+  if (!mma_bwd_grid(a, grid)) return cudaErrorInvalidValue;
+  attn_dq_mma_kernel<DH, ROUND, DROPOUT, ROWTERM><<<grid, kBwdWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Dh in {16, 32, 64} -> one instantiation of each kernel
-template <bool ROUND, bool DROPOUT, bool DELTA_FROM_O = false>
-cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
+template <int DH, bool ROUND, bool DROPOUT>
+cudaError_t launch_mma_dkv_t(const MmaBwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = mma_dkv_smem_bytes(DH);
+  const cudaError_t err = allow_smem(attn_dkv_mma_kernel<DH, ROUND, DROPOUT>, smem);
+  if (err != cudaSuccess) return err;
+  unsigned grid;
+  if (!mma_bwd_grid(a, grid)) return cudaErrorInvalidValue;
+  attn_dkv_mma_kernel<DH, ROUND, DROPOUT><<<grid, kBwdWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The dq kernel alone, Dh in {16, 32, 64}
+template <bool ROUND, bool DROPOUT, int ROWTERM>
+cudaError_t launch_mma_dq(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_mma_bwd_t<16, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
-    case 32: return launch_mma_bwd_t<32, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
-    case 64: return launch_mma_bwd_t<64, ROUND, DROPOUT, DELTA_FROM_O>(a, stream);
+    case 16: return launch_mma_dq_t<16, ROUND, DROPOUT, ROWTERM>(a, stream);
+    case 32: return launch_mma_dq_t<32, ROUND, DROPOUT, ROWTERM>(a, stream);
+    case 64: return launch_mma_dq_t<64, ROUND, DROPOUT, ROWTERM>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The dk/dv kernel alone: a.rowterm must hold the row term of every row
+template <bool ROUND, bool DROPOUT>
+cudaError_t launch_mma_dkv(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
+  if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
+  switch (DH) {
+    case 16: return launch_mma_dkv_t<16, ROUND, DROPOUT>(a, stream);
+    case 32: return launch_mma_dkv_t<32, ROUND, DROPOUT>(a, stream);
+    case 64: return launch_mma_dkv_t<64, ROUND, DROPOUT>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K1b, K3b and K4b: the dq kernel, which writes the row term to
+// a.rowterm_out, then the dk/dv kernel, which reads it (a.rowterm, the same
+// scratch)
+template <bool ROUND, bool DROPOUT, int ROWTERM = kRowsum>
+cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
+  const cudaError_t err = launch_mma_dq<ROUND, DROPOUT, ROWTERM>(DH, a, stream);
+  if (err != cudaSuccess) return err;
+  return launch_mma_dkv<ROUND, DROPOUT>(DH, a, stream);
 }
 
 // shared-memory bytes of each kernel at head width DH (any N); which: 0 = dq,

@@ -10,6 +10,13 @@
 // dtype codes passed from Python (ops/_build.py DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// How an attention backward's dq kernel finds the row term of ds = p (dp -
+// term) scale: given by the caller (K5, delta = sum(dO * O) outside), delta
+// summed from the forward's O (K4b), or rowsum = sum_j dsigma p from a first
+// sweep over the keys (K1b, K3b). Both backward templates take it
+// (flash_stream.cuh, attn_bwd_mma.cuh).
+enum RowTerm : int { kGiven = 0, kDeltaFromO = 1, kRowsum = 2 };
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

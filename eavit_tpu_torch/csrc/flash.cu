@@ -11,7 +11,7 @@
 // bf16 inputs run the tensor-core templates: the forward attn_fwd_mma.cuh at
 // rate 0 with sigma = p / l kept f32 as hi + lo bf16 terms (ROUND = false),
 // the backward attn_bwd_mma.cuh with p and ds as hi + lo terms, no mask and
-// delta from O (DELTA_FROM_O). float32 inputs run the CUDA-core template of
+// delta from O (kDeltaFromO). float32 inputs run the CUDA-core template of
 // flash_stream.cuh (the forward is K5f's instantiation, the dq pass sums
 // delta from O). All stream their operands, so they take any N. Where a
 // bf16 head fits in shared memory and N <= 256 the wrapper runs the
@@ -71,17 +71,11 @@ int eavit_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                     int num_special, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    using bf16 = __nv_bfloat16;
-    MmaBwdArgs a{};
-    a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
-    a.o = static_cast<const bf16*>(o), a.dq = static_cast<bf16*>(dq);
-    a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
-    a.lse = static_cast<const float*>(lse), a.rowterm = static_cast<float*>(delta);
-    a.scale = scale, a.num_special = num_special, a.inv_keep = 1.f;
-    mma_head_major(a, BH, N, DH);
-    a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
-    return launch_mma_bwd<false, false, true>(DH, a, st);
+    MmaBwdArgs a =
+        mma_bwd_head_major(q, k, v, dout, lse, dq, dk, dv, BH, N, DH, scale, num_special);
+    a.o = static_cast<const __nv_bfloat16*>(o);
+    a.rowterm = a.rowterm_out = static_cast<float*>(delta);
+    return launch_mma_bwd<false, false, kDeltaFromO>(DH, a, st);
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
   StreamArgs a{};
@@ -99,16 +93,9 @@ size_t eavit_flash_bwd_head_smem(int N, int DH) { return head_bwd_smem_bytes(N, 
 int eavit_flash_bwd_head(const void* q, const void* k, const void* v, const void* o,
                          const void* lse, const void* dout, void* dq, void* dk, void* dv,
                          int BH, int N, int DH, float scale, int num_special, void* stream) {
-  using bf16 = __nv_bfloat16;
-  MmaBwdArgs a{};
-  a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
-  a.o = static_cast<const bf16*>(o), a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
-  a.lse = static_cast<const float*>(lse), a.scale = scale, a.num_special = num_special;
-  a.inv_keep = 1.f;
-  mma_head_major(a, BH, N, DH);
-  a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
+  MmaBwdArgs a =
+      mma_bwd_head_major(q, k, v, dout, lse, dq, dk, dv, BH, N, DH, scale, num_special);
+  a.o = static_cast<const __nv_bfloat16*>(o);
   return launch_head_bwd<false, false, true>(DH, a, static_cast<cudaStream_t>(stream));
 }
 

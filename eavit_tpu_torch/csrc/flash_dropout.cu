@@ -88,16 +88,10 @@ int eavit_flash_dropout_bwd(const void* q, const void* k, const void* v,
                             uint32_t s0, uint32_t s1, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    using bf16 = __nv_bfloat16;
-    MmaBwdArgs a{};
-    a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
-    a.dq = static_cast<bf16*>(dq), a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
-    a.lse = static_cast<const float*>(lse), a.rowterm = static_cast<float*>(rowsum);
-    a.scale = scale, a.num_special = num_special;
+    MmaBwdArgs a =
+        mma_bwd_head_major(q, k, v, dout, lse, dq, dk, dv, BH, N, DH, scale, num_special);
+    a.rowterm = a.rowterm_out = static_cast<float*>(rowsum);
     a.thresh = thresh, a.inv_keep = inv_keep, a.s0 = s0, a.s1 = s1;
-    mma_head_major(a, BH, N, DH);
-    a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
     return launch_mma_bwd<false, true>(DH, a, st);
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
@@ -121,15 +115,9 @@ int eavit_flash_dropout_bwd_head(const void* q, const void* k, const void* v,
                                  void* dv, int BH, int N, int DH, float scale,
                                  int num_special, uint32_t thresh, float inv_keep,
                                  uint32_t s0, uint32_t s1, void* stream) {
-  using bf16 = __nv_bfloat16;
-  MmaBwdArgs a{};
-  a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v), a.g = static_cast<const bf16*>(dout);
-  a.dq = static_cast<bf16*>(dq), a.dk = static_cast<bf16*>(dk), a.dv = static_cast<bf16*>(dv);
-  a.lse = static_cast<const float*>(lse), a.scale = scale, a.num_special = num_special;
+  MmaBwdArgs a =
+      mma_bwd_head_major(q, k, v, dout, lse, dq, dk, dv, BH, N, DH, scale, num_special);
   a.thresh = thresh, a.inv_keep = inv_keep, a.s0 = s0, a.s1 = s1;
-  mma_head_major(a, BH, N, DH);
-  a.g_batch = a.x_batch, a.g_head = 0, a.g_tok = DH;
   return launch_head_bwd<false, true>(DH, a, static_cast<cudaStream_t>(stream));
 }
 

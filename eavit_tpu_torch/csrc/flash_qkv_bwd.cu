@@ -66,7 +66,7 @@ int eavit_flash_qkv_bwd(const void* qkv, const void* lse, const void* dout, void
     bf16* dx = static_cast<bf16*>(dqkv);
     MmaBwdArgs a{x, x + inner, x + 2 * inner, static_cast<const bf16*>(dout), nullptr,
                  dx, dx + inner, dx + 2 * inner, static_cast<const float*>(lse),
-                 static_cast<float*>(rowsum), N * tok, DH, tok, N * inner, DH, inner,
+                 static_cast<float*>(rowsum), static_cast<float*>(rowsum), N * tok, DH, tok, N * inner, DH, inner,
                  B, H, N, scale, num_special, thresh, inv_keep, s0, s1};
     return use_dropout ? launch_mma_bwd<true, true>(DH, a, st)
                        : launch_mma_bwd<true, false>(DH, a, st);
@@ -100,7 +100,7 @@ int eavit_flash_qkv_bwd_head(const void* qkv, const void* lse, const void* dout,
   bf16* dx = static_cast<bf16*>(dqkv);
   MmaBwdArgs a{x, x + inner, x + 2 * inner, static_cast<const bf16*>(dout), nullptr,
                dx, dx + inner, dx + 2 * inner, static_cast<const float*>(lse), nullptr,
-               N * tok, DH, tok, N * inner, DH, inner,
+               nullptr, N * tok, DH, tok, N * inner, DH, inner,
                B, H, N, scale, num_special, thresh, inv_keep, s0, s1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return use_dropout ? launch_head_bwd<true, true>(DH, a, st)

@@ -9,29 +9,38 @@
 // dk = ds^T q, dv = p^T dO (K5kv) with ds = p (dO v^T - delta) scale and
 // delta = sum(dO * O) per row computed outside, from the rounded O the
 // forward returned (flash_stream.py:273-274). Inputs are contiguous
-// [B*H, N, Dh], bf16 or f32. The kernels are the instantiations of
-// flash_stream.cuh without dropout and with the row term given, which
-// documents the design; the float32 K1, K3 and K4 are its other
-// instantiations.
+// [B*H, N, Dh], bf16 or f32. Which template runs which dtype:
+//   K5f, both dtypes: flash_stream.cuh's CUDA-core template without dropout
+//     (its online softmax), whose float32 form K4f shares;
+//   K5q and K5kv, bf16: the tensor-core backward attn_bwd_mma.cuh, its dq
+//     kernel and its dk/dv kernel launched alone, no dropout, p and ds kept
+//     f32 as hi + lo bf16 terms (ROUND = false, as K4b), the row term the
+//     caller's delta (kGiven), which neither kernel writes;
+//   K5q and K5kv, float32: flash_stream.cuh's CUDA-core dq and dk/dv passes
+//     with the row term given, the template that float32 K1b, K3b and K4b
+//     share.
 //
 // What bounds them on an H100: bytes at the flagship's N. At [256, 8, 198, 32]
 // bf16 the forward must move 105 MB against 10 GFLOP, the dq pass 133 MB
 // against 15 GFLOP, the dk/dv pass 159 MB against 20 GFLOP, all below the
 // bf16 tensor cores' 295 FLOP/byte; past N of about 1,000 at Dh = 64 the
-// operations bound instead. The design keeps scores and probabilities out of
-// device memory and reads each operand once per block. This first version
-// computes on the CUDA cores in f32 (no tensor cores); see PERF.md for its
-// measured time.
+// operations bound instead. The designs keep scores and probabilities out of
+// device memory and read each operand once per block; the bf16 backward's
+// products run on the tensor cores (mma.sync), the forward and the float32
+// passes on the CUDA cores in f32. See PERF.md for the measured times.
+#include "attn_bwd_mma.cuh"
 #include "flash_stream.cuh"
 
 namespace {
 
-// dtype: common.cuh's codes
+// K5f in either dtype, and the float32 K5q and K5kv; dtype: common.cuh's codes
 template <int W>
 int launch(int dtype, int DH, int BH, StreamArgs a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   head_major(a, a.N, DH);
-  if (dtype == kBF16) return launch_stream<W, __nv_bfloat16>(DH, BH, a, st);
+  if constexpr (W == kFwd) {
+    if (dtype == kBF16) return launch_stream<W, __nv_bfloat16>(DH, BH, a, st);
+  }
   if (dtype == kF32) return launch_stream<W, float>(DH, BH, a, st);
   return cudaErrorInvalidValue;
 }
@@ -40,10 +49,17 @@ int launch(int dtype, int DH, int BH, StreamArgs a, void* stream) {
 
 extern "C" {
 
-// Shared-memory bytes of each kernel at head width DH, whatever N is.
-size_t eavit_flash_stream_fwd_smem(int DH) { return stream_smem_by_dh(kFwd, DH); }
-size_t eavit_flash_stream_dq_smem(int DH) { return stream_smem_by_dh(kDq, DH); }
-size_t eavit_flash_stream_dkv_smem(int DH) { return stream_smem_by_dh(kDkv, DH); }
+// Shared-memory bytes of each kernel at head width DH in the given dtype
+// (common.cuh's codes), whatever N is.
+size_t eavit_flash_stream_fwd_smem(int DH, int dtype) {
+  return dtype == kBF16 || dtype == kF32 ? stream_smem_by_dh(kFwd, DH) : 0;
+}
+size_t eavit_flash_stream_dq_smem(int DH, int dtype) {
+  return dtype == kBF16 ? mma_bwd_smem_by_dh(DH, 0) : stream_smem_by_dh(kDq, DH);
+}
+size_t eavit_flash_stream_dkv_smem(int DH, int dtype) {
+  return dtype == kBF16 ? mma_bwd_smem_by_dh(DH, 1) : stream_smem_by_dh(kDkv, DH);
+}
 
 // Each returns the cudaError_t of its launch (0 on success). BH = B * H.
 int eavit_flash_stream_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -58,6 +74,12 @@ int eavit_flash_stream_fwd(const void* q, const void* k, const void* v, void* o,
 int eavit_flash_stream_dq(const void* q, const void* k, const void* v, const void* lse,
                           const void* delta, const void* dout, void* dq, int BH, int N,
                           int DH, int dtype, float scale, int num_special, void* stream) {
+  if (dtype == kBF16) {
+    MmaBwdArgs a = mma_bwd_head_major(q, k, v, dout, lse, dq, nullptr, nullptr, BH, N, DH,
+                                      scale, num_special);
+    a.rowterm = static_cast<const float*>(delta);
+    return launch_mma_dq<false, false, kGiven>(DH, a, static_cast<cudaStream_t>(stream));
+  }
   StreamArgs a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta), a.dq = dq;
@@ -69,6 +91,12 @@ int eavit_flash_stream_dkv(const void* q, const void* k, const void* v, const vo
                            const void* delta, const void* dout, void* dk, void* dv, int BH,
                            int N, int DH, int dtype, float scale, int num_special,
                            void* stream) {
+  if (dtype == kBF16) {
+    MmaBwdArgs a = mma_bwd_head_major(q, k, v, dout, lse, nullptr, dk, dv, BH, N, DH,
+                                      scale, num_special);
+    a.rowterm = static_cast<const float*>(delta);
+    return launch_mma_dkv<false, false>(DH, a, static_cast<cudaStream_t>(stream));
+  }
   StreamArgs a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta), a.dk = dk, a.dv = dv;

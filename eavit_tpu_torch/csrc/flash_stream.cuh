@@ -1,9 +1,10 @@
 // The streaming CUDA-core attention template: flash attention that streams K/V
 // (forward, dq) or Q/dO (dk, dv) through shared memory in fixed tiles, so that
-// no buffer grows with N. It is K5 (csrc/flash_stream.cu, AttentionImpl =
-// pallas_stream, bf16 and float32) and the float32 forms of K1 (flash_qkv.cu,
-// flash_qkv_bwd.cu), K3 (flash_dropout.cu) and K4 (flash.cu), whose bf16
-// forms run on the tensor-core templates attn_fwd_mma.cuh / attn_bwd_mma.cuh.
+// no buffer grows with N. It is K5f (csrc/flash_stream.cu, AttentionImpl =
+// pallas_stream, bf16 and float32), the float32 K5q and K5kv, and the float32
+// forms of K1 (flash_qkv.cu, flash_qkv_bwd.cu), K3 (flash_dropout.cu) and K4
+// (flash.cu), whose bf16 forms run on the tensor-core templates
+// attn_fwd_mma.cuh / attn_bwd_mma.cuh, as the bf16 K5q and K5kv do.
 //
 // Operands of K5, K3 and K4 are contiguous [B*H, N, Dh]; K1's (MERGED) are
 // taken by strides: element (b, h, token t, dim d) of q, k, v, dq, dk and dv
@@ -11,8 +12,9 @@
 // strides (the merged qkv [B, N, 3*H*Dh], o and dO [B, N, H*Dh]). lse and the
 // row terms are [B, H, N]. The dual-query mask is applied on
 // absolute row and column indices; masked edges contribute exactly 0. Dh is
-// 16, 32 or 64; sums are f32 and only o, dq, dk and dv are rounded to the
-// input dtype. N is taken as it is.
+// 16, 32 or 64; sums are f32 and only the forward's o is rounded to the
+// input dtype (bf16 or float32; the backward passes take float32 only). N is
+// taken as it is.
 //
 //   forward, one block per (bh, tile of kRows query rows), K/V tiles streamed:
 //     s = q k^T * scale, running max m, normaliser l and accumulator acc (the
@@ -53,6 +55,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -74,9 +77,6 @@ constexpr int kKeepRun = 32;  // keys whose keep bits the dq pass draws at once
 static_assert(kTile % kFwdChunk == 0 && kTile % kBwdChunk == 0, "chunks split a tile");
 static_assert(kTile % kKeepRun == 0 && kKeepRun % kBwdChunk == 0, "keep runs split a tile");
 static_assert(kDims % 4 == 0 && 64 % kDims == 0, "a thread reads its dims as float4");
-
-// How the row term of the dq pass is found
-enum RowTerm : int { kGiven = 0, kDeltaFromO = 1, kRowsum = 2 };
 
 // How the DH dims of a row are shared among TPR neighbouring threads, and
 // where each thread's DPT dims sit in a shared-memory row.
@@ -309,7 +309,7 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
   if (part == 0) a.lse_out[bh * N + row] = m + logf(l);
 }
 
-template <typename T, int DH, bool DROPOUT, int ROWTERM, bool MERGED>
+template <int DH, bool DROPOUT, int ROWTERM, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArgs a) {
   using S = Split<DH>;
   __shared__ __align__(16) float ks[kTile * S::RS];
@@ -318,8 +318,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
   const auto hd = head_of<DH, MERGED>(a, bh);
-  const T* kh = static_cast<const T*>(a.k) + hd.x;
-  const T* vh = static_cast<const T*>(a.v) + hd.x;
+  const float* kh = static_cast<const float*>(a.k) + hd.x;
+  const float* vh = static_cast<const float*>(a.v) + hd.x;
   const int row = blockIdx.y * kRows + threadIdx.x / S::TPR;
   const int part = threadIdx.x % S::TPR;
   const bool live = row < N;
@@ -328,8 +328,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
   const uint64_t e_row = (static_cast<uint64_t>(bh) * N + row) * static_cast<uint64_t>(N);
 
   float q[S::DPT], g[S::DPT], acc[S::DPT];
-  load_row<T, DH>(q, static_cast<const T*>(a.q) + hd.x, hd.x_tok, row, live, d0);
-  load_row<T, DH>(g, static_cast<const T*>(a.dout) + hd.g, hd.g_tok, row, live, d0);
+  load_row<float, DH>(q, static_cast<const float*>(a.q) + hd.x, hd.x_tok, row, live, d0);
+  load_row<float, DH>(g, static_cast<const float*>(a.dout) + hd.g, hd.g_tok, row, live, d0);
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) acc[d] = 0.f;
   const float lse = live ? a.lse[bh * N + row] : 0.f;
@@ -338,7 +338,7 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     delta = live ? a.delta[bh * N + row] : 0.f;
   } else if constexpr (ROWTERM == kDeltaFromO) {
     float o[S::DPT];
-    load_row<T, DH>(o, static_cast<const T*>(a.o) + hd.g, hd.g_tok, row, live, d0);
+    load_row<float, DH>(o, static_cast<const float*>(a.o) + hd.g, hd.g_tok, row, live, d0);
     float part_sum = 0.f;
 #pragma unroll
     for (int d = 0; d < S::DPT; ++d) part_sum = fmaf(g[d], o[d], part_sum);
@@ -347,8 +347,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     // rowsum = sum_j dsigma p, in a first sweep over the keys
     for (int t0 = 0; t0 < N; t0 += kTile) {
       __syncthreads();
-      load_tile<T, DH>(ks, kh, hd.x_tok, t0, N);
-      load_tile<T, DH>(vs, vh, hd.x_tok, t0, N);
+      load_tile<float, DH>(ks, kh, hd.x_tok, t0, N);
+      load_tile<float, DH>(vs, vh, hd.x_tok, t0, N);
       __syncthreads();
       const int len = min(kTile, N - t0);
       uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
@@ -387,8 +387,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
 
   for (int t0 = 0; t0 < N; t0 += kTile) {
     __syncthreads();
-    load_tile<T, DH>(ks, kh, hd.x_tok, t0, N);
-    load_tile<T, DH>(vs, vh, hd.x_tok, t0, N);
+    load_tile<float, DH>(ks, kh, hd.x_tok, t0, N);
+    load_tile<float, DH>(vs, vh, hd.x_tok, t0, N);
     __syncthreads();
     const int len = min(kTile, N - t0);
     uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
@@ -445,12 +445,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     }
   }
   if (!live) return;
-  T* out = static_cast<T*>(a.dq) + hd.x + static_cast<size_t>(row) * hd.x_tok + d0;
+  float* out = static_cast<float*>(a.dq) + hd.x + static_cast<size_t>(row) * hd.x_tok + d0;
 #pragma unroll
-  for (int d = 0; d < S::DPT; ++d) out[d] = from_f<T>(acc[d]);
+  for (int d = 0; d < S::DPT; ++d) out[d] = acc[d];
 }
 
-template <typename T, int DH, bool DROPOUT, bool MERGED>
+template <int DH, bool DROPOUT, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamArgs a) {
   using S = Split<DH>;
   __shared__ __align__(16) float qs[kTile * S::RS];
@@ -461,23 +461,23 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamAr
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
   const auto hd = head_of<DH, MERGED>(a, bh);
-  const T* qh = static_cast<const T*>(a.q) + hd.x;
-  const T* gh = static_cast<const T*>(a.dout) + hd.g;
+  const float* qh = static_cast<const float*>(a.q) + hd.x;
+  const float* gh = static_cast<const float*>(a.dout) + hd.g;
   const int col = blockIdx.y * kRows + threadIdx.x / S::TPR;  // the key row owned
   const int part = threadIdx.x % S::TPR;
   const bool live = col < N;
   const int d0 = part * S::DPT;
   const int c0 = part * S::CH;
   float k[S::DPT], v[S::DPT], dk[S::DPT], dv[S::DPT];
-  load_row<T, DH>(k, static_cast<const T*>(a.k) + hd.x, hd.x_tok, col, live, d0);
-  load_row<T, DH>(v, static_cast<const T*>(a.v) + hd.x, hd.x_tok, col, live, d0);
+  load_row<float, DH>(k, static_cast<const float*>(a.k) + hd.x, hd.x_tok, col, live, d0);
+  load_row<float, DH>(v, static_cast<const float*>(a.v) + hd.x, hd.x_tok, col, live, d0);
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) dk[d] = dv[d] = 0.f;
 
   for (int t0 = 0; t0 < N; t0 += kTile) {
     __syncthreads();
-    load_tile<T, DH>(qs, qh, hd.x_tok, t0, N);
-    load_tile<T, DH>(gs, gh, hd.g_tok, t0, N);
+    load_tile<float, DH>(qs, qh, hd.x_tok, t0, N);
+    load_tile<float, DH>(gs, gh, hd.g_tok, t0, N);
     const int len = min(kTile, N - t0);
     for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
       ls[r] = r < len ? a.lse[bh * N + t0 + r] : 0.f;
@@ -542,12 +542,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamAr
   }
   if (!live) return;
   const size_t off = hd.x + static_cast<size_t>(col) * hd.x_tok + d0;
-  T* dkr = static_cast<T*>(a.dk) + off;
-  T* dvr = static_cast<T*>(a.dv) + off;
+  float* dkr = static_cast<float*>(a.dk) + off;
+  float* dvr = static_cast<float*>(a.dv) + off;
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) {
-    dkr[d] = from_f<T>(dk[d]);
-    dvr[d] = from_f<T>(dv[d]);
+    dkr[d] = dk[d];
+    dvr[d] = dv[d];
   }
 }
 
@@ -555,14 +555,16 @@ enum Which : int { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int W, typename T, int DH, bool DROPOUT, int ROWTERM, bool MERGED>
 cudaError_t launch_stream_t(int BH, const StreamArgs& a, cudaStream_t st) {
+  static_assert(W == kFwd || std::is_same_v<T, float>,
+                "the backward passes take float32 (bf16 runs attn_bwd_mma.cuh)");
   const dim3 grid(BH, (a.N + kRows - 1) / kRows);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if constexpr (W == kFwd)
     stream_fwd_kernel<T, DH, DROPOUT, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
   if constexpr (W == kDq)
-    stream_dq_kernel<T, DH, DROPOUT, ROWTERM, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
+    stream_dq_kernel<DH, DROPOUT, ROWTERM, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
   if constexpr (W == kDkv)
-    stream_dkv_kernel<T, DH, DROPOUT, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
+    stream_dkv_kernel<DH, DROPOUT, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 

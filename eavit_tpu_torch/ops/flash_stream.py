@@ -21,15 +21,22 @@ Two versions of each function:
 - the CUDA kernels of ``csrc/flash_stream.cu``: K5f ``flash_stream_fwd``
   (replaces ``_fwd_kernel``, launched at flash_stream.py:159), K5q
   ``flash_stream_dq`` (``_bwd_dq_kernel``, line 285) and K5kv
-  ``flash_stream_dkv`` (``_bwd_dkv_kernel``, line 304). Their shared memory
-  depends on ``Dh`` only, so they take any N.
+  ``flash_stream_dkv`` (``_bwd_dkv_kernel``, line 304). K5f runs on the
+  CUDA-core template ``csrc/flash_stream.cuh`` in both dtypes. The bf16 K5q
+  and K5kv run on the tensor cores, as the dq kernel and the dk/dv kernel of
+  ``csrc/attn_bwd_mma.cuh`` launched one at a time, with p and ds kept f32
+  as two bf16 terms each and the caller's ``delta``, which neither writes;
+  the float32 ones on ``flash_stream.cuh``. Every kernel's shared memory
+  depends on ``Dh`` and the dtype only (:func:`smem_bytes`), so they take
+  any N.
 
 The wrappers take the plain version for a tensor on the CPU and launch the
 kernel for a CUDA tensor; a CUDA tensor the kernel does not take (another
-dtype or layout, ``Dh`` not in 16 / 32 / 64) raises. :func:`flash_attention_stream`
-is differentiable through one ``torch.autograd.Function`` that saves
-``(q, k, v, o, lse)`` as ``_flash_stream_fwd`` does (line 337). ``launches``
-counts kernel launches.
+dtype or layout, ``Dh`` not in 16 / 32 / 64, a bf16 operand of K5q or K5kv
+not on a 16-byte boundary) raises before any launch.
+:func:`flash_attention_stream` is differentiable through one
+``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
+``_flash_stream_fwd`` does (line 337). ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -63,15 +70,17 @@ def _lib():
         for name in ("fwd", "dq", "dkv"):
             getattr(lib, f"eavit_flash_stream_{name}").restype = i
             smem = getattr(lib, f"eavit_flash_stream_{name}_smem")
-            smem.argtypes, smem.restype = [i], ctypes.c_size_t
+            smem.argtypes, smem.restype = [i, i], ctypes.c_size_t  # Dh, dtype
         lib._eavit_typed = True
     return lib
 
 
-def smem_bytes(kernel: str, dim_head: int) -> int:
-    """Shared-memory bytes of K5 ``kernel`` (``"fwd"``, ``"dq"`` or
-    ``"dkv"``) at head width ``dim_head``; N does not enter."""
-    return getattr(_lib(), f"eavit_flash_stream_{kernel}_smem")(dim_head)
+def smem_bytes(kernel: str, dim_head: int, dtype: torch.dtype) -> int:
+    """Shared-memory bytes of one block of K5 ``kernel`` (``"fwd"``, ``"dq"``
+    or ``"dkv"``) at head width ``dim_head`` in ``dtype``; N does not
+    enter."""
+    return getattr(_lib(), f"eavit_flash_stream_{kernel}_smem")(
+        dim_head, _build.DTYPE_CODES[dtype])
 
 
 def flash_stream_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -145,6 +154,8 @@ def flash_stream_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 def _check_bwd_args(what, q, k, v, lse, delta, do) -> None:
     check_kernel_args(what, q, k, v, do, lse=lse)
     check_kernel_args(what, q, lse=delta)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte rows
+        _build.check_aligned(what, q, k, v, do)
 
 
 def flash_stream_dq(q, k, v, lse, delta, do, scale: float,

@@ -21,7 +21,13 @@ held to their plain versions at one bf16 rounding of each output in bf16 and
 1e-4 of its scale in float32, K3r bit for bit; their backward kernels also
 to autograd through the plain forward, and give equal bits twice. K5 (the
 KV-streaming kernels) is held to its plain version at the same tolerances,
-at N up to 640 and in one call at 3,137, and gives equal bits twice.
+at N up to 640 and in one call at 3,137, and gives equal bits twice. Its
+bf16 K5q and K5kv run the dq and the dk/dv kernel of the tensor-core
+backward (csrc/attn_bwd_mma.cuh) with the caller's delta: each is called
+alone, K5kv first on a fresh delta, at N 11, 197, 198, 443, 640 and 3,137,
+Dh 16 / 32 / 64, num_special 0 / 2, within one bf16 rounding of the plain
+version with equal bits twice and delta left as it was; the cancellation
+test holds K5q too, and a bf16 operand off a 16-byte boundary raises.
 
 K1b and K3b in bf16 run on the tensor cores (csrc/attn_bwd_mma.cuh), on
 16-row tiles with zero rows past N: they are held to their plain versions
@@ -499,14 +505,107 @@ def test_flash_stream_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_flash_stream_shared_memory_does_not_grow_with_n(cuda):
-    for dh in (16, 32, 64):
-        sizes = {name: fs.smem_bytes(name, dh) for name in ("fwd", "dq", "dkv")}
-        assert all(0 < b <= 48 * 1024 for b in sizes.values()), sizes
+    """Each K5 kernel's shared memory is a function of Dh and the dtype
+    alone, within one block's limit (the bf16 K5q and K5kv pass 48 KB at Dh
+    64 and opt in); the kernels launch at N = 3,137."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in (16, 32, 64):
+            sizes = {name: fs.smem_bytes(name, dh, dtype) for name in ("fwd", "dq", "dkv")}
+            assert all(0 < b <= _build.SMEM_LIMIT for b in sizes.values()), (dtype, sizes)
     q, k, v, do = _heads(1, 2, 3137, 64, cuda, torch.bfloat16, seed=5)
     o, lse = fs.flash_stream_fwd(q, k, v, 0.125)
     dq, dk, dv = fs.flash_stream_bwd(q, k, v, lse, fs.stream_delta(o, do), do, 0.125)
     torch.cuda.synchronize()
     assert all(torch.isfinite(t.float()).all() for t in (o, lse, dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# K5q and K5kv in bf16: the dq and the dk/dv kernel of csrc/attn_bwd_mma.cuh,
+# each launched alone, with the caller's delta
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", (11, 197, 198, 443, 640, 3137))
+def test_bf16_flash_stream_backward_kernels_match_plain(cuda, n, num_special, dim_head):
+    """K5kv first, on a fresh delta, then K5q, each called alone: one launch
+    each, within one bf16 rounding of the plain version, equal bits twice,
+    and delta bit for bit as it was (neither kernel writes it)."""
+    b, h = (2, 3) if n <= 640 else (1, 2)
+    q, k, v, do = _heads(b, h, n, dim_head, cuda, torch.bfloat16, seed=8)
+    scale = dim_head ** -0.5
+    o, lse = fs.flash_stream_fwd_plain(q, k, v, scale, num_special)
+    delta = fs.stream_delta(o, do)
+    fresh = delta.clone()
+    args = (q, k, v, lse, delta, do, scale, num_special)
+    before = dict(fs.launches)
+    dk, dv = fs.flash_stream_dkv(*args)
+    dq = fs.flash_stream_dq(*args)
+    torch.cuda.synchronize()
+    assert {n_: fs.launches[n_] - before[n_] for n_ in fs.launches} == {
+        "flash_stream_fwd": 0, "flash_stream_dq": 1, "flash_stream_dkv": 1}
+    assert torch.equal(delta, fresh)
+    plain = (fs.flash_stream_dq_plain(*args),) + fs.flash_stream_dkv_plain(*args)
+    for a, p in zip((dq, dk, dv), plain):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        assert _max_err(a, p) <= _bf16_tol(p)
+    assert torch.equal(dq, fs.flash_stream_dq(*args))  # deterministic
+    assert all(torch.equal(a, b_) for a, b_ in zip((dk, dv), fs.flash_stream_dkv(*args)))
+    assert torch.equal(delta, fresh)
+
+
+def test_bf16_flash_stream_backward_keeps_a_cancelling_dq(cuda):
+    """K5q keeps p and ds in float32 (two bf16 terms each): on keys that make
+    dq nearly cancel, its dq errs at most a tenth as much as the dq of the
+    plain formulas with ds rounded to bf16 before ``ds k``."""
+    b, h, n, dh, ns = 2, 4, 198, 32, 2
+    q, k, v, do = _cancelling_heads(b, h, n, dh, cuda)
+    scale = dh ** -0.5
+    o, lse = fs.flash_stream_fwd(q, k, v, scale, ns)
+    delta = fs.stream_delta(o, do)
+    dq = fs.flash_stream_dq(q, k, v, lse, delta, do, scale, ns)
+    _, ds = fs._probs_and_ds(q, k, v, lse, delta, do, scale, ns)
+    dq_plain = torch.matmul(ds, k.float()).to(torch.bfloat16).float()
+    dq_rounded = torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    err, err_rounded = _max_err(dq, dq_plain), _max_err(dq_rounded, dq_plain)
+    assert err_rounded > 0 and err <= 0.1 * err_rounded, (err, err_rounded)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_bf16_flash_stream_function_matches_autograd_of_plain_forward(cuda, num_special):
+    """bf16 through the Function (K5f, then K5q and K5kv) against autograd of
+    the plain forward, at one bf16 rounding of each gradient: the kernels
+    take delta from the rounded O, autograd from the unrounded one."""
+    q, k, v, do = _heads(3, 4, 150, 32, cuda, torch.bfloat16, seed=9)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    fs.flash_stream_fwd_plain(*ref_in, 0.25, num_special)[0].backward(do)
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fs.launches)
+    fs.flash_attention_stream(*mine, scale=0.25, num_special=num_special).backward(do)
+    torch.cuda.synchronize()
+    assert all(fs.launches[n] == before[n] + 1 for n in fs.launches)
+    for a, b in zip(mine, ref_in):
+        assert a.grad.dtype == torch.bfloat16
+        assert _max_err(a.grad, b.grad) <= _bf16_tol(b.grad)
+
+
+def test_bf16_flash_stream_backward_refuses_unaligned_operands(cuda):
+    """The tensor-core K5q and K5kv copy 16-byte rows: a bf16 operand that
+    does not start on a 16-byte boundary raises before any launch."""
+    q, k, v, do = _heads(1, 2, 40, 32, cuda, torch.bfloat16, seed=10)
+    o, lse = fs.flash_stream_fwd_plain(q, k, v, 0.2)
+    delta = fs.stream_delta(o, do)
+    shifted = torch.empty(q.numel() + 8, device=cuda, dtype=torch.bfloat16)[1:q.numel() + 1]
+    shifted = shifted.view(q.shape).copy_(q)  # contiguous, 2 bytes past a boundary
+    before = dict(fs.launches)
+    for bad in ((shifted, k, v, lse, delta, do), (q, k, v, lse, delta, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fs.flash_stream_dq(*bad, 0.2)
+        with pytest.raises(ValueError, match="16-byte"):
+            fs.flash_stream_dkv(*bad, 0.2)
+    assert fs.launches == before
 
 
 # ---------------------------------------------------------------------------

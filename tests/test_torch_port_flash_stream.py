@@ -16,8 +16,10 @@ explicit plain backward must equal torch autograd through the plain forward
 another way, 1e-6). The ``"stream"`` route of the ViT's attention drops the
 attention output, not its probabilities: at rate 0.1 it must equal plain
 attention followed by ``dropout16`` on ``[B, H, N, Dh]`` from the same
-generator state. The CUDA kernels are held to the plain versions on a GPU by
-test_torch_port_cuda.py.
+generator state. The numerics of the bf16 K5q and K5kv (p and ds as two
+bf16 terms, products summed in f32) are emulated in torch and held to the
+JAX gradient on keys that make dq nearly cancel (N = 198). The CUDA kernels
+are held to the plain versions on a GPU by test_torch_port_cuda.py.
 """
 
 import jax
@@ -141,3 +143,56 @@ def test_stream_route_drops_the_attention_output(num_special):
                         rate, gen)
         assert not torch.equal(ours, attn(x))  # dropout is live with an Rng
     _assert_close(ours.numpy(), ref.numpy(), 1e-5)
+
+
+def _two_terms(x):
+    """An f32 operand as the tensor-core K5q and K5kv feed it to a bf16 mma:
+    ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, widened back to f32."""
+    hi = x.to(torch.bfloat16)
+    return hi.float(), (x - hi.float()).to(torch.bfloat16).float()
+
+
+def _two_term_product(a, b):
+    """``a @ b`` with f32 ``a`` split into two bf16 terms and bf16 ``b``, each
+    product summed in f32, as the template sums them."""
+    hi, lo = _two_terms(a)
+    return torch.matmul(hi, b.float()) + torch.matmul(lo, b.float())
+
+
+def test_bf16_backward_numerics_keep_a_cancelling_dq(jax_tiles_128):
+    """The numerics of the bf16 K5q and K5kv, emulated in torch: p and ds f32
+    as two bf16 terms, products summed in f32, outputs rounded to bf16. On
+    keys ``8 + 0.01 noise`` (each row of ds sums to about 0, so ``dq = ds k``
+    nearly cancels) at N = 198 they must match the JAX package's gradient
+    (Pallas kernels in interpret mode, tiles of 128) within one bf16 ulp of
+    each output's largest element (2^-7 of it): both round nearly equal f32
+    sums to bf16. Rounding ds to bf16 before ``ds k`` errs at least 10x as
+    much on dq."""
+    b, h, n, dh, ns = 1, 2, 198, 32, 2
+    scale = dh ** -0.5
+    rng = np.random.default_rng(12)
+    q, v, g, noise = (rng.standard_normal((b, h, n, dh)).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jg = (jnp.asarray(t, jnp.bfloat16) for t in (q, 8.0 + 0.01 * noise, v, g))
+    ref_o, vjp = jax.vjp(lambda *t: jax_stream.flash_attention_stream(
+        *t, num_special=ns), jq, jk, jv)
+    ref = [torch.from_numpy(np.array(r, np.float32)) for r in vjp(jg)]
+    fold = lambda t: t.reshape(b * h, n, dh)  # noqa: E731
+    _, lse = jax_stream._fwd(fold(jq), fold(jk), fold(jv), scale, ns)
+
+    # the same bf16 inputs, O and lse in torch; delta from the rounded O
+    tq, tk, tv, tg, to = (torch.from_numpy(np.array(t, np.float32)).to(torch.bfloat16)
+                          for t in (jq, jk, jv, jg, ref_o))
+    tlse = torch.from_numpy(np.array(lse, np.float32)).reshape(b, h, n)
+    p, ds = flash_stream._probs_and_ds(tq, tk, tv, tlse, flash_stream.stream_delta(to, tg),
+                                       tg, scale, ns)
+    dst = ds.transpose(-1, -2)
+    ours = [_two_term_product(ds, tk), _two_term_product(dst, tq),
+            _two_term_product(p.transpose(-1, -2), tg)]
+    errs = []
+    for mine, r in zip(ours, ref):
+        err = (mine.to(torch.bfloat16).float() - r).abs().max().item()
+        assert err <= 2.0 ** -7 * r.abs().max().item(), (err, r.abs().max().item())
+        errs.append(err)
+    rounded = torch.matmul(ds.to(torch.bfloat16).float(), tk.float()).to(torch.bfloat16)
+    err_rounded = (rounded.float() - ref[0]).abs().max().item()
+    assert err_rounded > 0 and err_rounded >= 10 * errs[0], (err_rounded, errs)

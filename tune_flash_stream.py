@@ -3,12 +3,16 @@
 
 Each variant is ``eavit_tpu_torch/csrc/flash_stream.cu`` with some of the
 tile constants of its template ``flash_stream.cuh`` replaced (``kDims``,
-``kFwdChunk``, ``kBwdChunk``, ``kRows``, ``kTile``); every variant is
+``kFwdChunk``, ``kBwdChunk``, ``kRows``, ``kTile``), which K5f in both dtypes
+and the float32 K5q and K5kv run (the bf16 K5q and K5kv run the tensor-core
+``attn_bwd_mma.cuh``, whose constants ``tune_attn_bwd.py`` varies: here they
+are timed as the build has them); every variant is
 compiled by its own ``nvcc`` (all at once, with
 the flags of ``ops/_build.py``), its registers and stack per kernel are read
 from ptxas, and K5f, K5q and K5kv are held to the plain versions on a few
 heads and timed with CUDA events at the flagship minibatch and at long
-sequences, every variant once and then again in reverse order. A variant
+sequences, in bf16 and float32, every variant once and then again in
+reverse order. A variant
 ``{"csrc": DIR}`` builds ``DIR/flash_stream.cu`` as it is instead (another
 checkout's K5, whose C interface is the same), to compare two commits in
 one call. Run from the root of a checkout on a machine with a GPU:
@@ -21,6 +25,7 @@ Builds go to ``_archive/tune/`` (listed in ``.gitignore``).
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -110,9 +115,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    for b, h, n, dh, ns in SHAPES:
+    for (b, h, n, dh, ns), dtype in itertools.product(SHAPES, (torch.bfloat16, torch.float32)):
         g = torch.Generator().manual_seed(n)
-        q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16)
+        q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, dtype)
                        for _ in range(4))
         sc, few = dh ** -0.5, (slice(0, min(b, 4)),)
         ref_o, ref_lse = fs.flash_stream_fwd_plain(q[few], k[few], v[few], sc, ns)
@@ -131,6 +136,7 @@ def main() -> int:
             args = (q, k, v, lse, fs.stream_delta(o, do), do, sc, ns)
             iters = 20 if n < 500 else 3
             print(json.dumps({"variant": name, "shape": [b, h, n, dh], "num_special": ns,
+                              "dtype": str(dtype).split(".")[-1],
                               "fwd_ms": time_ms(lambda: fs.flash_stream_fwd(q, k, v, sc, ns),
                                                 iters),
                               "dq_ms": time_ms(lambda: fs.flash_stream_dq(*args), iters),
