@@ -72,10 +72,12 @@ non-zero on failure:
     backward on the kernel the shape picks and on the streaming one); the
     backward Function in float32 and bf16 against torch autograd through the
     plain forward; each kernel's shared memory at ``Dh`` 16 / 32 / 64 in
-    each dtype, which does not depend on N. K5f runs the CUDA-core template
-    ``csrc/flash_stream.cuh`` in both dtypes; the bf16 K5q and K5kv run the
-    dq and the dk/dv kernel of the tensor-core ``csrc/attn_bwd_mma.cuh``
-    (p and ds as hi + lo bf16 terms, the caller's delta), the float32 ones
+    each dtype, which does not depend on N. The bf16 K5f runs the one-sweep
+    mode of the tensor-core forward ``csrc/attn_fwd_mma.cuh`` (the online
+    softmax, p as hi + lo bf16 terms) and is timed beside K4f, the same
+    template's two sweeps; the bf16 K5q and K5kv run the dq and the dk/dv
+    kernel of the tensor-core ``csrc/attn_bwd_mma.cuh`` (p and ds as hi +
+    lo bf16 terms, the caller's delta); the float32 K5 runs
     ``flash_stream.cuh``.
 12. The acting path of phases 3-4 with ``AttentionImpl = pallas_stream``:
     K5f 387 launches per rollout, dropout on the attention output outside
@@ -106,10 +108,15 @@ streaming tensor-core templates (``csrc/attn_fwd_mma.cuh``,
 ``csrc/attn_bwd_mma.cuh``), which take any N and which K3f and K4f run at
 every N; float32 runs the streaming CUDA-core template of
 ``csrc/flash_stream.cuh``. Each kernel counts under its own launch key (the
-streaming ones as ``*_stream``). Phase 1 logs every tensor-core
-instantiation's registers and spills from ptxas (K5q's and K5kv's in
-``flash_stream.cu`` too) and fails on a spill at ``Dh`` <= 32; phase 2 times K1f at the act shapes and at the minibatch
-shape (beside SDPA on the same head-split tensors and mask), and the
+streaming ones as ``*_stream``). K2b (``csrc/fused_ffn_bwd.cu``) runs its
+five products on the tensor cores too, a float32 operand as hi + lo bf16
+terms; its rows give the bound of that work (three bf16 products per
+float32 one) beside the float32 CUDA cores' bound, and K2f's row gains the
+same tensor-core bound. Phase 1 logs every tensor-core kernel's registers
+and spills from ptxas (K5's and K2b's too) and fails on a spill at ``Dh`` <=
+32, and on any spill of K5f or K2b; phase 2 times K1f at the act shapes and
+at the minibatch shape (beside SDPA on the same head-split tensors and
+mask), and the
 streaming K1f, K1b, K3b and K4b are timed at the same flagship shapes;
 phase 7 runs K4b at the patch-4 minibatch too; after phase 11 the
 cancellation check runs once at the flagship minibatch (keys that are
@@ -178,6 +185,13 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def tensor_core_bound_ms(bytes_moved: float, flops: float, dtype: str):
+    """``bound_ms`` of K2's products on the bf16 tensor cores: a float32
+    product as three bf16 products (its operands as hi + lo terms, hi hi +
+    hi lo + lo hi), a bf16 one as one."""
+    return bound_ms(bytes_moved, (3 if dtype == "float32" else 1) * flops, "bfloat16")
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -215,21 +229,29 @@ def ptxas_report(build_log: str):
 
 
 def mma_ptxas(report, source: str, kind: str):
-    """The tensor-core templates' instantiations of one kind (``"fwd"`` or
-    ``"bwd"``) in one source, as ``{"Dh32 fwd split dropout": {...}}`` or
-    ``{"Dh32 dq rounded dropout": {...}, "Dh32 dkv rounded dropout": ...}``,
-    the whole-head kernels' as ``"Dh32 fwd head ..."`` and ``"Dh32 bwd head
-    ..."``. The dq kernel's last template argument is its row term
-    (``common.cuh`` ``RowTerm``: 0 given, as K5q takes it, 1 delta from O,
-    2 rowsum), named " given", " delta" or nothing."""
+    """The tensor-core kernels of one kind (``"fwd"``, ``"bwd"`` or
+    ``"ffn"``) in one source, as ``{"Dh32 fwd split dropout": {...}}`` (K5f's
+    ``"Dh32 fwd split one sweep"``) or ``{"Dh32 dq rounded dropout": {...},
+    "Dh32 dkv rounded dropout": ...}``, the whole-head kernels' as ``"Dh32 fwd
+    head ..."`` and ``"Dh32 bwd head ..."``, K2b's as ``"fused_ffn_bwd_dx
+    float32"`` (and ``_dw``, ``split_weights``). The dq kernel's last
+    template argument is its row term (``common.cuh`` ``RowTerm``: 0 given, as
+    K5q takes it, 1 delta from O, 2 rowsum), named " given", " delta" or
+    nothing."""
     flags = lambda *bits: (" rounded" if bits[0] == "1" else " split") + (  # noqa: E731
         " dropout" if bits[1] == "1" else "") + (" delta" if bits[2:] == ("1",) else "")
     row_term = {"0": " given", "1": " delta", "2": ""}
     rows = {}
     for entry, info in report.get(source, {}).items():
         if kind == "fwd" and (m := re.search(
-                r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", entry)):
-            rows[f"Dh{m.group(1)} fwd" + flags(m.group(2), m.group(3))] = info
+                r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E", entry)):
+            rows[f"Dh{m.group(1)} fwd" + flags(m.group(2), m.group(3)) +
+                 (" one sweep" if m.group(4) == "1" else "")] = info
+        elif kind == "ffn" and (m := re.search(
+                r"(fused_ffn_bwd_dx|fused_ffn_bwd_dw|split_weights)_kernel"
+                r"I(f|13__nv_bfloat16|Lb[01])E", entry)):
+            rows[f"{m.group(1)} " + {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                                     "Lb1": "float32", "Lb0": "bfloat16"}[m.group(2)]] = info
         elif kind == "fwd" and (m := re.search(r"attn_fwd_head_kernelILi(\d+)ELb([01])E", entry)):
             rows[f"Dh{m.group(1)} fwd head rounded" + (
                 " dropout" if m.group(2) == "1" else "")] = info
@@ -328,7 +350,9 @@ def kernel_phase(torch, fq, ff, kp, dev):
                 bms, by = bound_ms(nbytes, 4.0 * r * d * hid, name)
                 row = dict(kernel="fused_ffn_fwd", rows=r, dtype=name, rate=rate,
                            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                           library_ms=None, bound_ms=bms, bound_by=by)
+                           library_ms=None, bound_ms=bms, bound_by=by,
+                           tensor_core_bound_ms=tensor_core_bound_ms(
+                               nbytes, 4.0 * r * d * hid, name)[0])
                 log("kernel", **row)
                 check(err <= tol, f"fused_ffn_fwd {row}")
                 rows[("fused_ffn_fwd", r, name, rate)] = row
@@ -457,12 +481,15 @@ def train_kernel_phase(torch, fq, ff, dev):
                 nbytes = 3 * x.numel() * x.element_size() + 4 * sum(
                     t.numel() for t in params) + 4 * sum(t.numel() for t in out[1:])
                 # five products: fc1 recomputed, dW2, dgd, dW1, du (the fc2
-                # output is needed by no gradient)
-                bms, by = bound_ms(nbytes, 10.0 * r * d * hid, name)
+                # output is needed by no gradient), on the tensor cores, a
+                # float32 one as three bf16 products; beside it the bound of
+                # the same products on the float32 CUDA cores
+                bms, by = tensor_core_bound_ms(nbytes, 10.0 * r * d * hid, name)
                 row = dict(kernel="fused_ffn_bwd", rows=r, dtype=name, rate=rate,
                            max_abs_err=err, max_rel_err=rel, rel_tol=tol,
                            deterministic=same, ms=ms, plain_ms=plain_ms,
                            library_ms=None, bound_ms=bms, bound_by=by,
+                           cuda_core_bound_ms=bound_ms(nbytes, 10.0 * r * d * hid, name)[0],
                            fwd_ms_at_this_shape=fwd_ms)
                 log("kernel", **row)
                 check(all(rel[k] <= tol[k] for k in names) and same,
@@ -1635,14 +1662,19 @@ def main() -> int:
         ("flash_fwd", "flash.cu", "fwd"), ("flash_bwd", "flash.cu", "bwd"),
         ("flash_dropout_fwd", "flash_dropout.cu", "fwd"),
         ("flash_dropout_bwd", "flash_dropout.cu", "bwd"),
-        ("flash_stream_bwd", "flash_stream.cu", "bwd"))}
-    log("ptxas", kernels="tensor-core templates (attn_fwd_mma.cuh, attn_bwd_mma.cuh and "
-        "their whole-head forms attn_fwd_head.cuh, attn_bwd_head.cuh)", **mma)
+        ("flash_stream_fwd", "flash_stream.cu", "fwd"),
+        ("flash_stream_bwd", "flash_stream.cu", "bwd"),
+        ("fused_ffn_bwd", "fused_ffn_bwd.cu", "ffn"))}
+    log("ptxas", kernels="tensor-core kernels (attn_fwd_mma.cuh, attn_bwd_mma.cuh, "
+        "their whole-head forms attn_fwd_head.cuh, attn_bwd_head.cuh, and "
+        "fused_ffn_bwd.cu)", **mma)
     if build_log:  # empty when a build directory without its log was reused
         check(all(mma.values()), "ptxas reported no tensor-core kernel")
+        # every kernel at Dh <= 32; K5f (one sweep) and K2b at every Dh and dtype
         spills = {f"{k} {v}": i for k, d in mma.items() for v, i in d.items()
-                  if int(v[2:4]) <= 32 and (i.get("spill_stores") or i.get("spill_loads"))}
-        check(not spills, f"tensor-core kernels spill at Dh <= 32: {spills}")
+                  if (k in ("flash_stream_fwd", "fused_ffn_bwd") or int(v[2:4]) <= 32)
+                  and (i.get("spill_stores") or i.get("spill_loads"))}
+        check(not spills, f"tensor-core kernels spill: {spills}")
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
@@ -1710,7 +1742,14 @@ def main() -> int:
                      train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)][
                          "fwd_ms_at_this_shape"]),
         kernel_entry("fused_ffn_bwd", rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
-                     train_launches["fused_ffn_bwd"]),
+                     train_launches["fused_ffn_bwd"], header="fused_ffn_bwd.cu (mma.sync)",
+                     ptxas=mma["fused_ffn_bwd"],
+                     cuda_core_bound_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32",
+                                              0.1)]["cuda_core_bound_ms"],
+                     stacked_train_shape_ms=rows[("fused_ffn_bwd", 2 * MB_FRAMES * 197,
+                                                  "float32", 0.1)]["ms"],
+                     bfloat16_train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198,
+                                                   "bfloat16", 0.1)]["ms"]),
         kernel_entry("fused_ffn_bits", rows["fused_ffn_bits"], train_launches["fused_ffn_bits"]),
         # K4 runs on the pallas route at dropout 0 (and in evaluate); K3 while
         # dropout is live
@@ -1732,16 +1771,25 @@ def main() -> int:
                      ptxas=mma["flash_dropout_bwd"]),
         kernel_entry("flash_dropout_bits", rows["flash_dropout_bits"],
                      pallas_launches["flash_dropout_bits"]),
-        # K5 on pallas_stream; SDPA's backward computes dq, dk and dv at once,
-        # so its time stands beside K5q + K5kv together
-        # (bf16 K5q and K5kv on the tensor-core backward, K5f and every
-        # float32 K5 kernel on the CUDA-core template)
+        # K5 on pallas_stream: bf16 K5f on the one-sweep tensor-core forward,
+        # beside SDPA's forward and K4f (the same template's two sweeps, the
+        # same function at rate 0); bf16 K5q and K5kv on the tensor-core
+        # backward, SDPA's backward (dq, dk and dv at once) beside them
+        # together; every float32 K5 kernel on the CUDA-core template
         kernel_entry("flash_stream_fwd", rows[("flash_stream_fwd", "act", 198, "bfloat16")],
-                     stream_launches["flash_stream_fwd"], header="flash_stream.cuh",
+                     stream_launches["flash_stream_fwd"],
+                     header="attn_fwd_mma.cuh (one sweep)", ptxas=mma["flash_stream_fwd"],
                      act_launches_per_rollout=stream_act["flash_stream_fwd"],
-                     train_shape_ms=train_ms("flash_stream_fwd"),
-                     stacked_train_shape_ms=train_ms("flash_stream_fwd", n=197),
-                     patch4_train_shape_ms=train_ms("flash_stream_fwd", "train_patch4", 443),
+                     k4f_act_shape_ms=rows[("flash_stream_fwd", "act", 198, "bfloat16")][
+                         "k4_fwd_ms"],
+                     **{f"{tag}_{key}": rows[("flash_stream_fwd", use, n, "bfloat16")][col]
+                        for tag, use, n in (("train_shape", "train", 198),
+                                            ("stacked_train_shape", "train", 197),
+                                            ("patch4_train_shape", "train_patch4", 443),
+                                            ("n3137_dh64", "long", 3137))
+                        for key, col in (("ms", "ms"), ("library_ms", "library_ms"),
+                                         ("k4f_ms", "k4_fwd_ms"), ("bound_ms", "bound_ms"))},
+                     float32_header="flash_stream.cuh",
                      float32_act_shape_ms=rows[("flash_stream_fwd", "act", 198, "float32")][
                          "ms"]),
         *(kernel_entry(name, rows[(name, "train", 198, "bfloat16")], stream_launches[name],

@@ -28,9 +28,19 @@
 //   B. S again; sigma' = exp2(s scale log2e - lse log2e) * keep * inv_keep
 //      straight from the accumulators as the A operand of O += sigma' V
 //      (V by ldmatrix.trans), the register re-pack of attn_bwd_mma.cuh.
-// (A one-sweep online softmax for K3f and K4f, which round nothing, is a later
-// option.) Three N^2 Dh products, all bf16 mma.sync m16n8k16 with f32
-// accumulators (four with hi + lo).
+// Three N^2 Dh products, all bf16 mma.sync m16n8k16 with f32 accumulators
+// (four with hi + lo). K3f and K4f take these two sweeps too.
+//
+// ONE_SWEEP (K5f, csrc/flash_stream.cu: eavit_tpu/ops/flash_stream.py
+// `_fwd_kernel`, 99-137, rounds nothing and draws no mask) is the online
+// softmax instead: K and V stream together in one sweep; per 16-key step
+// S = Q K^T, the quad's lanes agree on the row's running maximum m (two
+// shuffles), the accumulator and each lane's partial sum l are rescaled by
+// exp2(m_old - m_new) as m moves, and the unnormalised p = exp2(s - m) enters
+// O += p V as hi + lo bf16 terms; at the end the quad's sums are combined,
+// o = acc / l and lse = m + log l. Two N^2 Dh products (three mmas with hi +
+// lo). Only ROUND = false and DROPOUT = false take it: K1f rounds sigma'
+// after normalising, which the running rescale cannot reproduce.
 //
 // What bounds it on an H100: bytes (26 MB at the act shape [64, 198, 768],
 // 0.008 ms; 105 MB at the minibatch), then the exp and the mask (one Philox
@@ -40,11 +50,12 @@
 // (equal bits twice, no atomics). The chunk's Q is loaded once; K and V come
 // in tiles of kFwdKeys rows through a double buffer filled by cp.async (rows
 // padded by 16 bytes so that ldmatrix reads without bank conflicts, zero rows
-// past N): sweep A streams K, sweep B K and V. Shared memory is (kFwdWarps x
-// 16 + 4 kFwdKeys) rows of Dh + 8 bf16, whatever N is: 30 KB at Dh 32. The
-// mask is drawn in registers in sweep B (keep_rows_step, mma_common.cuh): the four
-// lanes of a quad draw the next four groups of their row for each 16-key
-// step, so every group of the mask is drawn once. See PERF.md for the times.
+// past N): sweep A streams K, sweep B (and ONE_SWEEP's only sweep) K and V.
+// Shared memory is (kFwdWarps x 16 + 4 kFwdKeys) rows of Dh + 8 bf16,
+// whatever N is: 30 KB at Dh 32. The mask is drawn in registers in sweep B
+// (keep_rows_step, mma_common.cuh): the four lanes of a quad draw the next
+// four groups of their row for each 16-key step, so every group of the mask
+// is drawn once. See PERF.md for the times.
 #pragma once
 
 #include <cstdint>
@@ -55,8 +66,9 @@ namespace {
 
 // Warps of a block (one 16-row tile each), keys of a streamed tile, the
 // blocks per SM the register budget must allow at Dh <= 32 with the mask (80
-// registers) and without it (64), and the 16-key steps of a tile the compiler
-// may interleave with the mask (without it, all of a tile's): interleaving
+// registers) and without it (64; one sweep too: three blocks ran K5f 1.09x
+// slower), and the 16-key steps of a tile the compiler may interleave with
+// the mask (without it, all of a tile's): interleaving
 // overlaps the steps' loads and Philox rounds but costs registers, and at 80
 // the masked kernels spilled 4-12 bytes. tune_attn_bwd.py measures these
 // choices: at [256, 8, 198, 32] two blocks ran K3f 1.17x and K4f 1.35x
@@ -113,10 +125,12 @@ __device__ __forceinline__ void score_tile(float (&s)[2][4], const uint32_t (&a)
   }
 }
 
-template <int DH, bool ROUND, bool DROPOUT>
+template <int DH, bool ROUND, bool DROPOUT, bool ONE_SWEEP = false>
 __global__ void __launch_bounds__(kFwdWarps * 32,
                                   DH >= 64 ? 1 : DROPOUT ? kFwdMinBlocks : kFwdMinBlocksNoMask)
     attn_fwd_mma_kernel(MmaFwdArgs a) {
+  static_assert(!ONE_SWEEP || (!ROUND && !DROPOUT),
+                "one sweep rescales p online: no rounding of sigma', no mask");
   using bf16 = __nv_bfloat16;
   constexpr int LD = mma_ld(DH), KS = DH / 16, NT = DH / 8, KT = kFwdKeys;
   constexpr int ROWS = kFwdWarps * 16;
@@ -137,11 +151,13 @@ __global__ void __launch_bounds__(kFwdWarps * 32,
   const float scale2 = a.scale * kLog2e;
   const int ns = a.num_special;
 
-  // steps 0 .. T-1 stream K tiles (sweep A), T .. 2T-1 K and V tiles (sweep B)
+  // two sweeps: steps 0 .. T-1 stream K tiles (sweep A), T .. 2T-1 K and V
+  // tiles (sweep B); ONE_SWEEP: steps 0 .. T-1 stream K and V tiles
+  const int S = ONE_SWEEP ? T : 2 * T, B0 = ONE_SWEEP ? 0 : T;  // B0: first PV step
   auto issue = [&](int s) {
     const int t = s < T ? s : s - T, buf = s & 1;
     load_rows<DH>(ks + buf * KT * LD, a.k + xo, a.x_tok, t * KT, KT, N);
-    if (s >= T) load_rows<DH>(vs + buf * KT * LD, a.v + xo, a.x_tok, t * KT, KT, N);
+    if (s >= B0) load_rows<DH>(vs + buf * KT * LD, a.v + xo, a.x_tok, t * KT, KT, N);
     cp_async_commit();
   };
   load_rows<DH>(qs, a.q + xo, a.x_tok, q0, ROWS, N);
@@ -154,8 +170,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32,
   uint32_t kcur[2];  // keep bits of the current 16-key step (keep_rows_step)
   const uint64_t e_row = (static_cast<uint64_t>(bh) * N + rows[0]) * N;  // row g's key 0
 
-  for (int s = 0; s < 2 * T; ++s) {
-    if (s + 1 < 2 * T) {
+  for (int s = 0; s < S; ++s) {
+    if (s + 1 < S) {
       issue(s + 1);
       cp_async_wait<1>();
     } else {
@@ -166,7 +182,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32,
     const bf16* kt = ks + (s & 1) * KT * LD;
     const bf16* vt = vs + (s & 1) * KT * LD;
     if (active) {
-      if (s == T) {
+      if (!ONE_SWEEP && s == T) {
         // end of sweep A: combine the four lanes of a row, so that every lane
         // ends with the same bits
 #pragma unroll
@@ -205,7 +221,48 @@ __global__ void __launch_bounds__(kFwdWarps * 32,
         score_tile<DH>(sc, qa, kt, sb * 16, lane);
         // every pair valid: no padding and no dual-query mask in the block
         const bool full = i0 + 16 <= N && j0 + 16 <= N && (ns == 0 || (i0 >= ns && j0 >= ns));
-        if (s < T) {
+        if constexpr (ONE_SWEEP) {
+          // ---- online softmax: O += p V with p = exp2(s - m), m the row's
+          // running maximum, which the quad's four lanes share ----
+          float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, j = j0 + 8 * n + 2 * t4 + (e & 1);
+              const bool valid = full || (rows[r] < N && j < N &&
+                                          dual_query_allowed(rows[r], j, ns));
+              sc[n][e] = valid ? sc[n][e] * scale2 : -INFINITY;
+              mt[r] = fmaxf(mt[r], sc[n][e]);
+            }
+          float off[2];  // the exponent's offset: the running maximum, 0 while none
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+            mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+            const float mn = fmaxf(m[r], mt[r]);
+            off[r] = mn == -INFINITY ? 0.f : mn;  // nothing allowed yet: p = 0
+            const float alpha = ex2(m[r] - off[r]);  // m = -inf: 0; unmoved: 1
+            l[r] *= alpha;
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              acc[n][2 * r] *= alpha;
+              acc[n][2 * r + 1] *= alpha;
+            }
+            m[r] = mn;
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = ex2(sc[n][e] - off[e >> 1]);  // ex2(-inf) = 0
+              l[e >> 1] += p;
+              sc[n][e] = p;
+            }
+          uint32_t hi[4], lo[4];
+          to_a<false>(sc, hi, lo);
+          acc_times_rows<DH, false>(acc, hi, lo, vt, sb * 16, lane);
+        } else if (s < T) {
           // ---- sweep A: running (max, sum) per lane and row, log2 units ----
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
@@ -252,40 +309,57 @@ __global__ void __launch_bounds__(kFwdWarps * 32,
   }
 
   if (!active) return;
+  float inv_l[2] = {1.f, 1.f};
+  if constexpr (ONE_SWEEP) {
+    // the quad's partial sums, in an order that gives every lane the same bits
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv_l[r] = 1.f / l[r];
+      lse2[r] = m[r] + log2f(l[r]);  // rows past N: never written
+    }
+  }
   const long long oo = b * a.o_batch + h * a.o_head;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (!live[r]) continue;
     bf16* out = a.o + oo + rows[r] * a.o_tok + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+    for (int n = 0; n < NT; ++n) {
+      if constexpr (ONE_SWEEP) {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) = __floats2bfloat162_rn(
+            acc[n][2 * r] * inv_l[r], acc[n][2 * r + 1] * inv_l[r]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
+    }
     if (t4 == 0) a.lse[static_cast<long long>(bh) * N + rows[r]] = lse2[r] / kLog2e;
   }
 }
 
-template <int DH, bool ROUND, bool DROPOUT>
+template <int DH, bool ROUND, bool DROPOUT, bool ONE_SWEEP>
 cudaError_t launch_mma_fwd_t(const MmaFwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = mma_fwd_smem_bytes(DH);
-  cudaError_t err = allow_smem(attn_fwd_mma_kernel<DH, ROUND, DROPOUT>, smem);
+  cudaError_t err = allow_smem(attn_fwd_mma_kernel<DH, ROUND, DROPOUT, ONE_SWEEP>, smem);
   if (err != cudaSuccess) return err;
   const long long chunks = (a.N + kFwdWarps * 16 - 1) / (kFwdWarps * 16);
   const long long blocks = chunks * a.B * a.H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attn_fwd_mma_kernel<DH, ROUND, DROPOUT>
+  attn_fwd_mma_kernel<DH, ROUND, DROPOUT, ONE_SWEEP>
       <<<static_cast<unsigned>(blocks), kFwdWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Dh in {16, 32, 64} -> one instantiation
-template <bool ROUND, bool DROPOUT>
+template <bool ROUND, bool DROPOUT, bool ONE_SWEEP = false>
 cudaError_t launch_mma_fwd(int DH, const MmaFwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_mma_fwd_t<16, ROUND, DROPOUT>(a, stream);
-    case 32: return launch_mma_fwd_t<32, ROUND, DROPOUT>(a, stream);
-    case 64: return launch_mma_fwd_t<64, ROUND, DROPOUT>(a, stream);
+    case 16: return launch_mma_fwd_t<16, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
+    case 32: return launch_mma_fwd_t<32, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
+    case 64: return launch_mma_fwd_t<64, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,7 @@
-// Device functions shared by the fused-FFN forward (fused_ffn.cu) and
-// backward (fused_ffn_bwd.cu): the Abramowitz-Stegun erf, exact GELU and its
+// Device functions of the fused-FFN forward (fused_ffn.cu) and backward
+// (fused_ffn_bwd.cu): the Abramowitz-Stegun erf, exact GELU and its
 // derivative (eavit_tpu/ops/fused_ffn.py `_erf` 100-115, `_gelu_exact` 118,
-// `_gelu_grad` 122-125), and the mask bits of a warp's 4 x 32 tile.
+// `_gelu_grad` 122-125), and the forward's mask bits of a warp's 4 x 32 tile.
 #pragma once
 
 #include <cstdint>

@@ -61,7 +61,7 @@ int eavit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* 
   a.q = q, a.k = k, a.v = v, a.out = o, a.lse_out = static_cast<float*>(lse);
   a.N = N, a.scale = scale, a.num_special = num_special;
   head_major(a, N, DH);
-  return launch_stream<kFwd, float>(DH, BH, a, st);
+  return launch_stream<kFwd>(DH, BH, a, st);
 }
 
 // delta: a [BH, N] f32 scratch

@@ -77,7 +77,7 @@ int eavit_flash_dropout_fwd(const void* q, const void* k, const void* v, void* o
   a.N = N, a.scale = scale, a.num_special = num_special;
   a.thresh = thresh, a.inv_keep = inv_keep, a.s0 = s0, a.s1 = s1;
   head_major(a, N, DH);
-  return launch_stream<kFwd, float, true>(DH, BH, a, st);
+  return launch_stream<kFwd, true>(DH, BH, a, st);
 }
 
 // rowsum: a [BH, N] f32 scratch

@@ -78,8 +78,8 @@ int eavit_flash_qkv_fwd(const void* qkv, void* o, void* lse, int B, int N, int H
   a.x_batch = N * tok, a.x_head = DH, a.x_tok = tok;
   a.g_batch = N * inner, a.g_head = DH, a.g_tok = inner;
   a.thresh = thresh, a.inv_keep = inv_keep, a.s0 = s0, a.s1 = s1;
-  return use_dropout ? launch_stream<kFwd, float, true, kGiven, true>(DH, B * H, a, st)
-                     : launch_stream<kFwd, float, false, kGiven, true>(DH, B * H, a, st);
+  return use_dropout ? launch_stream<kFwd, true, kGiven, true>(DH, B * H, a, st)
+                     : launch_stream<kFwd, false, kGiven, true>(DH, B * H, a, st);
 }
 
 // The whole-head bf16 kernel (attn_fwd_head.cuh), which the wrapper runs

@@ -10,7 +10,10 @@
 // delta = sum(dO * O) per row computed outside, from the rounded O the
 // forward returned (flash_stream.py:273-274). Inputs are contiguous
 // [B*H, N, Dh], bf16 or f32. Which template runs which dtype:
-//   K5f, both dtypes: flash_stream.cuh's CUDA-core template without dropout
+//   K5f, bf16: the tensor-core forward attn_fwd_mma.cuh in its one-sweep
+//     mode (ONE_SWEEP: the online softmax, p as hi + lo bf16 terms), which
+//     computes the function K4f's two sweeps compute at rate 0;
+//   K5f, float32: flash_stream.cuh's CUDA-core template without dropout
 //     (its online softmax), whose float32 form K4f shares;
 //   K5q and K5kv, bf16: the tensor-core backward attn_bwd_mma.cuh, its dq
 //     kernel and its dk/dv kernel launched alone, no dropout, p and ds kept
@@ -25,24 +28,21 @@
 // against 15 GFLOP, the dk/dv pass 159 MB against 20 GFLOP, all below the
 // bf16 tensor cores' 295 FLOP/byte; past N of about 1,000 at Dh = 64 the
 // operations bound instead. The designs keep scores and probabilities out of
-// device memory and read each operand once per block; the bf16 backward's
-// products run on the tensor cores (mma.sync), the forward and the float32
-// passes on the CUDA cores in f32. See PERF.md for the measured times.
+// device memory and read each operand once per block; every bf16 product
+// runs on the tensor cores (mma.sync), the float32 passes on the CUDA cores in
+// f32. See PERF.md for the measured times.
 #include "attn_bwd_mma.cuh"
+#include "attn_fwd_mma.cuh"
 #include "flash_stream.cuh"
 
 namespace {
 
-// K5f in either dtype, and the float32 K5q and K5kv; dtype: common.cuh's codes
+// the float32 K5f, K5q and K5kv; dtype: common.cuh's codes
 template <int W>
-int launch(int dtype, int DH, int BH, StreamArgs a, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch_f32(int dtype, int DH, int BH, StreamArgs a, void* stream) {
+  if (dtype != kF32) return cudaErrorInvalidValue;
   head_major(a, a.N, DH);
-  if constexpr (W == kFwd) {
-    if (dtype == kBF16) return launch_stream<W, __nv_bfloat16>(DH, BH, a, st);
-  }
-  if (dtype == kF32) return launch_stream<W, float>(DH, BH, a, st);
-  return cudaErrorInvalidValue;
+  return launch_stream<W>(DH, BH, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -52,7 +52,7 @@ extern "C" {
 // Shared-memory bytes of each kernel at head width DH in the given dtype
 // (common.cuh's codes), whatever N is.
 size_t eavit_flash_stream_fwd_smem(int DH, int dtype) {
-  return dtype == kBF16 || dtype == kF32 ? stream_smem_by_dh(kFwd, DH) : 0;
+  return dtype == kBF16 ? mma_fwd_smem_by_dh(DH) : stream_smem_by_dh(kFwd, DH);
 }
 size_t eavit_flash_stream_dq_smem(int DH, int dtype) {
   return dtype == kBF16 ? mma_bwd_smem_by_dh(DH, 0) : stream_smem_by_dh(kDq, DH);
@@ -65,10 +65,20 @@ size_t eavit_flash_stream_dkv_smem(int DH, int dtype) {
 int eavit_flash_stream_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                            int BH, int N, int DH, int dtype, float scale, int num_special,
                            void* stream) {
+  if (dtype == kBF16) {
+    using bf16 = __nv_bfloat16;
+    MmaFwdArgs a{};
+    a.q = static_cast<const bf16*>(q), a.k = static_cast<const bf16*>(k);
+    a.v = static_cast<const bf16*>(v), a.o = static_cast<bf16*>(o);
+    a.lse = static_cast<float*>(lse), a.scale = scale, a.num_special = num_special;
+    mma_head_major(a, BH, N, DH);
+    a.o_batch = a.x_batch, a.o_head = 0, a.o_tok = DH;
+    return launch_mma_fwd<false, false, true>(DH, a, static_cast<cudaStream_t>(stream));
+  }
   StreamArgs a{};
   a.q = q, a.k = k, a.v = v, a.out = o, a.lse_out = static_cast<float*>(lse);
   a.N = N, a.scale = scale, a.num_special = num_special;
-  return launch<kFwd>(dtype, DH, BH, a, stream);
+  return launch_f32<kFwd>(dtype, DH, BH, a, stream);
 }
 
 int eavit_flash_stream_dq(const void* q, const void* k, const void* v, const void* lse,
@@ -84,7 +94,7 @@ int eavit_flash_stream_dq(const void* q, const void* k, const void* v, const voi
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta), a.dq = dq;
   a.N = N, a.scale = scale, a.num_special = num_special;
-  return launch<kDq>(dtype, DH, BH, a, stream);
+  return launch_f32<kDq>(dtype, DH, BH, a, stream);
 }
 
 int eavit_flash_stream_dkv(const void* q, const void* k, const void* v, const void* lse,
@@ -101,7 +111,7 @@ int eavit_flash_stream_dkv(const void* q, const void* k, const void* v, const vo
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta), a.dk = dk, a.dv = dv;
   a.N = N, a.scale = scale, a.num_special = num_special;
-  return launch<kDkv>(dtype, DH, BH, a, stream);
+  return launch_f32<kDkv>(dtype, DH, BH, a, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 // The streaming CUDA-core attention template: flash attention that streams K/V
 // (forward, dq) or Q/dO (dk, dv) through shared memory in fixed tiles, so that
-// no buffer grows with N. It is K5f (csrc/flash_stream.cu, AttentionImpl =
-// pallas_stream, bf16 and float32), the float32 K5q and K5kv, and the float32
-// forms of K1 (flash_qkv.cu, flash_qkv_bwd.cu), K3 (flash_dropout.cu) and K4
+// no buffer grows with N. It is the float32 K5f, K5q and K5kv
+// (csrc/flash_stream.cu, AttentionImpl = pallas_stream) and the float32 forms
+// of K1 (flash_qkv.cu, flash_qkv_bwd.cu), K3 (flash_dropout.cu) and K4
 // (flash.cu), whose bf16 forms run on the tensor-core templates
-// attn_fwd_mma.cuh / attn_bwd_mma.cuh, as the bf16 K5q and K5kv do.
+// attn_fwd_mma.cuh / attn_bwd_mma.cuh, as the bf16 K5 does.
 //
 // Operands of K5, K3 and K4 are contiguous [B*H, N, Dh]; K1's (MERGED) are
 // taken by strides: element (b, h, token t, dim d) of q, k, v, dq, dk and dv
@@ -12,9 +12,7 @@
 // strides (the merged qkv [B, N, 3*H*Dh], o and dO [B, N, H*Dh]). lse and the
 // row terms are [B, H, N]. The dual-query mask is applied on
 // absolute row and column indices; masked edges contribute exactly 0. Dh is
-// 16, 32 or 64; sums are f32 and only the forward's o is rounded to the
-// input dtype (bf16 or float32; the backward passes take float32 only). N is
-// taken as it is.
+// 16, 32 or 64; every operand and sum is float32. N is taken as it is.
 //
 //   forward, one block per (bh, tile of kRows query rows), K/V tiles streamed:
 //     s = q k^T * scale, running max m, normaliser l and accumulator acc (the
@@ -43,7 +41,7 @@
 // + j of the [B, H, N, N] mask, stream 0, keep = (bits >> 8) < thresh
 // (ops/kernel_prng.py). The forward draws the groups of each chunk of keys of
 // its row, the dq pass those of 32 keys at a time, the dk/dv pass one group
-// per element (its keys are the fixed axis; float32 only).
+// per element (its keys are the fixed axis).
 //
 // A thread owns one row (a query row, or a key row in dk/dv) and min(Dh, 16)
 // of its dims in registers; at Dh = 32 and 64 two or four neighbouring lanes
@@ -55,7 +53,6 @@
 #pragma once
 
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -162,25 +159,25 @@ __device__ __forceinline__ float row_sum(float v) {
 // Rows [t0, t0 + kTile) of a head (row t at src + t * tok) into a
 // [kTile][RS] f32 tile; rows at or past N are zero, so the products over them
 // stay finite (their weights are 0).
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t tok, int t0,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t tok, int t0,
                                           int N) {
   using S = Split<DH>;
   const int len = min(kTile, N - t0);
   for (int idx = threadIdx.x; idx < kTile * DH; idx += blockDim.x) {
     const int r = idx / DH, d = idx % DH;
     dst[r * S::RS + (d / S::DPT) * S::CH + d % S::DPT] =
-        r < len ? to_f(src[static_cast<size_t>(t0 + r) * tok + d]) : 0.f;
+        r < len ? src[static_cast<size_t>(t0 + r) * tok + d] : 0.f;
   }
 }
 
 // dims [d0, d0 + DPT) of row `row` of a head into registers (0 past N)
-template <typename T, int DH>
-__device__ __forceinline__ void load_row(float* out, const T* src, size_t tok, int row,
+template <int DH>
+__device__ __forceinline__ void load_row(float* out, const float* src, size_t tok, int row,
                                          bool live, int d0) {
 #pragma unroll
   for (int d = 0; d < Split<DH>::DPT; ++d)
-    out[d] = live ? to_f(src[static_cast<size_t>(row) * tok + d0 + d]) : 0.f;
+    out[d] = live ? src[static_cast<size_t>(row) * tok + d0 + d] : 0.f;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -208,7 +205,7 @@ __device__ __forceinline__ Head<DH, MERGED> head_of(const StreamArgs a, size_t b
   }
 }
 
-template <typename T, int DH, bool DROPOUT, bool MERGED>
+template <int DH, bool DROPOUT, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamArgs a) {
   using S = Split<DH>;
   __shared__ __align__(16) float ks[kTile * S::RS];
@@ -217,8 +214,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
   const auto hd = head_of<DH, MERGED>(a, bh);
-  const T* kh = static_cast<const T*>(a.k) + hd.x;
-  const T* vh = static_cast<const T*>(a.v) + hd.x;
+  const float* kh = static_cast<const float*>(a.k) + hd.x;
+  const float* vh = static_cast<const float*>(a.v) + hd.x;
   const int row = blockIdx.y * kRows + threadIdx.x / S::TPR;
   const int part = threadIdx.x % S::TPR;
   const bool live = row < N;
@@ -226,15 +223,15 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
   const int c0 = part * S::CH;   // the same dims in a shared-memory row
 
   float q[S::DPT], acc[S::DPT];
-  load_row<T, DH>(q, static_cast<const T*>(a.q) + hd.x, hd.x_tok, row, live, d0);
+  load_row<DH>(q, static_cast<const float*>(a.q) + hd.x, hd.x_tok, row, live, d0);
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int t0 = 0; t0 < N; t0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    load_tile<T, DH>(ks, kh, hd.x_tok, t0, N);
-    load_tile<T, DH>(vs, vh, hd.x_tok, t0, N);
+    load_tile<DH>(ks, kh, hd.x_tok, t0, N);
+    load_tile<DH>(vs, vh, hd.x_tok, t0, N);
     __syncthreads();
     const int len = min(kTile, N - t0);
     for (int j0 = 0; j0 < len; j0 += kFwdChunk) {
@@ -303,9 +300,9 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
     }
   }
   if (!live) return;
-  T* orow = static_cast<T*>(a.out) + hd.g + static_cast<size_t>(row) * hd.g_tok + d0;
+  float* orow = static_cast<float*>(a.out) + hd.g + static_cast<size_t>(row) * hd.g_tok + d0;
 #pragma unroll
-  for (int d = 0; d < S::DPT; ++d) orow[d] = from_f<T>(acc[d] / l);
+  for (int d = 0; d < S::DPT; ++d) orow[d] = acc[d] / l;
   if (part == 0) a.lse_out[bh * N + row] = m + logf(l);
 }
 
@@ -328,8 +325,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
   const uint64_t e_row = (static_cast<uint64_t>(bh) * N + row) * static_cast<uint64_t>(N);
 
   float q[S::DPT], g[S::DPT], acc[S::DPT];
-  load_row<float, DH>(q, static_cast<const float*>(a.q) + hd.x, hd.x_tok, row, live, d0);
-  load_row<float, DH>(g, static_cast<const float*>(a.dout) + hd.g, hd.g_tok, row, live, d0);
+  load_row<DH>(q, static_cast<const float*>(a.q) + hd.x, hd.x_tok, row, live, d0);
+  load_row<DH>(g, static_cast<const float*>(a.dout) + hd.g, hd.g_tok, row, live, d0);
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) acc[d] = 0.f;
   const float lse = live ? a.lse[bh * N + row] : 0.f;
@@ -338,7 +335,7 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     delta = live ? a.delta[bh * N + row] : 0.f;
   } else if constexpr (ROWTERM == kDeltaFromO) {
     float o[S::DPT];
-    load_row<float, DH>(o, static_cast<const float*>(a.o) + hd.g, hd.g_tok, row, live, d0);
+    load_row<DH>(o, static_cast<const float*>(a.o) + hd.g, hd.g_tok, row, live, d0);
     float part_sum = 0.f;
 #pragma unroll
     for (int d = 0; d < S::DPT; ++d) part_sum = fmaf(g[d], o[d], part_sum);
@@ -347,8 +344,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     // rowsum = sum_j dsigma p, in a first sweep over the keys
     for (int t0 = 0; t0 < N; t0 += kTile) {
       __syncthreads();
-      load_tile<float, DH>(ks, kh, hd.x_tok, t0, N);
-      load_tile<float, DH>(vs, vh, hd.x_tok, t0, N);
+      load_tile<DH>(ks, kh, hd.x_tok, t0, N);
+      load_tile<DH>(vs, vh, hd.x_tok, t0, N);
       __syncthreads();
       const int len = min(kTile, N - t0);
       uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
@@ -387,8 +384,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
 
   for (int t0 = 0; t0 < N; t0 += kTile) {
     __syncthreads();
-    load_tile<float, DH>(ks, kh, hd.x_tok, t0, N);
-    load_tile<float, DH>(vs, vh, hd.x_tok, t0, N);
+    load_tile<DH>(ks, kh, hd.x_tok, t0, N);
+    load_tile<DH>(vs, vh, hd.x_tok, t0, N);
     __syncthreads();
     const int len = min(kTile, N - t0);
     uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
@@ -469,15 +466,15 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamAr
   const int d0 = part * S::DPT;
   const int c0 = part * S::CH;
   float k[S::DPT], v[S::DPT], dk[S::DPT], dv[S::DPT];
-  load_row<float, DH>(k, static_cast<const float*>(a.k) + hd.x, hd.x_tok, col, live, d0);
-  load_row<float, DH>(v, static_cast<const float*>(a.v) + hd.x, hd.x_tok, col, live, d0);
+  load_row<DH>(k, static_cast<const float*>(a.k) + hd.x, hd.x_tok, col, live, d0);
+  load_row<DH>(v, static_cast<const float*>(a.v) + hd.x, hd.x_tok, col, live, d0);
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) dk[d] = dv[d] = 0.f;
 
   for (int t0 = 0; t0 < N; t0 += kTile) {
     __syncthreads();
-    load_tile<float, DH>(qs, qh, hd.x_tok, t0, N);
-    load_tile<float, DH>(gs, gh, hd.g_tok, t0, N);
+    load_tile<DH>(qs, qh, hd.x_tok, t0, N);
+    load_tile<DH>(gs, gh, hd.g_tok, t0, N);
     const int len = min(kTile, N - t0);
     for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
       ls[r] = r < len ? a.lse[bh * N + t0 + r] : 0.f;
@@ -553,14 +550,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamAr
 
 enum Which : int { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <int W, typename T, int DH, bool DROPOUT, int ROWTERM, bool MERGED>
+template <int W, int DH, bool DROPOUT, int ROWTERM, bool MERGED>
 cudaError_t launch_stream_t(int BH, const StreamArgs& a, cudaStream_t st) {
-  static_assert(W == kFwd || std::is_same_v<T, float>,
-                "the backward passes take float32 (bf16 runs attn_bwd_mma.cuh)");
   const dim3 grid(BH, (a.N + kRows - 1) / kRows);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   if constexpr (W == kFwd)
-    stream_fwd_kernel<T, DH, DROPOUT, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
+    stream_fwd_kernel<DH, DROPOUT, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
   if constexpr (W == kDq)
     stream_dq_kernel<DH, DROPOUT, ROWTERM, MERGED><<<grid, Split<DH>::THREADS, 0, st>>>(a);
   if constexpr (W == kDkv)
@@ -570,13 +565,13 @@ cudaError_t launch_stream_t(int BH, const StreamArgs& a, cudaStream_t st) {
 
 // one pass of the template, Dh in {16, 32, 64}; BH = B * H. MERGED: K1's
 // merged qkv layout (strides from the arguments), else [B*H, N, Dh]
-template <int W, typename T, bool DROPOUT = false, int ROWTERM = kGiven, bool MERGED = false>
+template <int W, bool DROPOUT = false, int ROWTERM = kGiven, bool MERGED = false>
 cudaError_t launch_stream(int DH, int BH, const StreamArgs& a, cudaStream_t st) {
   if (BH <= 0 || a.N <= 0 || a.H <= 0) return cudaErrorInvalidValue;
   switch (DH) {
-    case 16: return launch_stream_t<W, T, 16, DROPOUT, ROWTERM, MERGED>(BH, a, st);
-    case 32: return launch_stream_t<W, T, 32, DROPOUT, ROWTERM, MERGED>(BH, a, st);
-    case 64: return launch_stream_t<W, T, 64, DROPOUT, ROWTERM, MERGED>(BH, a, st);
+    case 16: return launch_stream_t<W, 16, DROPOUT, ROWTERM, MERGED>(BH, a, st);
+    case 32: return launch_stream_t<W, 32, DROPOUT, ROWTERM, MERGED>(BH, a, st);
+    case 64: return launch_stream_t<W, 64, DROPOUT, ROWTERM, MERGED>(BH, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -585,10 +580,10 @@ cudaError_t launch_stream(int DH, int BH, const StreamArgs& a, cudaStream_t st) 
 // term to a.rowterm), then the dk/dv pass reading it
 template <bool DROPOUT, int ROWTERM, bool MERGED = false>
 cudaError_t launch_stream_bwd_f32(int DH, int BH, StreamArgs a, cudaStream_t st) {
-  cudaError_t err = launch_stream<kDq, float, DROPOUT, ROWTERM, MERGED>(DH, BH, a, st);
+  cudaError_t err = launch_stream<kDq, DROPOUT, ROWTERM, MERGED>(DH, BH, a, st);
   if (err != cudaSuccess) return err;
   a.delta = a.rowterm;
-  return launch_stream<kDkv, float, DROPOUT, kGiven, MERGED>(DH, BH, a, st);
+  return launch_stream<kDkv, DROPOUT, kGiven, MERGED>(DH, BH, a, st);
 }
 
 // static shared-memory bytes of each pass at head width DH (any N)

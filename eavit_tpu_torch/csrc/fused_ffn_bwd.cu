@@ -1,4 +1,5 @@
-// K2b fused_ffn_bwd: the backward of the fused pre-norm FFN.
+// K2b fused_ffn_bwd: the backward of the fused pre-norm FFN, every product on
+// Hopper's tensor cores.
 //
 // Replaces the TPU kernel eavit_tpu/ops/fused_ffn.py `_bwd_kernel` (line 180,
 // launched by `_bwd` at line 321).
@@ -23,422 +24,600 @@
 //
 // What bounds it on an H100: operations. At the flagship training shape
 // (R = 50,688 rows of D = 256, Hd = 1024, float32 activations) the five
-// products the gradients need (fc1, dW2, dgd, dW1, du) are 133 GFLOP in
-// float32 against 156 MB of traffic.
+// products the gradients need (fc1, dW2, dgd, dW1, du) are 133 GFLOP against
+// 156 MB of traffic.
+//
+// Every product runs on mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators (mma_common.cuh). A bf16 x has every operand rounded to bf16
+// already (round_T), so one mma per product computes it exactly, apart from
+// the order of the sums. A float32 x (SPLIT) enters each operand as two bf16
+// terms, hi = bf16(v) and lo = bf16(v - hi), and each product as three mmas,
+// hi hi + hi lo + lo hi: the dropped lo lo term and the rounding of lo leave a
+// relative error of about 2^-16 per product (no TF32, whose one term misses
+// float32's 1e-4). Operands sit in shared memory as bf16 planes (hi, and lo
+// when SPLIT) with rows padded by 16 bytes, read by ldmatrix.
 //
 // The TPU kernel sums the parameter gradients in place across grid cells that
 // run one after the other. Blocks of a GPU grid run concurrently, so the work
 // is decomposed twice, once for each kind of output, and nothing is summed
 // with atomics (every sum has a fixed order: the result is deterministic):
-//   dx kernel   one block owns 32 rows (as the forward does) and walks the
-//               hidden units in chunks of 32: fc1 and dgd for the chunk, then
-//               the chunk's share of du into registers. It ends with the
+//   split       the weights as bf16 planes in a scratch, once per call.
+//   dx kernel   one block of 8 warps owns kXRows rows. It recomputes u and
+//               dy0 as planes in shared memory, then walks the hidden units in
+//               chunks of kHC: fc1 and dgd for the chunk (four warps each, 16
+//               rows x kHC), gd and dh elementwise through shared memory, and
+//               the chunk's share of du, which stays in registers: each warp
+//               owns a 32-row x D/4-column slab of it. It ends with the
 //               LayerNorm backward and writes dx plus one partial row each of
-//               dln_w, dln_b and db2.
-//   dW kernel   one block owns a chunk of 32 hidden units and every S-th tile
-//               of 32 rows. It keeps the chunk of W1 and W2 in shared memory,
-//               recomputes u, h and dgd tile by tile, and accumulates
-//               dW1[chunk, :] and dW2[:, chunk] (2 x 32 x D floats) in
-//               registers; one partial per row slice.
-//   reduce      sums the partials (S slices; R/32 row blocks) in order.
-// The hidden-wide intermediates never reach device memory; the price is that
-// fc1 and dgd are computed in both kernels (seven products in all). The
-// products run on the CUDA cores in f32, so the float32 peak of the cores is
-// the bound; see PERF.md for the measured time.
+//               db1, dln_w, dln_b and db2. u, dy0, dh and gd go to scratches
+//               as the planes the products read, for the dW kernel.
+//   dW kernel   dW1 = dh^T u and dW2 = dy0^T gd from those planes: one block a
+//               128 x 128 tile of one of them and one slice of the rows, which
+//               it streams through a three-stage cp.async ring; one partial
+//               per slice.
+//   reduce      sums the partials (S slices; R / kXRows row blocks) in order.
+// The five products are the JAX kernel's; in exchange, dh and gd pass through
+// device memory (8 bytes per row and hidden unit in float32, 4 in bf16). The
+// dx kernel reads the 2 MB of weight planes once per 64-row tile from L2 (1.6
+// GB at R = 50,688, float32); clock64 probes on an H100 showed it waiting for
+// each chunk's weights about a third of its time. See PERF.md for the times.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "ffn_common.cuh"
+#include "mma_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kTR = 32;        // rows per tile
-constexpr int kHC = 32;        // hidden units per chunk
-constexpr int kThreads = 256;  // 8 warps: warp w owns rows 4w..4w+3 of a tile
-constexpr int kWarpsB = kThreads / 32;
-constexpr int kMaxM = 8;       // D / 32 <= 8, so D <= 256
-constexpr int kWS = kHC + 1;   // weight chunks [D][kWS]
-constexpr int kTS = kHC + 4;   // [32][32] tiles, row stride keeps float4 alignment
+using bf16 = __nv_bfloat16;
 
-// Loads one tile of kTR rows starting at r0; warp w loads rows 4w..4w+3.
-//   u_rm [kTR][DS]   round_T(LayerNorm(x) * ln_w + ln_b)
-//   dy_rm[kTR][DS]   round_T(dy0), mask2 regenerated
-//   mu_s, rstd_s     the rows' LayerNorm statistics (0 past R)
-//   red [warps][D]   when not null: the warp's column sums of unrounded dy0
-// Rows past R are zero. A warp reads back only what it wrote itself, so the
-// caller needs __syncwarp() before using its own rows and __syncthreads()
-// before using the others'.
-template <typename T>
-__device__ __forceinline__ void load_tile(
-    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ ln_w,
-    const float* __restrict__ ln_b, float* u_rm, float* dy_rm, float* mu_s,
-    float* rstd_s, float* red, int64_t r0, int64_t R, int D, int DS, float eps,
-    uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1, int use_dropout) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = D / 4;  // <= 64: at most two Philox groups per lane and row
-  float dsum[kMaxM];
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kHC = 32;        // hidden units per chunk
+constexpr int kXRows = 64;     // rows of a dx-kernel block
+constexpr int kMaxD = 256;
+constexpr int kLH = kHC + 8;   // row stride of a [rows][kHC] plane, elements
+constexpr int kHG = kHC + 4;   // row stride of the f32 fc1 / dgd exchange
+constexpr int kEw = kXRows * kHC / 4 / kThreads;  // dx kernel: groups of 4 units a thread
+constexpr int kGT = 128;       // rows and columns of a weight-gradient block tile
+constexpr int kGK = 32;        // data rows (the depth) of one stage of it
+constexpr int kGL = kGT + 8;   // its shared-memory row stride
+constexpr int kGStages = 3;    // stages in flight
+static_assert(kXRows == 64 && kHC == 32 && kGT == 128 && kGK % 16 == 0 && kWarps == 8 &&
+                  kXRows * kHC / 4 % kThreads == 0,
+              "the warp layouts below assume these tiles");
+
+__host__ __device__ constexpr int planes(bool split) { return split ? 2 : 1; }
+
+// Bytes of the dx kernel's region of the chunk's W2 planes, which the fc1 /
+// dgd exchange and the dh planes reuse once the chunk's dgd is taken
+__host__ __device__ constexpr size_t dx_w2_bytes(int D, bool split) {
+  const size_t w2 = sizeof(bf16) * planes(split) * D * kLH;
+  const size_t reuse =
+      sizeof(float) * 2 * kXRows * kHG + sizeof(bf16) * planes(split) * kXRows * kLH;
+  return w2 > reuse ? w2 : reuse;
+}
+
+// ---- warp-level products on bf16 planes ----
+
+// A fragments of the 16 x 16 block at (m0, k0): from an [M][K] plane, or
+// (A_T) from a [K][M] plane through ldmatrix.trans
+template <bool A_T>
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* p, int ld, int m0,
+                                            int k0, int lane) {
+  if constexpr (A_T) {
+    ldsm_x4_t(a, p + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 + ((lane >> 3) & 1) * 8);
+  } else {
+    ldsm_x4(a, p + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  }
+}
+
+// B fragments of two n8 tiles (n0 .. n0+15) x 16 depth at k0, b[0..1] the
+// first tile's, b[2..3] the second's: from an [N][K] plane, or (B_T) from a
+// [K][N] plane through ldmatrix.trans
+template <bool B_T>
+__device__ __forceinline__ void load_b_pair(uint32_t (&b)[4], const bf16* p, int ld, int n0,
+                                            int k0, int lane) {
+  if constexpr (B_T) {
+    ldsm_x4_t(b, p + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8);
+  } else {
+    ldsm_x4(b, p + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
+  }
+}
+
+// acc[MT][NT] += A * B over depth [0, kdim): A's 16-row tiles at m0, m0+16,
+// ...; B's n8 tiles in pairs, pair q at columns n0 + q * pstride, the first
+// `pairs` of NT / 2 live. Each operand has `planes(SPLIT)` planes, the lo one
+// `a_lo` / `b_lo` elements after the hi one; SPLIT takes hi hi + hi lo + lo
+// hi, in that order, each term over all of a pair's tiles before the next.
+template <int MT, int NT, bool A_T, bool B_T, bool SPLIT>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16* a, int lda,
+                                          int a_lo, int m0, const bf16* b, int ldb, int b_lo,
+                                          int n0, int pstride, int pairs, int kdim, int lane) {
+  static_assert(NT % 2 == 0, "n8 tiles come in pairs");
+  constexpr int P = planes(SPLIT);
+  for (int k = 0; k < kdim; k += 16) {
+    uint32_t af[MT][P][4];
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) dsum[m] = 0.f;
-  for (int i = 0; i < 4; ++i) {
-    const int rr = warp * 4 + i;
-    const int64_t r = r0 + rr;
-    float* ur = u_rm + rr * DS;
-    float* dr = dy_rm + rr * DS;
-    if (r < R) {
-      const T* xr = x + r * D;
-      float s = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float v = to_f(xr[k]);
-        ur[k] = v;
-        s += v;
+    for (int pl = 0; pl < P; ++pl)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        load_a_frag<A_T>(af[m][pl], a + pl * a_lo, lda, m0 + 16 * m, k, lane);
+#pragma unroll
+    for (int q = 0; q < NT / 2; ++q) {
+      if (q >= pairs) break;
+      uint32_t bf[P][4];
+#pragma unroll
+      for (int pl = 0; pl < P; ++pl)
+        load_b_pair<B_T>(bf[pl], b + pl * b_lo, ldb, n0 + q * pstride, k, lane);
+#pragma unroll
+      for (int t = 0; t < (SPLIT ? 3 : 1); ++t) {
+        const int pa = t == 2, pb = t == 1;  // the planes of term t
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            mma_bf16(acc[m][2 * q + hf], af[m][pa], bf[pb][2 * hf], bf[pb][2 * hf + 1]);
       }
-      const float mu = warp_sum(s) / D;
-      float ss = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float c = ur[k] - mu;
-        ss += c * c;
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+}
+
+// four consecutive values as bf16 planes: rounded (hi only) or hi + lo
+template <bool SPLIT>
+__device__ __forceinline__ void store4(bf16* hi, size_t lo_off, float4 v) {
+  uint2 h, l;
+  if constexpr (SPLIT) {
+    split_bf16(v.x, v.y, h.x, l.x);
+    split_bf16(v.z, v.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + lo_off) = l;
+  } else {
+    h.x = pack_bf16(v.x, v.y);
+    h.y = pack_bf16(v.z, v.w);
+  }
+  *reinterpret_cast<uint2*>(hi) = h;
+}
+
+// rows [0, rows) x cols bf16 (cols % 8 == 0) from src (row stride lds) to
+// dst (row stride ldd) by cp.async
+__device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, int64_t lds,
+                                          int rows, int cols) {
+  const int chunks = cols / 8;
+  for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
+    const int r = c / chunks, k = (c % chunks) * 8;
+    cp_async16(dst + r * ldd + k, src + r * lds + k);
+  }
+}
+
+// The chunk j0 .. j0+kHC of the weight planes into shared memory:
+// w1s [P][kHC][D+8] = W1[j0 + jj][:], w2s [P][D][kLH] = W2[:][j0 + jj].
+// w1p [P][Hd][D] and w2p [P][D][Hd] are the split kernel's planes.
+template <bool SPLIT>
+__device__ __forceinline__ void copy_chunk(bf16* w1s, bf16* w2s, const bf16* w1p,
+                                           const bf16* w2p, int j0, int D, int Hd) {
+  const int ldd = D + 8;
+#pragma unroll
+  for (int pl = 0; pl < planes(SPLIT); ++pl) {
+    const size_t off = static_cast<size_t>(pl) * Hd * D;
+    copy_rows(w1s + pl * kHC * ldd, ldd, w1p + off + static_cast<size_t>(j0) * D, D, kHC, D);
+    copy_rows(w2s + pl * D * kLH, kLH, w2p + off + j0, Hd, D, kHC);
+  }
+}
+
+// The dx kernel's fc1 (prod 0: u W1c^T) or dgd (prod 1: dy0 W2c) of rows m0
+// .. m0+15 and the chunk's kHC units, K = D, written as f32 to hg
+// [2][kXRows][kHG] once every warp is done with w2s, whose memory hg reuses
+template <bool SPLIT>
+__device__ __forceinline__ void chunk_product(float* hg, int prod, const bf16* us,
+                                              const bf16* ds, const bf16* w1s, const bf16* w2s,
+                                              int D, int m0, int lane) {
+  constexpr int NT = kHC / 8;
+  const int ldd = D + 8;
+  float acc[1][NT][4];
+  zero(acc);
+  if (prod == 0) {
+    warp_gemm<1, NT, false, false, SPLIT>(acc, us, ldd, kXRows * ldd, m0, w1s, ldd,
+                                          kHC * ldd, 0, 16, NT / 2, D, lane);
+  } else {
+    warp_gemm<1, NT, false, true, SPLIT>(acc, ds, ldd, kXRows * ldd, m0, w2s, kLH, D * kLH, 0,
+                                         16, NT / 2, D, lane);
+  }
+  __syncthreads();
+  const int g = lane >> 2, t4 = lane & 3;
+  float* out = hg + prod * kXRows * kHG;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (m0 + g + 8 * r) * kHG + 8 * n + 2 * t4) =
+          make_float2(acc[0][n][2 * r], acc[0][n][2 * r + 1]);
+}
+
+// ---- the kernels ----
+
+// hi (and lo) bf16 planes of n weights (rounded to bf16 when !SPLIT)
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+    split_weights_kernel(const float* __restrict__ w, bf16* __restrict__ p, int64_t n) {
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+  store4<SPLIT>(p + i, n, *reinterpret_cast<const float4*>(w + i));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_ffn_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
+                            const float* __restrict__ ln_b, const bf16* __restrict__ w1p,
+                            const float* __restrict__ b1, const bf16* __restrict__ w2p,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            bf16* __restrict__ rowp, bf16* __restrict__ hp,
+                            float* __restrict__ part, int64_t R, int D, int Hd, float eps,
+                            uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                            int use_dropout) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  constexpr int P = planes(SPLIT), XR = kXRows;
+  extern __shared__ float4 smem4[];
+  const int ldd = D + 8;
+  bf16* us = reinterpret_cast<bf16*>(smem4);  // [P][XR][ldd] u
+  bf16* ds = us + P * XR * ldd;               // [P][XR][ldd] dy0
+  bf16* w1s = ds + P * XR * ldd;              // [P][kHC][ldd]
+  bf16* w2s = w1s + P * kHC * ldd;            // [P][D][kLH]
+  // after fc1 and dgd, the chunk's w2s is dead: hg and dhs take its place
+  float* hg = reinterpret_cast<float*>(w2s);  // [2][XR][kHG]
+  bf16* dhs = reinterpret_cast<bf16*>(hg + 2 * XR * kHG);  // [P][XR][kLH]
+  // red [kWarps][D], after the region of w2s, hg and dhs
+  float* red = reinterpret_cast<float*>(reinterpret_cast<char*>(w2s) + dx_w2_bytes(D, SPLIT));
+  float* mu_s = red + kWarps * D;                            // [XR]
+  float* rstd_s = mu_s + XR;                                 // [XR]
+  float* dbr = rstd_s + XR;  // [kEw * kWarps][kHC] the chunk's db1, by groups of 4 rows
+  float* dus = reinterpret_cast<float*>(us);  // [XR][D + 4] du, after the chunks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * XR;
+  const int groups = D / 4;  // <= 64: a lane's groups are lane and lane + 32
+  // db1 [Hd] | dln_w [D] | dln_b [D] | db2 [D]
+  float* my_part = part + static_cast<size_t>(blockIdx.x) * (Hd + 3 * D);
+  const size_t plane = static_cast<size_t>(R) * D;  // elements of one row plane
+  const size_t hplane = static_cast<size_t>(R) * Hd;  // of one hidden plane
+
+  // ---- u and dy0 of the block's rows, as planes here and in the scratch
+  // rowp [2][P][R][D] (u, then dy0); warp w takes rows 8w .. 8w+7 ----
+  {
+    float dsum[8];  // columns 4 (lane + 32 t) + k of the warp's rows
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dsum[k] = 0.f;
+    for (int i = 0; i < XR / kWarps; ++i) {
+      const int rr = warp * (XR / kWarps) + i;
+      const int64_t r = r0 + rr;
+      float4 xv[2] = {};
+      float s = 0.f, ss = 0.f, mu = 0.f, rstd = 0.f;
+      if (r < R) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int c = 4 * (lane + 32 * t);
+          if (c < D) {
+            xv[t] = make_float4(to_f(x[r * D + c]), to_f(x[r * D + c + 1]),
+                                to_f(x[r * D + c + 2]), to_f(x[r * D + c + 3]));
+            s += (xv[t].x + xv[t].y) + (xv[t].z + xv[t].w);
+          }
+        }
+        mu = warp_sum(s) / D;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (4 * (lane + 32 * t) < D) {
+            const float a = xv[t].x - mu, b = xv[t].y - mu, c = xv[t].z - mu, d = xv[t].w - mu;
+            ss += (a * a + b * b) + (c * c + d * d);
+          }
+        }
+        rstd = rsqrtf(warp_sum(ss) / D + eps);
       }
-      const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-      for (int k = lane; k < D; k += 32)
-        ur[k] = round_to<T>((ur[k] - mu) * rstd * ln_w[k] + ln_b[k]);
       if (lane == 0) {
         mu_s[rr] = mu;
         rstd_s[rr] = rstd;
       }
-      const T* dyr = dy + r * D;
 #pragma unroll
-      for (int t = 0; t < kMaxM / 4; ++t) {
-        const int g = lane + 32 * t;
-        if (g < groups) {
-          const int c = 4 * g;
+      for (int t = 0; t < 2; ++t) {
+        const int gi = lane + 32 * t, c = 4 * gi;
+        if (gi >= groups) continue;
+        float4 u = {}, d = {};
+        if (r < R) {
+          u = make_float4(
+              round_to<T>((xv[t].x - mu) * rstd * ln_w[c] + ln_b[c]),
+              round_to<T>((xv[t].y - mu) * rstd * ln_w[c + 1] + ln_b[c + 1]),
+              round_to<T>((xv[t].z - mu) * rstd * ln_w[c + 2] + ln_b[c + 2]),
+              round_to<T>((xv[t].w - mu) * rstd * ln_w[c + 3] + ln_b[c + 3]));
           Philox4 p = {};
-          if (use_dropout)
-            p = philox_group((static_cast<uint64_t>(r) * D + c) >> 2, 1u, s0, s1);
+          if (use_dropout) p = philox_group((static_cast<uint64_t>(r) * D + c) >> 2, 1u, s0, s1);
+          float v[4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float v = to_f(dyr[c + kk]);
-            if (use_dropout) v = (p.w[kk] >> 8) < thresh ? v * inv_keep : 0.f;
-            dsum[t * 4 + kk] += v;
-            dr[c + kk] = round_to<T>(v);
+          for (int k = 0; k < 4; ++k) {
+            v[k] = to_f(dy[r * D + c + k]);
+            if (use_dropout) v[k] = (p.w[k] >> 8) < thresh ? v[k] * inv_keep : 0.f;
+            dsum[4 * t + k] += v[k];
           }
+          d = make_float4(round_to<T>(v[0]), round_to<T>(v[1]), round_to<T>(v[2]),
+                          round_to<T>(v[3]));
+          store4<SPLIT>(rowp + r * D + c, plane, u);
+          store4<SPLIT>(rowp + P * plane + r * D + c, plane, d);
         }
-      }
-    } else {
-      for (int k = lane; k < D; k += 32) {
-        ur[k] = 0.f;
-        dr[k] = 0.f;
-      }
-      if (lane == 0) {
-        mu_s[rr] = 0.f;
-        rstd_s[rr] = 0.f;
+        store4<SPLIT>(us + rr * ldd + c, static_cast<size_t>(XR) * ldd, u);
+        store4<SPLIT>(ds + rr * ldd + c, static_cast<size_t>(XR) * ldd, d);
       }
     }
-  }
-  if (red != nullptr) {
 #pragma unroll
-    for (int t = 0; t < kMaxM / 4; ++t) {
-      const int g = lane + 32 * t;
-      if (g < groups) {
+    for (int t = 0; t < 2; ++t) {
+      const int gi = lane + 32 * t;
+      if (gi < groups) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) red[warp * D + 4 * g + kk] = dsum[t * 4 + kk];
+        for (int k = 0; k < 4; ++k) red[warp * D + 4 * gi + k] = dsum[4 * t + k];
       }
     }
   }
-}
-
-// Stages the chunk j0 .. j0+kHC of both weight matrices, rounded to T:
-//   w1T[k][jj] = W1[j0 + jj][k]      w2c[c][jj] = W2[c][j0 + jj]
-template <typename T>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ w1,
-                                           const float* __restrict__ w2, float* w1T,
-                                           float* w2c, int j0, int D, int Hd) {
-  for (int idx = threadIdx.x; idx < kHC * D; idx += kThreads) {
-    const int jj = idx / D, k = idx % D;
-    w1T[k * kWS + jj] = round_to<T>(w1[static_cast<size_t>(j0 + jj) * D + k]);
-  }
-  for (int idx = threadIdx.x; idx < kHC * D; idx += kThreads) {
-    const int c = idx / kHC, jj = idx % kHC;
-    w2c[c * kWS + jj] = round_to<T>(w2[static_cast<size_t>(c) * Hd + j0 + jj]);
-  }
-}
-
-// For the warp's rows 4w..4w+3 and the chunk's hidden unit `lane`:
-//   h[i]   = sum_k u[row][k]  * W1[j][k]      (fc1 without its bias)
-//   dgd[i] = sum_c dy[row][c] * W2[c][j]
-__device__ __forceinline__ void chunk_products(const float* u_rm, const float* dy_rm,
-                                               const float* w1T, const float* w2c,
-                                               int D, int DS, float h[4],
-                                               float dgd[4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = dgd[i] = 0.f;
-  const float* ub = u_rm + warp * 4 * DS;
-  const float* db = dy_rm + warp * 4 * DS;
-  for (int k = 0; k < D; k += 4) {
-    float wa[4], wb[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wa[kk] = w1T[(k + kk) * kWS + lane];
-      wb[kk] = w2c[(k + kk) * kWS + lane];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 u4 = *reinterpret_cast<const float4*>(ub + i * DS + k);
-      const float4 d4 = *reinterpret_cast<const float4*>(db + i * DS + k);
-      h[i] = fmaf(u4.x, wa[0], h[i]);
-      h[i] = fmaf(u4.y, wa[1], h[i]);
-      h[i] = fmaf(u4.z, wa[2], h[i]);
-      h[i] = fmaf(u4.w, wa[3], h[i]);
-      dgd[i] = fmaf(d4.x, wb[0], dgd[i]);
-      dgd[i] = fmaf(d4.y, wb[1], dgd[i]);
-      dgd[i] = fmaf(d4.z, wb[2], dgd[i]);
-      dgd[i] = fmaf(d4.w, wb[3], dgd[i]);
-    }
-  }
-}
-
-// Sums red[warps][D] over the warps, in order, into out[D].
-__device__ __forceinline__ void block_column_sum(const float* red, int D, float* out) {
-  if (static_cast<int>(threadIdx.x) < D) {
+  __syncthreads();
+  if (tid < D) {  // db2: the warps' column sums in order
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarpsB; ++w) s += red[w * D + threadIdx.x];
-    out[threadIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) s += red[w * D + tid];
+    my_part[Hd + 2 * D + tid] = s;
   }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_ffn_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
-                            const float* __restrict__ ln_b, const float* __restrict__ w1,
-                            const float* __restrict__ b1, const float* __restrict__ w2,
-                            const T* __restrict__ dy, T* __restrict__ dx,
-                            float* __restrict__ part, int64_t R, int D, int Hd,
-                            float eps, uint32_t thresh, float inv_keep, uint32_t s0,
-                            uint32_t s1, int use_dropout) {
-  extern __shared__ float4 smem4[];
-  const int DS = D + 4;
-  float* u_rm = reinterpret_cast<float*>(smem4);  // [kTR][DS]
-  float* dy_rm = u_rm + kTR * DS;                  // [kTR][DS]
-  float* w1T = dy_rm + kTR * DS;                   // [D][kWS]
-  float* w2c = w1T + D * kWS;                      // [D][kWS]
-  float* dhT = w2c + D * kWS;                      // [kHC][kTS]
-  float* red = dhT + kHC * kTS;                    // [kWarpsB][D]
-  float* mu_s = red + kWarpsB * D;                 // [kTR]
-  float* rstd_s = mu_s + kTR;                      // [kTR]
-  uint32_t* qbuf = reinterpret_cast<uint32_t*>(rstd_s + kTR);  // [kWarpsB][128]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTR;
-  const int M = D / 32;
-  uint32_t* wbuf = qbuf + warp * 128;
-  float* my_part = part + static_cast<size_t>(blockIdx.x) * 3 * D;  // dln_w|dln_b|db2
-
-  load_tile<T>(x, dy, ln_w, ln_b, u_rm, dy_rm, mu_s, rstd_s, red, r0, R, D, DS, eps,
-               thresh, inv_keep, s0, s1, use_dropout);
-  __syncthreads();
-  block_column_sum(red, D, my_part + 2 * D);  // db2
-
-  float acc[4][kMaxM];  // du of rows 4*warp + i, columns lane + 32*m
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) acc[i][m] = 0.f;
+  // du: warp w owns rows 32 (w & 1) .. +32 and the column pairs (16 columns
+  // each) cg, cg + 4, cg + 8, cg + 12 with cg = w >> 1
+  const int rh = warp & 1, cg = warp >> 1;
+  const int du_pairs = (D / 16 - cg + 3) / 4;  // live pairs of this warp
+  float du[2][8][4];
+  zero(du);
 
   for (int j0 = 0; j0 < Hd; j0 += kHC) {
-    __syncthreads();  // the previous chunk is done with w1T and w2c
-    load_chunk<T>(w1, w2, w1T, w2c, j0, D, Hd);
+    __syncthreads();  // the previous chunk is done with w1s, hg and dhs
+    copy_chunk<SPLIT>(w1s, w2s, w1p, w2p, j0, D, Hd);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-
-    float h[4], dgd[4];
-    chunk_products(u_rm, dy_rm, w1T, w2c, D, DS, h, dgd);
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if (use_dropout) quad_bits(wbuf, r0 + warp * 4, Hd, j0, lane, 0u, s0, s1, bits);
-    const float bj = b1[j0 + lane];
-    float d4[4];
+    // fc1 (warps 0-3) and dgd (warps 4-7), 16 rows x kHC each
+    chunk_product<SPLIT>(hg, warp >> 2, us, ds, w1s, w2s, D, 16 * (warp & 3), lane);
+    __syncthreads();
+    // dh = gelu'(h) * (m1 ? dgd * inv_keep : 0) and gd = m1 ? gelu(h) *
+    // inv_keep : 0, four hidden units a thread per pass: dh into dhs, both
+    // into the scratch for the dW kernel, dh's column sums into dbr
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float dg = dgd[i];
-      if (use_dropout) dg = (bits[i] >> 8) < thresh ? dg * inv_keep : 0.f;
-      d4[i] = round_to<T>(gelu_grad(h[i] + bj) * dg);
-    }
-    // dhT[jj][rows]: written and read by this warp only (its own four rows)
-    *reinterpret_cast<float4*>(&dhT[lane * kTS + warp * 4]) =
-        make_float4(d4[0], d4[1], d4[2], d4[3]);
-    __syncwarp();
-    for (int jj = 0; jj < kHC; ++jj) {
-      const float4 g = *reinterpret_cast<const float4*>(&dhT[jj * kTS + warp * 4]);
+    for (int it = 0; it < kEw; ++it) {
+      const int rr = (tid + it * kThreads) / (kHC / 4), jj = 4 * (tid % (kHC / 4));
+      const int64_t r = r0 + rr;
+      float dh[4] = {0.f, 0.f, 0.f, 0.f}, gd[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < R) {
+        Philox4 p = {};
+        if (use_dropout)  // mask1: element r Hd + j, stream 0
+          p = philox_group((static_cast<uint64_t>(r) * Hd + j0 + jj) >> 2, 0u, s0, s1);
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float w = w1T[(lane + 32 * m) * kWS + jj];
-          acc[0][m] = fmaf(g.x, w, acc[0][m]);
-          acc[1][m] = fmaf(g.y, w, acc[1][m]);
-          acc[2][m] = fmaf(g.z, w, acc[2][m]);
-          acc[3][m] = fmaf(g.w, w, acc[3][m]);
+        for (int k = 0; k < 4; ++k) {
+          const float hh = hg[rr * kHG + jj + k] + b1[j0 + jj + k];
+          float g = gelu(hh), dg = hg[XR * kHG + rr * kHG + jj + k];
+          if (use_dropout) {
+            const bool keep = (p.w[k] >> 8) < thresh;
+            g = keep ? g * inv_keep : 0.f;
+            dg = keep ? dg * inv_keep : 0.f;
+          }
+          dh[k] = gelu_grad(hh) * dg;
+          gd[k] = round_to<T>(g);
         }
+        const float4 hv = make_float4(round_to<T>(dh[0]), round_to<T>(dh[1]),
+                                      round_to<T>(dh[2]), round_to<T>(dh[3]));
+        store4<SPLIT>(hp + r * Hd + j0 + jj, hplane, hv);
+        store4<SPLIT>(hp + P * hplane + r * Hd + j0 + jj, hplane,
+                      make_float4(gd[0], gd[1], gd[2], gd[3]));
+        store4<SPLIT>(dhs + rr * kLH + jj, static_cast<size_t>(XR) * kLH, hv);
+      } else {
+        store4<SPLIT>(dhs + rr * kLH + jj, static_cast<size_t>(XR) * kLH, float4{});
+      }
+      // the warp's four rows (lanes l, l ^ 8, l ^ 16, l ^ 24), in a fixed order
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dh[k] += __shfl_xor_sync(0xffffffffu, dh[k], 8);
+        dh[k] += __shfl_xor_sync(0xffffffffu, dh[k], 16);
+        if (lane < kHC / 4) dbr[(it * kWarps + warp) * kHC + jj + k] = dh[k];
       }
     }
-    __syncwarp();
+    __syncthreads();
+    if (warp == 0) {  // db1 of the chunk: the groups of rows in order
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kEw * kWarps; ++q) sum += dbr[q * kHC + lane];
+      my_part[j0 + lane] = sum;
+    }
+    // du += dh W1c
+    warp_gemm<2, 8, false, true, SPLIT>(du, dhs, kLH, XR * kLH, 32 * rh, w1s, ldd, kHC * ldd,
+                                        16 * cg, 64, du_pairs, kHC, lane);
   }
 
-  // LayerNorm backward for the warp's rows; partial sums of dln_w and dln_b
-  float gw[kMaxM], gb[kMaxM];
+  // du to shared memory (over u and dy0, which no warp reads any more)
+  __syncthreads();
+  {
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) gw[m] = gb[m] = 0.f;
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = warp * 4 + i;
+      for (int q = 0; q < 4; ++q) {
+        if (q >= du_pairs) break;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(
+                dus + (32 * rh + 16 * m + g + 8 * r) * (D + 4) + 16 * (cg + 4 * q) + 8 * hf +
+                2 * t4) = make_float2(du[m][2 * q + hf][2 * r], du[m][2 * q + hf][2 * r + 1]);
+      }
+  }
+  __syncthreads();
+
+  // LayerNorm backward for the warp's rows 8w .. 8w+7; partial sums of
+  // dln_w and dln_b (columns lane + 32 m)
+  const int M = D / 32;
+  float gw[kMaxD / 32], gb[kMaxD / 32];
+#pragma unroll
+  for (int m = 0; m < kMaxD / 32; ++m) gw[m] = gb[m] = 0.f;
+  for (int i = 0; i < XR / kWarps; ++i) {
+    const int rr = warp * (XR / kWarps) + i;
     const int64_t r = r0 + rr;
     const float mu = mu_s[rr], rstd = rstd_s[rr];
-    float t[kMaxM], xh[kMaxM];
+    float t[kMaxD / 32], xh[kMaxD / 32];
     float st = 0.f, stx = 0.f;
 #pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
+    for (int m = 0; m < kMaxD / 32; ++m) {
       t[m] = xh[m] = 0.f;
       if (m < M) {
         const int c = lane + 32 * m;
+        const float g = dus[rr * (D + 4) + c];
         xh[m] = r < R ? (to_f(x[r * D + c]) - mu) * rstd : 0.f;
-        t[m] = acc[i][m] * ln_w[c];
+        t[m] = g * ln_w[c];
         st += t[m];
         stx = fmaf(t[m], xh[m], stx);
-        gw[m] = fmaf(acc[i][m], xh[m], gw[m]);
-        gb[m] += acc[i][m];
+        gw[m] = fmaf(g, xh[m], gw[m]);
+        gb[m] += g;
       }
     }
     const float mt = warp_sum(st) / D, mtx = warp_sum(stx) / D;
     if (r < R) {
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M)
-          dx[r * D + lane + 32 * m] = from_f<T>((t[m] - mt - xh[m] * mtx) * rstd);
+      for (int m = 0; m < kMaxD / 32; ++m) {
+        if (m < M) dx[r * D + lane + 32 * m] = from_f<T>((t[m] - mt - xh[m] * mtx) * rstd);
       }
     }
   }
-  __syncthreads();  // red is free again
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
+  for (int m = 0; m < kMaxD / 32; ++m)
     if (m < M) red[warp * D + lane + 32 * m] = gw[m];
   __syncthreads();
-  block_column_sum(red, D, my_part);  // dln_w
+  if (tid < D) {  // dln_w
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * D + tid];
+    my_part[Hd + tid] = s;
+  }
   __syncthreads();
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
+  for (int m = 0; m < kMaxD / 32; ++m)
     if (m < M) red[warp * D + lane + 32 * m] = gb[m];
   __syncthreads();
-  block_column_sum(red, D, my_part + D);  // dln_b
+  if (tid < D) {  // dln_b
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * D + tid];
+    my_part[Hd + D + tid] = s;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_ffn_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
-                            const float* __restrict__ ln_b, const float* __restrict__ w1,
-                            const float* __restrict__ b1, const float* __restrict__ w2,
-                            const T* __restrict__ dy, float* __restrict__ part,
-                            int64_t R, int D, int Hd, float eps, uint32_t thresh,
-                            float inv_keep, uint32_t s0, uint32_t s1, int use_dropout) {
+// dW1 = dh^T u [Hd][D] and dW2 = dy0^T gd [D][Hd], C = A^T B over the rows
+// of one slice, A [R][M] and B [R][N] bf16 planes from the scratches: one
+// kGT x kGT tile of C a block, 8 warps of 32 x 64, the rows streamed in
+// stages of kGK through a cp.async ring. grid.x: the tiles of dW1, then of
+// dW2; grid.y: the slice. Writes the slice's partial [2][Hd * D].
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_ffn_bwd_dw_kernel(const bf16* __restrict__ rowp, const bf16* __restrict__ hp,
+                            float* __restrict__ part, int64_t R, int D, int Hd) {
+  constexpr int P = planes(SPLIT);
   extern __shared__ float4 smem4[];
-  const int DS = D + 4;
-  float* u_rm = reinterpret_cast<float*>(smem4);  // [kTR][DS]
-  float* dy_rm = u_rm + kTR * DS;                  // [kTR][DS]
-  float* w1T = dy_rm + kTR * DS;                   // [D][kWS]
-  float* w2c = w1T + D * kWS;                      // [D][kWS]
-  float* gd_rm = w2c + D * kWS;                    // [kTR][kTS]
-  float* dh_rm = gd_rm + kTR * kTS;                // [kTR][kTS]
-  float* red1 = dh_rm + kTR * kTS;                 // [kWarpsB][kHC]
-  float* mu_s = red1 + kWarpsB * kHC;              // [kTR]
-  float* rstd_s = mu_s + kTR;                      // [kTR]
-  uint32_t* qbuf = reinterpret_cast<uint32_t*>(rstd_s + kTR);  // [kWarpsB][128]
+  bf16* as = reinterpret_cast<bf16*>(smem4);  // [kGStages][P][kGK][kGL]
+  bf16* bs = as + kGStages * P * kGK * kGL;   // [kGStages][P][kGK][kGL]
+  constexpr int stage = P * kGK * kGL;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.x * kHC;
-  const int slice = blockIdx.y, slices = gridDim.y;
-  const int M = D / 32;
-  uint32_t* wbuf = qbuf + warp * 128;
-  const int64_t tiles = (R + kTR - 1) / kTR;
+  const int th = (Hd + kGT - 1) / kGT, td = (D + kGT - 1) / kGT;
+  const bool second = blockIdx.x >= th * td;  // dW2
+  const int t = second ? blockIdx.x - th * td : blockIdx.x;
+  const int M = second ? D : Hd, N = second ? Hd : D;
+  const int m0 = t / (second ? th : td) * kGT, n0 = t % (second ? th : td) * kGT;
+  const size_t hplane = static_cast<size_t>(R) * Hd, rplane = static_cast<size_t>(R) * D;
+  const bf16* A = second ? rowp + P * rplane : hp;  // dy0 or dh planes, [R][M]
+  const bf16* B = second ? hp + P * hplane : rowp;  // gd or u planes, [R][N]
+  const size_t a_plane = second ? rplane : hplane, b_plane = second ? hplane : rplane;
+  const int m_live = min(kGT, M - m0), n_live = min(kGT, N - n0);
 
-  load_chunk<T>(w1, w2, w1T, w2c, j0, D, Hd);
-  const float bj = b1[j0 + lane];
-
-  // thread: hidden units j0 + 4*warp + jj, columns lane + 32*m
-  float acc1[4][kMaxM], acc2[4][kMaxM];
+  const int steps = static_cast<int>((R + kGK - 1) / kGK);
+  const int s_beg = static_cast<int>(static_cast<int64_t>(steps) * blockIdx.y / gridDim.y);
+  const int n_steps =
+      static_cast<int>(static_cast<int64_t>(steps) * (blockIdx.y + 1) / gridDim.y) - s_beg;
+  // the rows of step s_beg + i into stage i % kGStages (zero past R and past
+  // the tile's live columns); thread tid copies the 16-byte pieces tid and
+  // tid + kThreads of each plane's kGK x kGT block
+  static_assert(kGK * kGT / 8 == 2 * kThreads, "two pieces a thread");
+  auto issue = [&](int i) {
+    const int64_t r0 = static_cast<int64_t>(s_beg + i) * kGK;
+    const int live = static_cast<int>(R - r0 < kGK ? R - r0 : kGK);
+    const int st = i % kGStages * stage;
+    const bf16* ga = A + r0 * M + m0;
+    const bf16* gb = B + r0 * N + n0;
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
+    for (int h = 0; h < 2; ++h) {
+      const int c = tid + h * kThreads, r = c / (kGT / 8), k = c % (kGT / 8) * 8;
 #pragma unroll
-    for (int m = 0; m < kMaxM; ++m) acc1[jj][m] = acc2[jj][m] = 0.f;
-  float db1 = 0.f;  // hidden unit j0 + lane, the warp's rows
-
-  for (int64_t tile = slice; tile < tiles; tile += slices) {
-    const int64_t r0 = tile * kTR;
-    __syncthreads();  // the previous tile's sums are done; the chunk is staged
-    load_tile<T>(x, dy, ln_w, ln_b, u_rm, dy_rm, mu_s, rstd_s, nullptr, r0, R, D, DS,
-                 eps, thresh, inv_keep, s0, s1, use_dropout);
-    __syncwarp();
-
-    float h[4], dgd[4];
-    chunk_products(u_rm, dy_rm, w1T, w2c, D, DS, h, dgd);
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if (use_dropout) quad_bits(wbuf, r0 + warp * 4, Hd, j0, lane, 0u, s0, s1, bits);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float hh = h[i] + bj;
-      float g = gelu(hh), dg = dgd[i];
-      if (use_dropout) {
-        const bool keep = (bits[i] >> 8) < thresh;
-        g = keep ? g * inv_keep : 0.f;
-        dg = keep ? dg * inv_keep : 0.f;
-      }
-      const float dh = gelu_grad(hh) * dg;
-      db1 += dh;
-      gd_rm[(warp * 4 + i) * kTS + lane] = round_to<T>(g);
-      dh_rm[(warp * 4 + i) * kTS + lane] = round_to<T>(dh);
-    }
-    __syncthreads();
-
-    for (int r = 0; r < kTR; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&dh_rm[r * kTS + warp * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&gd_rm[r * kTS + warp * 4]);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float uu = u_rm[r * DS + lane + 32 * m];
-          const float dd = dy_rm[r * DS + lane + 32 * m];
-          acc1[0][m] = fmaf(a.x, uu, acc1[0][m]);
-          acc1[1][m] = fmaf(a.y, uu, acc1[1][m]);
-          acc1[2][m] = fmaf(a.z, uu, acc1[2][m]);
-          acc1[3][m] = fmaf(a.w, uu, acc1[3][m]);
-          acc2[0][m] = fmaf(b.x, dd, acc2[0][m]);
-          acc2[1][m] = fmaf(b.y, dd, acc2[1][m]);
-          acc2[2][m] = fmaf(b.z, dd, acc2[2][m]);
-          acc2[3][m] = fmaf(b.w, dd, acc2[3][m]);
+      for (int pl = 0; pl < P; ++pl) {
+        bf16* sa = as + st + pl * kGK * kGL + r * kGL + k;
+        bf16* sb = bs + st + pl * kGK * kGL + r * kGL + k;
+        if (r < live && k < m_live) {
+          cp_async16(sa, ga + pl * a_plane + r * M + k);
+        } else {
+          *reinterpret_cast<uint4*>(sa) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        if (r < live && k < n_live) {
+          cp_async16(sb, gb + pl * b_plane + r * N + k);
+        } else {
+          *reinterpret_cast<uint4*>(sb) = make_uint4(0u, 0u, 0u, 0u);
         }
       }
     }
+  };
+#pragma unroll
+  for (int i = 0; i < kGStages - 1; ++i) {
+    if (i < n_steps) issue(i);
+    cp_async_commit();
   }
 
-  // this slice's partials: dW1 [Hd][D] | dW2 [D][Hd] | db1 [Hd]
-  const size_t hd = static_cast<size_t>(Hd) * D;
-  float* p = part + static_cast<size_t>(slice) * (2 * hd + Hd);
+  const int wm = warp & 3, wn = warp >> 2;  // rows 32 wm, columns 64 wn of the tile
+  const int pairs = max(0, min(4, (n_live - 64 * wn) / 16));
+  float acc[2][8][4];
+  zero(acc);
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // step i is in; every warp is done with step i - 1's stage
+    if (i + kGStages - 1 < n_steps) issue(i + kGStages - 1);
+    cp_async_commit();
+    const int st = i % kGStages * stage;
+    warp_gemm<2, 8, true, true, SPLIT>(acc, as + st, kGL, kGK * kGL, 32 * wm, bs + st, kGL,
+                                       kGK * kGL, 64 * wn, 16, pairs, kGK, lane);
+  }
+  cp_async_wait<0>();
+
+  float* out = part + static_cast<size_t>(blockIdx.y) * 2 * Hd * D +
+               (second ? static_cast<size_t>(Hd) * D : 0);
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) {
-    if (m < M) {
-      const int c = lane + 32 * m;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        p[static_cast<size_t>(j0 + warp * 4 + jj) * D + c] = acc1[jj][m];
-      *reinterpret_cast<float4*>(&p[hd + static_cast<size_t>(c) * Hd + j0 + warp * 4]) =
-          make_float4(acc2[0][m], acc2[1][m], acc2[2][m], acc2[3][m]);
+    for (int q = 0; q < 4; ++q) {
+      if (q >= pairs) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 32 * wm + 16 * m + g + 8 * r;
+          if (row >= m_live) continue;
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(m0 + row) * N + n0 + 64 * wn +
+                                     16 * q + 8 * hf + 2 * t4) =
+              make_float2(acc[m][2 * q + hf][2 * r], acc[m][2 * q + hf][2 * r + 1]);
+        }
     }
-  }
-  red1[warp * kHC + lane] = db1;
-  __syncthreads();
-  if (tid < kHC) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarpsB; ++w) s += red1[w * kHC + tid];
-    p[2 * hd + j0 + tid] = s;
-  }
 }
 
 // out[col] = sum over p < parts of part[p * stride + col], in a fixed order:
@@ -446,72 +625,77 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     reduce_parts_kernel(const float* __restrict__ part, int64_t parts, size_t stride,
                         size_t width, float* __restrict__ out) {
-  __shared__ float sm[kWarpsB][33];
+  __shared__ float sm[kWarps][33];
   const int lane = threadIdx.x & 31, pl = threadIdx.x >> 5;
   const size_t col = static_cast<size_t>(blockIdx.x) * 32 + lane;
   float s = 0.f;
   if (col < width)
-    for (int64_t q = pl; q < parts; q += kWarpsB) s += part[q * stride + col];
+    for (int64_t q = pl; q < parts; q += kWarps) s += part[q * stride + col];
   sm[pl][lane] = s;
   __syncthreads();
   if (pl == 0 && col < width) {
     float t = 0.f;
 #pragma unroll
-    for (int q = 0; q < kWarpsB; ++q) t += sm[q][lane];
+    for (int q = 0; q < kWarps; ++q) t += sm[q][lane];
     out[col] = t;
   }
 }
 
-size_t dx_smem_bytes(int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kTR) * (D + 4) +
-                          2 * static_cast<size_t>(D) * kWS + kHC * kTS +
-                          static_cast<size_t>(kWarpsB) * D + 2 * kTR) +
-         sizeof(uint32_t) * kWarpsB * 128;
+size_t dx_smem_bytes(int D, bool split) {
+  const size_t P = planes(split), ldd = D + 8;
+  return sizeof(bf16) * (2 * P * kXRows * ldd + P * kHC * ldd) + dx_w2_bytes(D, split) +
+         sizeof(float) * (static_cast<size_t>(kWarps) * D + 2 * kXRows + kEw * kWarps * kHC);
 }
 
-size_t dw_smem_bytes(int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kTR) * (D + 4) +
-                          2 * static_cast<size_t>(D) * kWS + 2 * kTR * kTS +
-                          kWarpsB * kHC + 2 * kTR) +
-         sizeof(uint32_t) * kWarpsB * 128;
+size_t dw_smem_bytes(bool split) {
+  return sizeof(bf16) * 2 * kGStages * planes(split) * kGK * kGL;
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                        const void* b1, const void* w2, const void* dy, void* dx,
-                       float* grads, float* part_dx, float* part_dw, int64_t R, int D,
-                       int Hd, int slices, float eps, uint32_t thresh, float inv_keep,
-                       uint32_t s0, uint32_t s1, int use_dropout, cudaStream_t stream) {
-  const int64_t tiles = (R + kTR - 1) / kTR;
+                       float* grads, float* part_dx, float* part_dw, bf16* wplanes,
+                       bf16* rowp, bf16* hp, int64_t R, int D, int Hd, int slices, float eps,
+                       uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                       int use_dropout, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  const int64_t tiles = (R + kXRows - 1) / kXRows;
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
-  const float* W1 = static_cast<const float*>(w1);
   const float* B1 = static_cast<const float*>(b1);
-  const float* W2 = static_cast<const float*>(w2);
+  const int64_t nw = static_cast<int64_t>(Hd) * D;
+  bf16* w1p = wplanes;               // [P][Hd][D]
+  bf16* w2p = wplanes + planes(SPLIT) * nw;  // [P][D][Hd]
 
-  size_t smem = dx_smem_bytes(D);
-  cudaError_t err = allow_smem(fused_ffn_bwd_dx_kernel<T>, smem);
+  const unsigned split_blocks = static_cast<unsigned>((nw / 4 + kThreads - 1) / kThreads);
+  split_weights_kernel<SPLIT><<<split_blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(w1), w1p, nw);
+  split_weights_kernel<SPLIT><<<split_blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(w2), w2p, nw);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+
+  size_t smem = dx_smem_bytes(D, SPLIT);
+  if ((err = allow_smem(fused_ffn_bwd_dx_kernel<T>, smem)) != cudaSuccess) return err;
   fused_ffn_bwd_dx_kernel<T><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), lw, lb, W1, B1, W2, static_cast<const T*>(dy),
-      static_cast<T*>(dx), part_dx, R, D, Hd, eps, thresh, inv_keep, s0, s1,
+      static_cast<const T*>(x), lw, lb, w1p, B1, w2p, static_cast<const T*>(dy),
+      static_cast<T*>(dx), rowp, hp, part_dx, R, D, Hd, eps, thresh, inv_keep, s0, s1,
       use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  smem = dw_smem_bytes(D);
-  err = allow_smem(fused_ffn_bwd_dw_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  fused_ffn_bwd_dw_kernel<T><<<dim3(Hd / kHC, slices), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), lw, lb, W1, B1, W2, static_cast<const T*>(dy), part_dw,
-      R, D, Hd, eps, thresh, inv_keep, s0, s1, use_dropout);
+  smem = dw_smem_bytes(SPLIT);
+  if ((err = allow_smem(fused_ffn_bwd_dw_kernel<SPLIT>, smem)) != cudaSuccess) return err;
+  const unsigned tiles_w = 2 * ((Hd + kGT - 1) / kGT) * ((D + kGT - 1) / kGT);
+  fused_ffn_bwd_dw_kernel<SPLIT><<<dim3(tiles_w, slices), kThreads, smem, stream>>>(
+      rowp, hp, part_dw, R, D, Hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // grads: dW1 [Hd][D] | dW2 [D][Hd] | db1 [Hd] | dln_w [D] | dln_b [D] | db2 [D]
-  const size_t wide = 2 * static_cast<size_t>(Hd) * D + Hd;
+  const size_t wide = 2 * static_cast<size_t>(Hd) * D;
   reduce_parts_kernel<<<static_cast<unsigned>((wide + 31) / 32), kThreads, 0, stream>>>(
       part_dw, slices, wide, wide, grads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t narrow = 3 * static_cast<size_t>(D);
+  const size_t narrow = Hd + 3 * static_cast<size_t>(D);
   reduce_parts_kernel<<<static_cast<unsigned>((narrow + 31) / 32), kThreads, 0, stream>>>(
       part_dx, tiles, narrow, narrow, grads + wide);
   return cudaGetLastError();
@@ -523,30 +707,34 @@ extern "C" {
 
 // Returns the cudaError_t of the first launch that failed (0 on success).
 // Needs D % 32 == 0, D <= 256, Hd % 32 == 0 and 1 <= slices <= 65535
-// (checked by the Python wrapper). Scratch, all float32, from the caller:
-// part_dx [ceil(R/32)][3*D] and part_dw [slices][2*Hd*D + Hd]; `grads` is
-// the flat output described in launch_bwd.
+// (checked by the Python wrapper); every pointer on a 16-byte boundary.
+// Scratch from the caller: part_dx float32 [ceil(R / 64)][Hd + 3*D], part_dw
+// float32 [slices][2*Hd*D], and bf16 planes (P = 2 for float32 x, hi and lo;
+// 1 for bf16): wplanes [2][P][Hd*D] (W1, then W2), rowp [2][P][R][D] (u,
+// then dy0) and hplanes [2][P][R][Hd] (dh, then gd). `grads` is the flat
+// output described in launch_bwd.
 int eavit_fused_ffn_bwd(const void* x, const void* ln_w, const void* ln_b,
                         const void* w1, const void* b1, const void* w2, const void* dy,
-                        void* dx, void* grads, void* part_dx, void* part_dw,
-                        long long R, int D, int Hd, int slices, int dtype, float eps,
-                        uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
-                        int use_dropout, void* stream) {
-  if (D % 32 != 0 || D > 32 * kMaxM || Hd % kHC != 0 || slices < 1 || slices > 65535 ||
-      R < 1)
+                        void* dx, void* grads, void* part_dx, void* part_dw, void* wplanes,
+                        void* rowp, void* hplanes, long long R, int D, int Hd, int slices,
+                        int dtype, float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                        uint32_t s1, int use_dropout, void* stream) {
+  if (D % 32 != 0 || D > kMaxD || Hd % kHC != 0 || slices < 1 || slices > 65535 || R < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(grads);
   float* pdx = static_cast<float*>(part_dx);
   float* pdw = static_cast<float*>(part_dw);
+  bf16* wp = static_cast<bf16*>(wplanes);
+  bf16* rp = static_cast<bf16*>(rowp);
+  bf16* hp = static_cast<bf16*>(hplanes);
   if (dtype == kBF16) {
-    return launch_bwd<__nv_bfloat16>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, R,
-                                     D, Hd, slices, eps, thresh, inv_keep, s0, s1,
-                                     use_dropout, st);
+    return launch_bwd<bf16>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp, R, D,
+                            Hd, slices, eps, thresh, inv_keep, s0, s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return launch_bwd<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, R, D, Hd,
-                             slices, eps, thresh, inv_keep, s0, s1, use_dropout, st);
+    return launch_bwd<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp, R,
+                             D, Hd, slices, eps, thresh, inv_keep, s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

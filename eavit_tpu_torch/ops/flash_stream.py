@@ -21,8 +21,10 @@ Two versions of each function:
 - the CUDA kernels of ``csrc/flash_stream.cu``: K5f ``flash_stream_fwd``
   (replaces ``_fwd_kernel``, launched at flash_stream.py:159), K5q
   ``flash_stream_dq`` (``_bwd_dq_kernel``, line 285) and K5kv
-  ``flash_stream_dkv`` (``_bwd_dkv_kernel``, line 304). K5f runs on the
-  CUDA-core template ``csrc/flash_stream.cuh`` in both dtypes. The bf16 K5q
+  ``flash_stream_dkv`` (``_bwd_dkv_kernel``, line 304). The bf16 K5f runs on
+  the tensor cores, the streaming forward ``csrc/attn_fwd_mma.cuh`` in its
+  one-sweep mode (the online softmax, p as two bf16 terms); the float32 one
+  on the CUDA-core template ``csrc/flash_stream.cuh``. The bf16 K5q
   and K5kv run on the tensor cores, as the dq kernel and the dk/dv kernel of
   ``csrc/attn_bwd_mma.cuh`` launched one at a time, with p and ds kept f32
   as two bf16 terms each and the caller's ``delta``, which neither writes;
@@ -32,8 +34,8 @@ Two versions of each function:
 
 The wrappers take the plain version for a tensor on the CPU and launch the
 kernel for a CUDA tensor; a CUDA tensor the kernel does not take (another
-dtype or layout, ``Dh`` not in 16 / 32 / 64, a bf16 operand of K5q or K5kv
-not on a 16-byte boundary) raises before any launch.
+dtype or layout, ``Dh`` not in 16 / 32 / 64, a bf16 operand not on a 16-byte
+boundary) raises before any launch.
 :func:`flash_attention_stream` is differentiable through one
 ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
 ``_flash_stream_fwd`` does (line 337). ``launches`` counts kernel launches.
@@ -145,6 +147,8 @@ def flash_stream_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     if q.device.type == "cpu":
         return flash_stream_fwd_plain(q, k, v, scale, num_special)
     check_kernel_args("flash_stream_fwd", q, k, v)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte rows
+        _build.check_aligned("flash_stream_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("fwd", (q, k, v), (o, lse), q, scale, num_special)

@@ -27,14 +27,16 @@ Two versions of each function:
   replaces ``_fwd_kernel`` at fused_ffn.py:160 launched at line 288, and K2r
   ``fused_ffn_bits``, which replaces ``_masks_kernel`` at line 433 launched
   at line 455) and of ``csrc/fused_ffn_bwd.cu`` (K2b ``fused_ffn_bwd``, which
-  replaces ``_bwd_kernel`` at line 180 launched at line 321).
+  replaces ``_bwd_kernel`` at line 180 launched at line 321, and runs its
+  five products on the tensor cores).
 
 :func:`fused_ffn_fwd`, :func:`fused_ffn_bwd` and :func:`fused_ffn_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
 tensor; a CUDA tensor the kernel does not take raises. :func:`fused_ffn` is
 differentiable through one ``torch.autograd.Function`` whose backward is
 :func:`fused_ffn_bwd`. ``launches`` counts kernel launches (one per call of
-a wrapper; K2b's entry starts its four ``__global__`` functions itself).
+a wrapper; K2b's entry makes its six launches of four ``__global__``
+functions itself).
 """
 
 from __future__ import annotations
@@ -52,10 +54,11 @@ from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 launches = {"fused_ffn_fwd": 0, "fused_ffn_bwd": 0, "fused_ffn_bits": 0}
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-# row slices of K2b's weight-gradient kernel: 32 hidden chunks x 16 slices
-# fill the 132 SMs of an H100 about four times over
-_BWD_SLICES = 16
-_ROW_TILE = 32  # rows per block of csrc/fused_ffn_bwd.cu (kTR)
+# row slices of K2b's weight-gradient kernel, whose 32 tiles of 128 x 128 (D =
+# 256, Hd = 1024) then make 1,056 blocks, four rounds of two blocks on each of
+# the 132 SMs of an H100 (tune_fused_ffn_bwd.py)
+_BWD_SLICES = 33
+_ROW_TILE = 64  # rows per block of K2b's dx kernel (csrc/fused_ffn_bwd.cu kXRows)
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -85,8 +88,8 @@ def _bwd_lib():
     if not getattr(lib, "_eavit_typed", False):
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         lib.eavit_fused_ffn_bwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i, i,
-            f, u, f, u, u, i, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i,
+            i, i, f, u, f, u, u, i, vp]
         lib.eavit_fused_ffn_bwd.restype = i
         lib._eavit_typed = True
     return lib
@@ -238,12 +241,17 @@ def fused_ffn_bwd(
 ) -> Tuple[torch.Tensor, ...]:
     """K2b on rows: ``(dx, dln_w, dln_b, dw1, db1, dw2, db2)``; plain on the
     CPU, the kernel on CUDA. The parameter gradients are views of one flat
-    buffer; every sum has a fixed order, so two calls give equal bits."""
+    buffer; every sum has a fixed order, so two calls give equal bits. The
+    kernel's products run on the tensor cores from bf16 planes of their
+    operands, two planes each (hi + lo) for float32 ``x``, one for bf16, in
+    scratch the wrapper allocates (with dh and gd, 8 bytes per row and hidden
+    unit in float32)."""
     if x2.device.type == "cpu":
         return fused_ffn_bwd_plain(x2, ln_w, ln_b, w1, b1, w2, dy, seeds, rate, eps)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_ffn_bwd: unsupported device {x2.device}")
     _check_kernel_args("fused_ffn_bwd", x2, (ln_w, ln_b, w1, b1, w2))
+    _build.check_aligned("fused_ffn_bwd", w1, w2)  # read 16 bytes at a time
     if (dy.shape != x2.shape or dy.dtype != x2.dtype or dy.device != x2.device
             or not dy.is_contiguous()):
         raise ValueError(f"fused_ffn_bwd: dy must be contiguous {x2.dtype} "
@@ -254,16 +262,20 @@ def fused_ffn_bwd(
         raise ValueError("fused_ffn_bwd: no rows")
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
-    slices = min(_BWD_SLICES, tiles)
-    wide = 2 * hidden * dim + hidden
+    slices = min(_BWD_SLICES, (rows + 31) // 32)  # no more slices than 32-row steps
     f32 = dict(dtype=torch.float32, device=x2.device)
+    bf16 = dict(dtype=torch.bfloat16, device=x2.device)
+    planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
     dx = torch.empty_like(x2)
-    grads = torch.empty(wide + 3 * dim, **f32)
-    part_dx = torch.empty((tiles, 3 * dim), **f32)
-    part_dw = torch.empty((slices, wide), **f32)
+    grads = torch.empty(2 * hidden * dim + hidden + 3 * dim, **f32)
+    part_dx = torch.empty((tiles, hidden + 3 * dim), **f32)  # db1, dln_w, dln_b, db2
+    part_dw = torch.empty((slices, 2 * hidden * dim), **f32)  # dW1, dW2
+    wplanes = torch.empty((2, planes, hidden * dim), **bf16)  # W1, W2
+    rowp = torch.empty((2, planes, rows, dim), **bf16)  # u, dy0
+    hplanes = torch.empty((2, planes, rows, hidden), **bf16)  # dh, gd
     err = _bwd_lib().eavit_fused_ffn_bwd(
         *(_build.ptr(t) for t in (x2, ln_w, ln_b, w1, b1, w2, dy, dx, grads, part_dx,
-                                  part_dw)),
+                                  part_dw, wplanes, rowp, hplanes)),
         rows, dim, hidden, slices, _build.DTYPE_CODES[x2.dtype], float(eps),
         thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
         _build.stream_ptr(x2),

@@ -10,8 +10,9 @@ configures JAX):
 Tolerances: the replay kernels must equal the plain Philox bit for bit;
 K1f, K2f and K1b in bf16 may differ from the plain version by one bf16
 rounding of the output (2^-8 relative) because they sum in another order;
-K2f in float32 by 1e-4 of the output's scale; lse by 1e-4. K2b's seven
-outputs are judged each against its own maximum (float32 1e-4; bf16 input:
+K2f in float32 by 1e-4 of the output's scale; lse by 1e-4. K2b (every
+product on the tensor cores, float32 operands as hi + lo bf16 terms) has its
+seven outputs judged each against its own maximum (float32 1e-4; bf16 input:
 one bf16 rounding of dx, 2e-3 for the float32 parameter gradients, where a
 sum that lands on a rounding boundary of dh or gd flips the operand). The
 backward kernels are also held to torch autograd through the plain forward
@@ -22,7 +23,12 @@ held to their plain versions at one bf16 rounding of each output in bf16 and
 to autograd through the plain forward, and give equal bits twice. K5 (the
 KV-streaming kernels) is held to its plain version at the same tolerances,
 at N up to 640 and in one call at 3,137, and gives equal bits twice. Its
-bf16 K5q and K5kv run the dq and the dk/dv kernel of the tensor-core
+bf16 K5f runs the one-sweep mode of the tensor-core forward
+(csrc/attn_fwd_mma.cuh): at N 198, 443 and 3,137, Dh 16 / 32 / 64 and
+num_special 0 / 2 it is held to its plain version at one bf16 rounding of o
+and 1e-4 on lse, with equal bits twice and the shared memory of K4f's
+forward, whatever N is. Its bf16 K5q and K5kv run the dq and the dk/dv
+kernel of the tensor-core
 backward (csrc/attn_bwd_mma.cuh) with the caller's delta: each is called
 alone, K5kv first on a fresh delta, at N 11, 197, 198, 443, 640 and 3,137,
 Dh 16 / 32 / 64, num_special 0 / 2, within one bf16 rounding of the plain
@@ -225,6 +231,7 @@ K2B_NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
     (37, 64, 96),            # fewer rows than one tile and a half
     (130, 32, 64),
     (1000, 256, 512),
+    (1001, 128, 384),        # rows that neither row tile (64, 32) divides
 ])
 def test_fused_ffn_bwd_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
@@ -517,6 +524,32 @@ def test_flash_stream_shared_memory_does_not_grow_with_n(cuda):
     dq, dk, dv = fs.flash_stream_bwd(q, k, v, lse, fs.stream_delta(o, do), do, 0.125)
     torch.cuda.synchronize()
     assert all(torch.isfinite(t.float()).all() for t in (o, lse, dq, dk, dv))
+
+
+@pytest.mark.parametrize("dim_head", [16, 32, 64])
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("n", (198, 443, 3137))
+def test_bf16_flash_stream_forward_kernel_matches_plain(cuda, n, num_special, dim_head):
+    """The bf16 K5f, the one-sweep mode of the tensor-core forward: one launch,
+    o within one bf16 rounding of the plain version and lse within 1e-4,
+    equal bits twice, and shared memory that N does not change (the bytes of
+    the same template's K4f, read before and after the launch)."""
+    b, h = (2, 3) if n <= 443 else (1, 2)
+    q, k, v = _heads(b, h, n, dim_head, cuda, torch.bfloat16, count=3, seed=9)
+    scale = dim_head ** -0.5
+    smem = fs.smem_bytes("fwd", dim_head, torch.bfloat16)
+    assert smem == fl.fwd_smem(dim_head, torch.bfloat16)
+    before = fs.launches["flash_stream_fwd"]
+    o, lse = fs.flash_stream_fwd(q, k, v, scale, num_special)
+    po, plse = fs.flash_stream_fwd_plain(q, k, v, scale, num_special)
+    torch.cuda.synchronize()
+    assert fs.launches["flash_stream_fwd"] == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape and lse.shape == q.shape[:3]
+    assert _max_err(o, po) <= _bf16_tol(po)
+    assert _max_err(lse, plse) <= 1e-4
+    o2, lse2 = fs.flash_stream_fwd(q, k, v, scale, num_special)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # deterministic
+    assert fs.smem_bytes("fwd", dim_head, torch.bfloat16) == smem
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ attention output, not its probabilities: at rate 0.1 it must equal plain
 attention followed by ``dropout16`` on ``[B, H, N, Dh]`` from the same
 generator state. The numerics of the bf16 K5q and K5kv (p and ds as two
 bf16 terms, products summed in f32) are emulated in torch and held to the
-JAX gradient on keys that make dq nearly cancel (N = 198). The CUDA kernels
+JAX gradient on keys that make dq nearly cancel (N = 198), and the bf16 K5f's
+one-sweep online softmax (p as two bf16 terms, the accumulator rescaled as
+the row maximum moves) is emulated over 16- and 64-key steps and held to the
+JAX forward (o within one bf16 rounding, lse within 1e-4). The CUDA kernels
 are held to the plain versions on a GPU by test_torch_port_cuda.py.
 """
 
@@ -196,3 +199,60 @@ def test_bf16_backward_numerics_keep_a_cancelling_dq(jax_tiles_128):
     rounded = torch.matmul(ds.to(torch.bfloat16).float(), tk.float()).to(torch.bfloat16)
     err_rounded = (rounded.float() - ref[0]).abs().max().item()
     assert err_rounded > 0 and err_rounded >= 10 * errs[0], (err_rounded, errs)
+
+
+def _one_sweep_forward(q, k, v, scale, num_special, step):
+    """The bf16 K5f of csrc/attn_fwd_mma.cuh (ONE_SWEEP) in torch: scores of
+    the bf16 operands summed in f32, then per step of ``step`` keys the
+    running row maximum m, the accumulator and the row sum rescaled by
+    ``exp(m_old - m_new)``, the unnormalised ``p = exp(s - m)`` as two bf16
+    terms against bf16 V, summed in f32; ``o = acc / l`` rounded to bf16 and
+    ``lse = m + log l``."""
+    from eavit_tpu_torch.ops.flash import masked_scores
+
+    s = masked_scores(q, k, scale, num_special)  # f32, -inf where masked
+    n = s.shape[-1]
+    m = torch.full(s.shape[:-1], -float("inf"))
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(*s.shape[:-1], v.shape[-1])
+    vf = v.float()
+    for j0 in range(0, n, step):
+        blk = s[..., j0:j0 + step]
+        mn = torch.maximum(m, blk.amax(dim=-1))
+        off = torch.where(mn == -float("inf"), torch.zeros_like(mn), mn)
+        alpha = torch.exp(m - off)
+        p = torch.exp(blk - off[..., None])
+        hi, lo = _two_terms(p)
+        acc = acc * alpha[..., None] + (torch.matmul(hi, vf[..., j0:j0 + step, :])
+                                        + torch.matmul(lo, vf[..., j0:j0 + step, :]))
+        l = l * alpha + p.sum(dim=-1)
+        m = mn
+    return (acc / l[..., None]).to(torch.bfloat16), m + torch.log(l)
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+def test_bf16_one_sweep_forward_matches_jax(jax_tiles_128, num_special):
+    """The numerics of the bf16 K5f, emulated (:func:`_one_sweep_forward`)
+    over the kernel's 16-key steps and over 64-key tiles, against the JAX
+    package's K5f (Pallas in interpret mode, tiles of 128) at bf16 ``[2, 2,
+    198, 32]``: o within one bf16 rounding of each element (both round nearly
+    equal f32 values; plus 2^-16 of o's largest element, the two terms' error
+    in the f32 sum, which shows only where the sum nearly cancels), lse within
+    1e-4."""
+    b, h, n, dh = 2, 2, 198, 32
+    scale = dh ** -0.5
+    q, k, v, _ = _inputs(21 + num_special, b, h, n, dh)
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    fold = lambda t: t.reshape(b * h, n, dh)  # noqa: E731
+    ref_o, ref_lse = jax_stream._fwd(fold(jq), fold(jk), fold(jv), scale, num_special)
+    ref_o = torch.from_numpy(np.array(ref_o.astype(jnp.float32))).reshape(b, h, n, dh)
+    ref_lse = torch.from_numpy(np.array(ref_lse, np.float32)).reshape(b, h, n)
+    tq, tk, tv = (torch.from_numpy(np.array(t.astype(jnp.float32))).to(torch.bfloat16)
+                  for t in (jq, jk, jv))
+    # one bf16 ulp of each element of the reference (2^-7 of its binade)
+    ulp = torch.exp2(torch.floor(torch.log2(ref_o.abs().clamp_min(2.0 ** -100))) - 7)
+    tol = ulp + 2.0 ** -16 * ref_o.abs().max()
+    for step in (16, 64):
+        o, lse = _one_sweep_forward(tq, tk, tv, scale, num_special, step)
+        assert ((o.float() - ref_o).abs() <= tol).all(), step
+        assert (lse - ref_lse).abs().max().item() <= 1e-4, step

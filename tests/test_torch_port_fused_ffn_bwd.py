@@ -9,8 +9,13 @@ block (37 and 130), at float32 (1e-5 of each gradient's scale) and bfloat16
 input (2e-2: the roundings of u, gd, dy0, dh and dx to bf16). The JAX weights
 are ``[in, out]``, the port's ``[out, in]``. At rate 0.1 the explicit plain
 backward must equal torch autograd through the plain forward, which proves
-that it replays both masks (float32, 1e-5). The CUDA kernel is held to the
-plain backward on a GPU by test_torch_port_cuda.py.
+that it replays both masks (float32, 1e-5). The numerics of the CUDA kernel's
+float32 path (every product on bf16 tensor cores, each operand as hi + lo
+bf16 terms, three products summed in f32) are emulated in torch and held to
+``jax.grad`` at rate 0 and to the plain backward at rate 0.1 (1e-4 of each
+gradient's scale); one bf16 term per operand must err at least 10x as much on
+some gradient. The CUDA kernel is held to the plain backward on a GPU by
+test_torch_port_cuda.py.
 """
 
 import jax
@@ -21,6 +26,10 @@ import torch
 
 from eavit_tpu.ops import fused_ffn as jax_ff
 from eavit_tpu_torch.ops import fused_ffn as ff
+from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask
+
+# One intra-op thread: the suite runs several test processes on one host.
+torch.set_num_threads(1)
 
 NAMES = ("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2")
 
@@ -38,14 +47,9 @@ def _assert_close(ours, ref, tol, name):
     np.testing.assert_allclose(ours, ref, rtol=tol, atol=tol * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows", [37, 130])
-def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
-    dim, hidden = 48, 96
-    p, g = _inputs(rows, rows, dim, hidden)
-    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
-    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-
+def _jax_grads(p, g, jdt):
+    """``jax.grad`` of ``<fused_ffn(x, ...), g>`` at rate 0 (the Pallas kernel
+    in interpret mode), the weight gradients in the port's ``[out, in]``."""
     def jloss(x, ln_w, ln_b, w1, b1, w2, b2):
         y = jax_ff.fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2)
         return jnp.sum(y.astype(jnp.float32) * jnp.asarray(g, jdt).astype(jnp.float32))
@@ -55,6 +59,17 @@ def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
              jnp.asarray(p["b2"])]
     ref = dict(zip(NAMES, jax.grad(jloss, argnums=tuple(range(7)))(*jargs)))
     ref["w1"], ref["w2"] = ref["w1"].T, ref["w2"].T  # to [out, in]
+    return ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [37, 130])
+def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
+    dim, hidden = 48, 96
+    p, g = _inputs(rows, rows, dim, hidden)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    ref = _jax_grads(p, g, jdt)
 
     targs = [torch.tensor(p["x"]).to(tdt).requires_grad_()] + [
         torch.tensor(p[k]).requires_grad_() for k in NAMES[1:]]
@@ -101,3 +116,81 @@ def test_function_backward_honours_needs_input_grad_and_counts_no_launch():
     assert ff.launches == before  # CPU tensors take the plain versions
     with pytest.raises(ValueError):
         ff.fused_ffn(args[0], *args[1:], rate=0.1)  # rate > 0 needs seeds
+
+
+def _terms(a, split):
+    """An f32 operand as the K2b kernel feeds it to a bf16 mma: ``(hi, lo)``,
+    ``hi = bf16(a)`` and ``lo = bf16(a - hi)`` widened back to f32, or
+    ``(bf16(a),)`` alone."""
+    hi = a.to(torch.bfloat16).float()
+    return (hi, (a - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _product(a, b, split):
+    """``a @ b`` as the kernel takes it: hi hi + hi lo + lo hi, each summed in
+    f32 (``split``), or one product of the bf16 roundings."""
+    ta, tb = _terms(a, split), _terms(b, split)
+    out = torch.matmul(ta[0], tb[0])
+    if split:
+        out = out + torch.matmul(ta[0], tb[1]) + torch.matmul(ta[1], tb[0])
+    return out
+
+
+def _emulated_backward(x, ln_w, ln_b, w1, b1, w2, dy, seeds, rate, split, eps=1e-5):
+    """The float32 K2b kernel's arithmetic in torch: the five products (fc1,
+    dgd, dW2, dW1, du) through :func:`_product`, everything else in f32 as
+    the plain backward takes it."""
+    thresh, inv_keep, seeds = dropout_args(seeds, rate)
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    u = xhat * ln_w + ln_b
+    h = _product(u, w1.t(), split) + b1
+    g = ff.gelu_exact(h)
+    dy0 = dy
+    if thresh is not None:
+        m1 = keep_mask(g.shape, seeds, 0, thresh)
+        m2 = keep_mask(dy.shape, seeds, 1, thresh)
+        g = torch.where(m1, g * inv_keep, torch.zeros_like(g))
+        dy0 = torch.where(m2, dy * inv_keep, torch.zeros_like(dy))
+    dg = _product(dy0, w2, split)
+    if thresh is not None:
+        dg = torch.where(m1, dg * inv_keep, torch.zeros_like(dg))
+    dh = ff.gelu_grad(h) * dg
+    dw2 = _product(dy0.t(), g, split)
+    dw1 = _product(dh.t(), u, split)
+    du = _product(dh, w1, split)
+    t = du * ln_w
+    dx = (t - t.mean(dim=-1, keepdim=True)
+          - xhat * (t * xhat).mean(dim=-1, keepdim=True)) * rstd
+    return (dx, (du * xhat).sum(dim=0), du.sum(dim=0), dw1, dh.sum(dim=0), dw2,
+            dy0.sum(dim=0))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_term_products_keep_float32_gradients(rate):
+    """The float32 K2b on the tensor cores, emulated: each operand of the
+    five products as hi + lo bf16 terms, three products summed in f32. Every
+    gradient within 1e-4 of its scale of ``jax.grad`` of the JAX package's
+    fused FFN (rate 0) or of the plain backward (rate 0.1, which is autograd
+    of the plain forward); one bf16 term per operand errs at least 10x as
+    much on some gradient, so one term would miss the bar."""
+    rows, dim, hidden, seeds = 130, 64, 96, (11, 12)
+    p, g = _inputs(rows + 7, rows, dim, hidden)
+    args = [torch.tensor(p[k]) for k in NAMES[:6]] + [torch.tensor(g)]
+    if rate:
+        ref = ff.fused_ffn_bwd_plain(*args[:6], args[6], seeds, rate)
+    else:
+        jref = _jax_grads(p, g, jnp.float32)
+        ref = [torch.from_numpy(np.array(jref[k], np.float32)) for k in NAMES[:6]]
+        ref.append(torch.from_numpy(np.array(jref["b2"], np.float32)))
+    errs = {}
+    for split in (True, False):
+        ours = _emulated_backward(*args, seeds, rate, split)
+        errs[split] = [(a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                       for a, r in zip(ours, ref)]
+    for name, err in zip(NAMES, errs[True]):
+        assert err <= 1e-4, (name, err)
+    assert max(one / max(three, 1e-12) for one, three in zip(errs[False], errs[True])) >= 10, \
+        errs

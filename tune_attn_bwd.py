@@ -3,8 +3,8 @@
 
 Each variant is ``eavit_tpu_torch/csrc/`` with some constants of the
 tensor-core templates replaced: the streaming templates' ``kFwdWarps``,
-``kFwdKeys`` and ``kFwdMinBlocks`` (``attn_fwd_mma.cuh``: the bf16 K3f, K4f
-and the streaming K1f) and ``kBwdWarps``, ``kBwdKeys`` and ``kBwdMinBlocks``
+``kFwdKeys`` and ``kFwdMinBlocks`` (``attn_fwd_mma.cuh``: the bf16 K3f,
+K4f, the streaming K1f, and K5f in its one-sweep mode) and ``kBwdWarps``, ``kBwdKeys`` and ``kBwdMinBlocks``
 (``attn_bwd_mma.cuh``: the streaming K1b, K3b and K4b, and the bf16 K5q and
 K5kv), and the whole-head
 kernels' ``kHeadFwdWarps`` / ``kHeadFwdMinBlocks`` (``attn_fwd_head.cuh``,
@@ -48,6 +48,7 @@ SHAPES = [(256, 198, 2, "all"), (512, 197, 0, "all"), (64, 198, 2, "fwd"),
           (64, 443, 2, "all"), (16, 786, 2, "all")]
 # a kernel name of ptxas -> the variant label of its report
 KERNEL_RE = (
+    (r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])ELb1E", "fwd one sweep"),
     (r"attn_fwd_mma_kernelILi(\d+)ELb([01])ELb([01])E", "fwd"),
     (r"attn_dq_mma_kernelILi(\d+)ELb([01])ELb([01])ELi([012])E", "dq"),
     (r"attn_dkv_mma_kernelILi(\d+)ELb([01])ELb([01])E", "dkv"),
@@ -182,6 +183,9 @@ def main() -> int:
                                                        scale, ns)[0]),
             "k4f": (lambda: fl.flash_fwd(q, k, v, scale, ns)[0],
                     lambda: fl.flash_fwd_plain(q[few], k[few], v[few], scale, ns)[0]),
+            # the one-sweep mode (bf16 K5f): K4f's function in one sweep
+            "k5f": (lambda: fs.flash_stream_fwd(q, k, v, scale, ns)[0],
+                    lambda: fs.flash_stream_fwd_plain(q[few], k[few], v[few], scale, ns)[0]),
         }
         for kern in ("head", "stream"):
             calls.update({f"k1f_{kern}_rate{r}": (

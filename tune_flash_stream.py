@@ -3,8 +3,8 @@
 
 Each variant is ``eavit_tpu_torch/csrc/flash_stream.cu`` with some of the
 tile constants of its template ``flash_stream.cuh`` replaced (``kDims``,
-``kFwdChunk``, ``kBwdChunk``, ``kRows``, ``kTile``), which K5f in both dtypes
-and the float32 K5q and K5kv run (the bf16 K5q and K5kv run the tensor-core
+``kFwdChunk``, ``kBwdChunk``, ``kRows``, ``kTile``), which the float32 K5f,
+K5q and K5kv run (the bf16 K5 runs the tensor-core ``attn_fwd_mma.cuh`` and
 ``attn_bwd_mma.cuh``, whose constants ``tune_attn_bwd.py`` varies: here they
 are timed as the build has them); every variant is
 compiled by its own ``nvcc`` (all at once, with
@@ -12,7 +12,8 @@ the flags of ``ops/_build.py``), its registers and stack per kernel are read
 from ptxas, and K5f, K5q and K5kv are held to the plain versions on a few
 heads and timed with CUDA events at the flagship minibatch and at long
 sequences, in bf16 and float32, every variant once and then again in
-reverse order. A variant
+reverse order, and says whether K5f's o on those heads has the first
+variant's bits. A variant
 ``{"csrc": DIR}`` builds ``DIR/flash_stream.cu`` as it is instead (another
 checkout's K5, whose C interface is the same), to compare two commits in
 one call. Run from the root of a checkout on a machine with a GPU:
@@ -71,16 +72,17 @@ def build(variants, out_dir):
         log = proc.communicate()[0]
         regs, kernel = {}, None
         for line in log.splitlines():
-            m = re.search(r"stream_(fwd|dq|dkv)_kernelI13__nv_bfloat16Li(\d+)", line)
+            m = re.search(r"stream_(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)?Li(\d+)", line)
             if m:
-                kernel = f"{m.group(1)}/Dh{m.group(2)}"
+                bf16 = "/bf16" if m.group(2) == "13__nv_bfloat16" else ""
+                kernel = f"{m.group(1)}/Dh{m.group(3)}{bf16}"
             elif kernel and "Used" in line:
                 r = re.search(r"Used (\d+) registers", line)
                 st = re.search(r"(\d+) bytes cumulative stack", line)
                 regs[kernel] = (int(r.group(1)), int(st.group(1)) if st else 0)
                 kernel = None
         print(json.dumps({"variant": name, "constants": variants[name], "rc": proc.returncode,
-                          "bf16_registers_stack": regs}), flush=True)
+                          "registers_stack": regs}), flush=True)
         if proc.returncode == 0:
             built.append(name)
         else:
@@ -124,6 +126,7 @@ def main() -> int:
         ref_delta = fs.stream_delta(ref_o, do[few])
         ref = fs.flash_stream_bwd_plain(q[few], k[few], v[few], ref_lse, ref_delta, do[few],
                                         sc, ns)
+        first_o = None
         for name in built + built[::-1]:
             _build._libs["flash_stream"] = ctypes.CDLL(os.path.abspath(
                 os.path.join(out_dir, f"{name}.so")))
@@ -132,6 +135,8 @@ def main() -> int:
             grads = fs.flash_stream_bwd(*sub[:3], ref_lse, ref_delta, sub[3], sc, ns)
             errs = [(a.float() - r.float()).abs().max().item()
                     for a, r in zip((o, *grads), (ref_o, *ref))]
+            first_o = o if first_o is None else first_o
+            same = bool(torch.equal(o, first_o))
             o, lse = fs.flash_stream_fwd(q, k, v, sc, ns)
             args = (q, k, v, lse, fs.stream_delta(o, do), do, sc, ns)
             iters = 20 if n < 500 else 3
@@ -141,7 +146,8 @@ def main() -> int:
                                                 iters),
                               "dq_ms": time_ms(lambda: fs.flash_stream_dq(*args), iters),
                               "dkv_ms": time_ms(lambda: fs.flash_stream_dkv(*args), iters),
-                              "max_abs_err_o_dq_dk_dv": errs}), flush=True)
+                              "max_abs_err_o_dq_dk_dv": errs,
+                              f"o_equal_bits_to_{built[0]}": same}), flush=True)
     _build._libs.pop("flash_stream", None)
     return 0
 
