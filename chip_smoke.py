@@ -108,21 +108,29 @@ streaming tensor-core templates (``csrc/attn_fwd_mma.cuh``,
 ``csrc/attn_bwd_mma.cuh``), which take any N and which K3f and K4f run at
 every N; float32 runs the streaming CUDA-core template of
 ``csrc/flash_stream.cuh``. Each kernel counts under its own launch key (the
-streaming ones as ``*_stream``). K2b (``csrc/fused_ffn_bwd.cu``) runs its
-five products on the tensor cores too, a float32 operand as hi + lo bf16
-terms; its rows give the bound of that work (three bf16 products per
-float32 one) beside the float32 CUDA cores' bound, and K2f's row gains the
-same tensor-core bound. Phase 1 logs every tensor-core kernel's registers
-and spills from ptxas (K5's and K2b's too) and fails on a spill at ``Dh`` <=
-32, and on any spill of K5f or K2b; phase 2 times K1f at the act shapes and
-at the minibatch shape (beside SDPA on the same head-split tensors and
-mask), and the
+streaming ones as ``*_stream``). K2f (``csrc/fused_ffn.cu``) and K2b
+(``csrc/fused_ffn_bwd.cu``) run their products on the tensor cores too, a
+float32 operand as hi + lo bf16 terms; their rows give the bound of that
+work (three bf16 products per float32 one) beside the float32 CUDA cores'
+bound. Phase 1 logs every tensor-core kernel's registers and spills from
+ptxas (K5's, K2f's and K2b's too) and fails on a spill at ``Dh`` <= 32, and
+on any spill of K5f, K2f or K2b; phase 2 times K1f at the act shapes and at
+the minibatch shape (beside SDPA on the same head-split tensors and mask),
+K2f at both act row counts and the minibatch's in both dtypes, with equal
+bits twice and zeros exactly where K2r's mask2 drops (beside the float32
+chain ``F.layer_norm``, ``F.linear``, ``F.gelu``, ``F.linear`` at rate 0,
+timed as a yardstick that no one PyTorch call replaces), and the
 streaming K1f, K1b, K3b and K4b are timed at the same flagship shapes;
 phase 7 runs K4b at the patch-4 minibatch too; after phase 11 the
 cancellation check runs once at the flagship minibatch (keys that are
 nearly equal, so that dq nearly cancels: K3b, K4b and K5q, which keep pd
 and ds in float32 as two bf16 terms, must err at most a tenth as much as
-the dq that rounding ds to bf16 gives). No wrapper runs its plain version on the card: every row of a
+the dq that rounding ds to bf16 gives), then the ``widths`` line: K2f and
+K2b at (rows, dim, hidden) = (37, 40, 100), (1,000, 384, 1,536), (512, 768,
+3,072) and (256, 1,024, 4,096), and each attention function at ``Dh`` 24
+and 48 (zero-padded to 32 and 64), in bf16 and float32, each call launching
+its kernel once and held to its plain version. No wrapper runs its plain
+version on the card: every row of a
 kernel phase is logged only after the call it times launched the kernel
 exactly once.
 
@@ -233,8 +241,10 @@ def mma_ptxas(report, source: str, kind: str):
     ``"ffn"``) in one source, as ``{"Dh32 fwd split dropout": {...}}`` (K5f's
     ``"Dh32 fwd split one sweep"``) or ``{"Dh32 dq rounded dropout": {...},
     "Dh32 dkv rounded dropout": ...}``, the whole-head kernels' as ``"Dh32 fwd
-    head ..."`` and ``"Dh32 bwd head ..."``, K2b's as ``"fused_ffn_bwd_dx
-    float32"`` (and ``_dw``, ``split_weights``). The dq kernel's last
+    head ..."`` and ``"Dh32 bwd head ..."``, K2f's as ``"fused_ffn_fwd
+    float32 dropout"``, K2b's as
+    ``"fused_ffn_bwd_dx float32"`` (and ``_dw``, ``split_planes``,
+    ``stage_planes``, the split path's ``wide_gemm``). The dq kernel's last
     template argument is its row term (``common.cuh`` ``RowTerm``: 0 given, as
     K5q takes it, 1 delta from O, 2 rowsum), named " given", " delta" or
     nothing."""
@@ -248,10 +258,17 @@ def mma_ptxas(report, source: str, kind: str):
             rows[f"Dh{m.group(1)} fwd" + flags(m.group(2), m.group(3)) +
                  (" one sweep" if m.group(4) == "1" else "")] = info
         elif kind == "ffn" and (m := re.search(
-                r"(fused_ffn_bwd_dx|fused_ffn_bwd_dw|split_weights)_kernel"
+                r"fused_ffn_fwd_kernelI(f|13__nv_bfloat16)Lb([01])E", entry)):
+            rows[f"fused_ffn_fwd {'float32' if m.group(1) == 'f' else 'bfloat16'}" +
+                 (" dropout" if m.group(2) == "1" else "")] = info
+        elif kind == "ffn" and (m := re.search(
+                r"(fused_ffn_bwd_dx|fused_ffn_bwd_dw|split_planes|stage_planes)_kernel"
                 r"I(f|13__nv_bfloat16|Lb[01])E", entry)):
             rows[f"{m.group(1)} " + {"f": "float32", "13__nv_bfloat16": "bfloat16",
                                      "Lb1": "float32", "Lb0": "bfloat16"}[m.group(2)]] = info
+        elif kind == "ffn" and (m := re.search(r"wide_gemm_kernelILb([01])ELb([01])E", entry)):
+            rows["wide_gemm" + (" b_t" if m.group(1) == "1" else "") + (
+                " float32" if m.group(2) == "1" else " bfloat16")] = info
         elif kind == "fwd" and (m := re.search(r"attn_fwd_head_kernelILi(\d+)ELb([01])E", entry)):
             rows[f"Dh{m.group(1)} fwd head rounded" + (
                 " dropout" if m.group(2) == "1" else "")] = info
@@ -325,11 +342,17 @@ def kernel_phase(torch, fq, ff, kp, dev):
             check(err <= tol and lse_err <= 1e-4 and same, f"flash_qkv_fwd {row}")
             rows[("flash_qkv_fwd", use, n, rate)] = row
 
-    # K2f at both act row counts; float32 is what the path feeds it
+    # K2f at both act row counts and the minibatch's; float32 is what the
+    # path feeds it. Beside it the float32 rate-0 chain of four PyTorch calls
+    # (LayerNorm, Linear, exact GELU, Linear; "highest" precision), a
+    # yardstick the port never calls: no one PyTorch call computes K2f
     d, hid = 256, 1024
-    for r in (NUM_ENVS * 198, 2 * NUM_ENVS * 197):
+    for r in (NUM_ENVS * 198, 2 * NUM_ENVS * 197, MB_FRAMES * 198):
         params, f = _ffn_params(torch, dev, d, hid, r)
         x32 = f(r, d).to(dev)
+        chain_ms = time_ms(torch, lambda: F.linear(F.gelu(F.linear(F.layer_norm(
+            x32, (d,), params[0], params[1], 1e-5), params[2], params[3])), params[4],
+            params[5]), 20)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             for rate in (0.0, 0.1):
@@ -340,6 +363,12 @@ def kernel_phase(torch, fq, ff, kp, dev):
                 err = (y.float() - p.float()).abs().max().item()
                 scale = p.float().abs().max().item()
                 tol = 1e-4 * scale if dtype == torch.float32 else 1e-2 + 8e-3 * scale
+                same = bool(torch.equal(y, ff.fused_ffn(x, *params, seeds=seeds, rate=rate)))
+                masks = True
+                if rate:  # zero exactly where K2r's mask2 drops
+                    _, m2 = ff.fused_ffn_bits(r, d, hid, seeds, dev)
+                    masks = bool(torch.equal(y == 0, m2 >= kp.keep_threshold(rate)))
+                del p
                 ms = time_ms(torch, lambda: ff.fused_ffn(x, *params, seeds=seeds,
                                                          rate=rate), 20)
                 plain = time_ms(torch, lambda: ff.fused_ffn_fwd_plain(
@@ -347,15 +376,20 @@ def kernel_phase(torch, fq, ff, kp, dev):
                 name = str(dtype).split(".")[-1]
                 nbytes = 2 * x.numel() * x.element_size() + 4 * sum(
                     t.numel() for t in params)
-                bms, by = bound_ms(nbytes, 4.0 * r * d * hid, name)
+                # two products on the tensor cores, a float32 one as three bf16
+                # products; beside it the bound on the float32 CUDA cores
+                bms, by = tensor_core_bound_ms(nbytes, 4.0 * r * d * hid, name)
                 row = dict(kernel="fused_ffn_fwd", rows=r, dtype=name, rate=rate,
-                           max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                           library_ms=None, bound_ms=bms, bound_by=by,
-                           tensor_core_bound_ms=tensor_core_bound_ms(
-                               nbytes, 4.0 * r * d * hid, name)[0])
+                           max_abs_err=err, tol=tol, deterministic=same, masks_equal_k2r=masks,
+                           ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                           cuda_core_bound_ms=bound_ms(nbytes, 4.0 * r * d * hid, name)[0],
+                           **({"chain_ms": chain_ms, "chain": "F.layer_norm, F.linear, "
+                               "F.gelu, F.linear; float32 rate 0"}
+                              if dtype == torch.float32 else {}))
                 log("kernel", **row)
-                check(err <= tol, f"fused_ffn_fwd {row}")
+                check(err <= tol and same and masks, f"fused_ffn_fwd {row}")
                 rows[("fused_ffn_fwd", r, name, rate)] = row
+        del x32, x
 
     # K1r and K2r: bit for bit, and the keep rate at 0.1 within 4 sigma
     thresh = kp.keep_threshold(0.1)
@@ -521,6 +555,111 @@ def train_kernel_phase(torch, fq, ff, dev):
     log("autograd", kernel="fused_ffn_bwd", max_rel_err=rel, tol=1e-4)
     check(rel <= 1e-4, "fused_ffn: Function backward vs autograd of the plain forward")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the widths line: every width eavit_tpu takes (ROADMAP.md Queue 3, fault 6)
+# ---------------------------------------------------------------------------
+
+FFN_WIDTHS = ((37, 40, 100), (37, 37, 100), (1000, 384, 1536), (512, 768, 3072),
+              (256, 1024, 4096))
+HEAD_WIDTHS = (24, 48)
+
+
+def widths_phase(torch, ff, fq, fl, fd, fs, dev):
+    """K2f and K2b at ragged and wide widths (the split path), and every
+    attention function at head widths between the instantiated 16 / 32 / 64
+    (zero-padded to the next), in bf16 and float32: each call launches its
+    kernel once and is held to its plain version (one bf16 rounding, or 1e-4
+    of scale in float32; K2b each output against its own maximum)."""
+    seeds, rate, out = KERNEL_SEEDS, 0.1, []
+
+    def held(what, got, want, dtype, rel=False, tols=None):
+        errs = []
+        for i, (a, p) in enumerate(zip(got, want)):
+            scale = p.float().abs().max().item()
+            err = (a.float() - p.float()).abs().max().item()
+            if tols is not None:
+                tol = tols[i] * scale
+            elif dtype == torch.bfloat16:
+                tol = 1e-2 + 8e-3 * scale
+            else:
+                tol = 1e-4 * max(1.0 if not rel else scale, scale)
+            errs.append(err / max(tol, 1e-30))
+            check(a.shape == p.shape and err <= tol, f"widths: {what} output {i} err {err} "
+                  f"tol {tol}")
+        return max(errs)
+
+    for rows, d, hid in FFN_WIDTHS:
+        params, f = _ffn_params(torch, dev, d, hid, rows + d)
+        x32, dy32 = f(rows, d).to(dev), f(rows, d).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            y = once(ff, "fused_ffn_fwd", lambda: ff.fused_ffn_fwd(x, *params, seeds, rate))
+            worst = held(f"fused_ffn_fwd {rows}x{d}->{hid} {name}", (y,),
+                         (ff.fused_ffn_fwd_plain(x, *params, seeds, rate),), dtype, rel=True)
+            out.append(dict(kernel="fused_ffn_fwd", rows=rows, dim=d, hidden=hid, dtype=name,
+                            launches=1, worst_err_over_tol=worst, ms=time_ms(
+                                torch, lambda: ff.fused_ffn_fwd(x, *params, seeds, rate), 5)))
+            g = once(ff, "fused_ffn_bwd",
+                     lambda: ff.fused_ffn_bwd(x, *params[:5], dy, seeds, rate))
+            tols = [1e-4] * 7 if dtype == torch.float32 else [1.2e-2] + [2e-3] * 6
+            worst = held(f"fused_ffn_bwd {rows}x{d}->{hid} {name}", g,
+                         ff.fused_ffn_bwd_plain(x, *params[:5], dy, seeds, rate), dtype,
+                         tols=tols)
+            out.append(dict(kernel="fused_ffn_bwd", rows=rows, dim=d, hidden=hid, dtype=name,
+                            launches=1, worst_err_over_tol=worst, ms=time_ms(
+                                torch, lambda: ff.fused_ffn_bwd(x, *params[:5], dy, seeds,
+                                                                rate), 5)))
+    torch.cuda.empty_cache()
+
+    b, h, n, ns = 8, 4, 198, 2
+    for dh in HEAD_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            g = torch.Generator().manual_seed(dh)
+            q, k, v, do = (torch.randn(b, h, n, dh, generator=g).to(dev, dtype)
+                           for _ in range(4))
+            scale = dh ** -0.5
+            merged = lambda t: t.transpose(1, 2).reshape(b, n, h * dh)  # noqa: E731
+            qkv = torch.cat([merged(t) for t in (q, k, v)], dim=-1).contiguous()
+            gm = merged(do).contiguous()
+            a1 = (h, dh, scale, ns, seeds, rate)
+            lse1 = fq.flash_qkv_fwd_plain(qkv, *a1)[1]
+            o4, lse4 = fl.flash_fwd_plain(q, k, v, scale, ns)
+            lse3 = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)[1]
+            a5 = (q, k, v, lse4, fs.stream_delta(o4, do), do, scale, ns)
+            a3 = (q, k, v, lse3, do, seeds, rate, scale, ns)
+            cases = (
+                (fq, fq.fwd_kernel(n, dh, dtype), lambda: fq.flash_qkv_fwd(qkv, *a1)[:1],
+                 lambda: fq.flash_qkv_fwd_plain(qkv, *a1)[:1]),
+                (fq, fq.bwd_kernel(n, dh, dtype), lambda: (fq.flash_qkv_bwd(qkv, lse1, gm, *a1),),
+                 lambda: (fq.flash_qkv_bwd_plain(qkv, lse1, gm, *a1),)),
+                (fl, "flash_fwd", lambda: fl.flash_fwd(q, k, v, scale, ns)[:1],
+                 lambda: (o4,)),
+                (fl, fl.bwd_kernel(n, dh, dtype),
+                 lambda: fl.flash_bwd(q, k, v, o4, lse4, do, scale, ns),
+                 lambda: fl.flash_bwd_plain(q, k, v, o4, lse4, do, scale, ns)),
+                (fd, "flash_dropout_fwd",
+                 lambda: fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)[:1],
+                 lambda: fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)[:1]),
+                (fd, fd.bwd_kernel(n, dh, dtype), lambda: fd.flash_dropout_bwd(*a3),
+                 lambda: fd.flash_dropout_bwd_plain(*a3)),
+                (fs, "flash_stream_fwd", lambda: fs.flash_stream_fwd(q, k, v, scale, ns)[:1],
+                 lambda: fs.flash_stream_fwd_plain(q, k, v, scale, ns)[:1]),
+                (fs, "flash_stream_dq", lambda: (fs.flash_stream_dq(*a5),),
+                 lambda: (fs.flash_stream_dq_plain(*a5),)),
+                (fs, "flash_stream_dkv", lambda: fs.flash_stream_dkv(*a5),
+                 lambda: fs.flash_stream_dkv_plain(*a5)),
+            )
+            for mod, key, call, plain in cases:
+                got = once(mod, key, call)
+                worst = held(f"{key} Dh {dh} {name}", got, plain(), dtype)
+                out.append(dict(kernel=key, shape=[b, h, n, dh], dtype=name, launches=1,
+                                worst_err_over_tol=worst))
+    log("widths", cases=len(out), results=out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -916,7 +1055,7 @@ def stream_kernel_phase(torch, fs, fl, dev):
     # shared memory: a function of Dh and the dtype alone, so every N runs;
     # the bf16 K5q and K5kv exceed 48 KB at Dh 64 and opt in (allow_smem)
     smem = {str(dt).split(".")[-1]: {name: {dh: fs.smem_bytes(name, dh, dt)
-                                            for dh in fl.DIM_HEADS}
+                                            for dh in _build.DIM_HEADS}
                                      for name in ("fwd", "dq", "dkv")}
             for dt in (torch.bfloat16, torch.float32)}
     log("smem", kernels="flash_stream", bytes_by_dim_head=smem, depends_on_n=False,
@@ -1664,15 +1803,16 @@ def main() -> int:
         ("flash_dropout_bwd", "flash_dropout.cu", "bwd"),
         ("flash_stream_fwd", "flash_stream.cu", "fwd"),
         ("flash_stream_bwd", "flash_stream.cu", "bwd"),
-        ("fused_ffn_bwd", "fused_ffn_bwd.cu", "ffn"))}
+        ("fused_ffn_fwd", "fused_ffn.cu", "ffn"), ("fused_ffn_bwd", "fused_ffn_bwd.cu", "ffn"))}
     log("ptxas", kernels="tensor-core kernels (attn_fwd_mma.cuh, attn_bwd_mma.cuh, "
-        "their whole-head forms attn_fwd_head.cuh, attn_bwd_head.cuh, and "
+        "their whole-head forms attn_fwd_head.cuh, attn_bwd_head.cuh, fused_ffn.cu and "
         "fused_ffn_bwd.cu)", **mma)
     if build_log:  # empty when a build directory without its log was reused
         check(all(mma.values()), "ptxas reported no tensor-core kernel")
-        # every kernel at Dh <= 32; K5f (one sweep) and K2b at every Dh and dtype
+        # every kernel at Dh <= 32; K5f (one sweep), K2f and K2b at every Dh and dtype
         spills = {f"{k} {v}": i for k, d in mma.items() for v, i in d.items()
-                  if (k in ("flash_stream_fwd", "fused_ffn_bwd") or int(v[2:4]) <= 32)
+                  if (k in ("flash_stream_fwd", "fused_ffn_fwd", "fused_ffn_bwd")
+                      or int(v[2:4]) <= 32)
                   and (i.get("spill_stores") or i.get("spill_loads"))}
         check(not spills, f"tensor-core kernels spill: {spills}")
 
@@ -1681,6 +1821,7 @@ def main() -> int:
     rows.update(flash_kernel_phase(torch, fl, fd, fq, kernel_prng, dev))
     rows.update(stream_kernel_phase(torch, fs, fl, dev))
     cancellation_check(torch, fq, fd, fl, fs, dev)
+    widths_phase(torch, ff, fq, fl, fd, fs, dev)
     stream_rows = stream_flagship_phase(torch, fq, fl, fd, dev)
     long_rows = long_n_phase(torch, fq, fl, fd, dev)
     act_launches = main_path(torch, mods, dev, shared=True)
@@ -1721,6 +1862,8 @@ def main() -> int:
         return rows[(name, use, n, "bfloat16")][key]
 
     k1f_train = rows[("flash_qkv_fwd", "train", 198, 0.1)]
+    k2f_act = rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)]
+    k2f_train = rows[("fused_ffn_fwd", MB_FRAMES * 198, "float32", 0.1)]
     launched = {"flash_fwd": zero_launches["flash_fwd"],
                 "flash_dropout_fwd": pallas_launches["flash_dropout_fwd"]}
     kernels = [
@@ -1736,11 +1879,21 @@ def main() -> int:
                      train_launches["flash_qkv_bwd"], header="attn_bwd_head.cuh",
                      ptxas=mma["flash_qkv_bwd"]),
         kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
-        kernel_entry("fused_ffn_fwd", rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)],
-                     train_launches["fused_ffn_fwd"],
+        kernel_entry("fused_ffn_fwd", k2f_act, train_launches["fused_ffn_fwd"],
+                     header="fused_ffn.cu (mma.sync)", ptxas=mma["fused_ffn_fwd"],
+                     smem_bytes={d: ff.fwd_smem_bytes(256, getattr(torch, d))
+                                 for d in ("float32", "bfloat16")},
                      act_launches_per_rollout=act_launches["fused_ffn_fwd"],
-                     train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)][
-                         "fwd_ms_at_this_shape"]),
+                     cuda_core_bound_ms=k2f_act["cuda_core_bound_ms"],
+                     chain_ms=k2f_act["chain_ms"],
+                     stacked_act_shape_ms=rows[("fused_ffn_fwd", 2 * NUM_ENVS * 197,
+                                                "float32", 0.1)]["ms"],
+                     bfloat16_act_shape_ms=rows[("fused_ffn_fwd", NUM_ENVS * 198, "bfloat16",
+                                                 0.1)]["ms"],
+                     **{f"train_shape_{key}": k2f_train[key] for key in (
+                         "ms", "plain_ms", "bound_ms", "cuda_core_bound_ms", "chain_ms")},
+                     bfloat16_train_shape_ms=rows[("fused_ffn_fwd", MB_FRAMES * 198,
+                                                   "bfloat16", 0.1)]["ms"]),
         kernel_entry("fused_ffn_bwd", rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
                      train_launches["fused_ffn_bwd"], header="fused_ffn_bwd.cu (mma.sync)",
                      ptxas=mma["fused_ffn_bwd"],

@@ -1,16 +1,27 @@
 // Device functions of the fused-FFN forward (fused_ffn.cu) and backward
 // (fused_ffn_bwd.cu): the Abramowitz-Stegun erf, exact GELU and its
 // derivative (eavit_tpu/ops/fused_ffn.py `_erf` 100-115, `_gelu_exact` 118,
-// `_gelu_grad` 122-125), and the forward's mask bits of a warp's 4 x 32 tile.
+// `_gelu_grad` 122-125), and one element's mask value.
 #pragma once
 
 #include <cstdint>
 
 #include "philox.cuh"
 
+// FAST takes the one division by the fast reciprocal (__fdividef, within an
+// ulp of it and without the slow-path branch of an IEEE division): K2f's
+// forward does, so that a chunk's elementwise work is branch-free and the
+// compiler can interleave it with the next chunk's mmas.
+template <bool FAST = false>
 __device__ __forceinline__ float erf_as(float x) {
   const float a = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * a);
+  const float d = 1.f + 0.3275911f * a;
+  float t;
+  if constexpr (FAST) {
+    t = __fdividef(1.f, d);
+  } else {
+    t = 1.f / d;
+  }
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
@@ -18,27 +29,18 @@ __device__ __forceinline__ float erf_as(float x) {
   return x < 0.f ? -e : e;
 }
 
+template <bool FAST = false>
 __device__ __forceinline__ float gelu(float h) {
-  return 0.5f * h * (1.f + erf_as(h * 0.70710678118654752f));
+  return 0.5f * h * (1.f + erf_as<FAST>(h * 0.70710678118654752f));
 }
 
-// Mask bits of a 4-row x 32-column tile owned by one warp: lane l needs
-// the bits of (row0 + i, col0 + l) for i < 4. Lane 4q + i computes the one
-// Philox group covering columns col0 + 4q .. +3 of row i and shares its four
-// words through `buf` (128 words per warp). Needs width % 4 == 0 and
-// col0 % 4 == 0, so a group never straddles two rows.
-__device__ __forceinline__ void quad_bits(uint32_t* buf, int64_t row0, int width,
-                                          int col0, int lane, uint32_t stream,
-                                          uint32_t s0, uint32_t s1, uint32_t out[4]) {
-  const int i = lane & 3, q = lane >> 2;
-  const uint64_t e = static_cast<uint64_t>(row0 + i) * width + col0 + 4 * q;
+// The 24-bit mask value of element e of a stream: word e % 4 of Philox group
+// e / 4 (philox.cuh); picked by selects, so the words stay in registers.
+__device__ __forceinline__ uint32_t mask_word(uint64_t e, uint32_t stream, uint32_t s0,
+                                              uint32_t s1) {
   const Philox4 p = philox_group(e >> 2, stream, s0, s1);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) buf[i * 32 + 4 * q + k] = p.w[k];
-  __syncwarp();
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) out[ii] = buf[ii * 32 + lane];
-  __syncwarp();
+  const uint32_t k = static_cast<uint32_t>(e & 3u);
+  return (k == 0 ? p.w[0] : k == 1 ? p.w[1] : k == 2 ? p.w[2] : p.w[3]) >> 8;
 }
 
 // d gelu / dh with the same erf: cdf + h * pdf.

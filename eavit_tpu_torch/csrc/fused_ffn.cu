@@ -15,153 +15,351 @@
 // casts them (fused_ffn.py:172-174). Weights come in the torch layout:
 // w1 [Hd, D] and w2 [D, Hd] ([out, in]), all parameters float32.
 //
-// What bounds it on an H100: operations. At the flagship act shape
-// (R = 12,672 rows of D = 256, Hd = 1024) it does 13.3 GFLOP against
-// ~28 MB of traffic when x is float32, which is what the JAX package feeds
-// it (the residual stream stays float32 under ComputeDtype = bfloat16; only
-// the Dense layers run in bf16). The design keeps the Hd-wide intermediate
-// out of device memory, as the TPU kernel did: one block owns 32 rows, holds
-// their normalised input in shared memory, and walks the hidden units in
-// chunks of 32 -- fc1 for the chunk, GELU and mask1 in registers, then the
-// chunk's share of fc2 into 32 x D f32 accumulators held in registers. Only
-// y is written. The products run on the CUDA cores in f32 (exact for bf16
-// operands), so the float32 peak of the cores is the bound; tensor cores are
-// work for a later version.
+// What bounds it on an H100: operations. At the flagship act shape (R =
+// 12,672 rows of D = 256, Hd = 1024) it does 13.3 GFLOP against ~28 MB of
+// traffic when x is float32, which is what the JAX package feeds it (the
+// residual stream stays float32 under ComputeDtype = bfloat16; only the Dense
+// layers run in bf16).
+//
+// Both products run on the tensor cores (mma.sync m16n8k16, ffn_mma.cuh):
+// bf16 x in one mma a product, float32 x as hi + lo bf16 planes in three. The
+// fused kernel (D = 256, Hd % 32 == 0: every shipped config) keeps the
+// Hd-wide intermediate out of device memory, as the TPU kernel does. A first
+// launch writes every 32-unit hidden chunk's W1 and W2 planes and biases,
+// laid out as they sit in shared memory (a "stage"), to a scratch the
+// wrapper allocates. A block of 8 warps owns 64 rows: it writes their
+// LayerNorm as u planes to shared memory, then walks the chunks: fc1 (each
+// warp a 16 x 16 tile, each product term on its own accumulators), bias,
+// GELU and mask1 on the accumulator fragments in registers (lane pairs share
+// a Philox group), gd as planes in shared memory, then the chunk's share of
+// fc2 into 64 x D f32 accumulators held in registers (each warp 32 rows x
+// D/4 columns) for the whole walk. Only y is written.
+//
+// What the design does about the H100: every block reads the 2.4 MB of
+// stages (float32) from L2, so a two-stage ring keeps the next chunk in
+// flight, each stage one bulk copy (cp.async.bulk, counted in by an
+// mbarrier) that one thread issues: per-thread cp.async cost the block a
+// sixth of its time issuing copies. With one block of 8 warps an SM the
+// phases of a chunk do not overlap across warps, so the chunks run in a
+// software pipeline: the mmas of chunk i + 1's fc1 are issued before chunk
+// i's GELU, which is branch-free for that (clock64 probes and the times are
+// in PERF.md). Other widths take the split path of ffn_wide.cuh.
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "ffn_common.cuh"
+#include "ffn_mma.cuh"
+#include "ffn_wide.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kTR = 32;       // rows per block
-constexpr int kHC = 32;       // hidden units per chunk
-constexpr int kThreads = 256; // 8 warps: warp w owns rows 4w..4w+3
-constexpr int kMaxM = 8;      // D / 32 <= 8, so D <= 256
-constexpr int kUS = kTR + 4;  // uT [D][kUS]: row stride keeps float4 alignment
-constexpr int kW1S = kHC + 1; // w1T [D][kW1S]
-constexpr int kGS = kTR + 4;  // gT [kHC][kGS]
+constexpr int kFRows = 64;    // rows of a block of the fused kernel
+constexpr int kFStages = 2;   // weight chunks in flight
+constexpr int kFD = 256;      // D of the fused kernel
+static_assert(kFRows == 64 && kHC == 32 && kWarps == 8, "the warp layouts below assume these");
 
-template <typename T>
+// One stage: the chunk's weight planes as they sit in shared memory, w1s
+// [P][kHC][D+8] (W1[j0 + jj][:]) and w2s [P][D][kLH] (W2[:][j0 + jj]), pad
+// columns zero, then its kHC biases b1 as float32. stage_planes_kernel writes
+// every chunk's stage into a scratch, so that one bulk copy moves a stage.
+__host__ __device__ constexpr size_t fwd_stage_bytes(int D, bool split) {
+  return sizeof(bf16) * planes(split) * (kHC * (D + 8) + D * kLH) + sizeof(float) * kHC;
+}
+
+size_t fwd_smem_bytes(int D, bool split) {
+  const size_t P = planes(split);
+  return sizeof(bf16) * P * kFRows * (D + 8) + kFStages * fwd_stage_bytes(D, split) +
+         sizeof(bf16) * P * kFRows * kLH + sizeof(uint64_t) * kFStages;
+}
+
+// The stages of every chunk, [Hd / kHC][fwd_stage_bytes], from the float32
+// weights: hi (and lo) bf16 planes, rounded to bf16 when !SPLIT
+template <bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
+    stage_planes_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
+                        const float* __restrict__ w2, char* __restrict__ out, int D, int Hd) {
+  constexpr int P = planes(SPLIT);
+  const int ldd = D + 8;
+  const int w1n = kHC * ldd, w2n = D * kLH;  // elements of one plane of each
+  const int64_t per = P * (w1n + w2n);       // bf16 elements of a stage
+  const size_t bytes = fwd_stage_bytes(D, SPLIT);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t chunks = Hd / kHC;
+  if (i < chunks * kHC) {  // the biases
+    const int64_t c = i / kHC;
+    reinterpret_cast<float*>(out + c * bytes + sizeof(bf16) * per)[i % kHC] = b1[i];
+  }
+  if (i >= chunks * per) return;
+  const int64_t c = i / per;
+  int e = static_cast<int>(i - c * per);
+  float v = 0.f;
+  bool lo = false;
+  if (e < P * w1n) {  // W1 row j0 + jj, column k
+    lo = e >= w1n;
+    e -= lo ? w1n : 0;
+    const int jj = e / ldd, k = e % ldd;
+    if (k < D) v = w1[(c * kHC + jj) * D + k];
+  } else {  // W2 row cc, column j0 + jj
+    e -= P * w1n;
+    lo = e >= w2n;
+    e -= lo ? w2n : 0;
+    const int cc = e / kLH, jj = e % kLH;
+    if (jj < kHC) v = w2[static_cast<int64_t>(cc) * Hd + c * kHC + jj];
+  }
+  const bf16 h = __float2bfloat16_rn(v);
+  reinterpret_cast<bf16*>(out + c * bytes)[i - c * per] =
+      lo ? __float2bfloat16_rn(v - __bfloat162float(h)) : h;
+}
+
+// ---- Hopper's bulk copy engine: one thread moves a stage, an mbarrier
+// counts its bytes in ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory; the mbarrier's phase completes when they have landed
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The keep bits of an accumulator pair's elements (columns 2 t4, 2 t4 + 1 of an
+// n8 tile) in rows a and a + 8 of a 16-row tile: the four elements of a
+// Philox group (4 columns) belong to the lanes t4 and t4 ^ 1, so the lane
+// with t4 even draws row a's group, the odd one row a + 8's, and they swap.
+// e0: the mask element of (row a, the group's first column); row a + 8 is
+// 8 * width elements on. Returns bits 0-1 row a, 2-3 row a + 8, for the
+// lane's two columns.
+// Rows past R draw bits that nobody reads: no branch.
+__device__ __forceinline__ uint32_t pair_keep(uint64_t e0, int width, int t4, uint32_t stream,
+                                              uint32_t thresh, uint32_t s0, uint32_t s1) {
+  const int odd = t4 & 1;
+  uint32_t mine = 0u;
+  const Philox4 p = philox_group((e0 + (odd ? 8ull * width : 0ull)) >> 2, stream, s0, s1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) mine |= static_cast<uint32_t>((p.w[k] >> 8) < thresh) << k;
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  const uint32_t ra = odd ? other : mine, rb = odd ? mine : other;
+  const int off = 2 * odd;  // the lane's columns in the group
+  return ((ra >> off) & 3u) | (((rb >> off) & 3u) << 2);
+}
+
+// fc1 of a warp's 16 x 16 tile (rows fm of u, units fn of the chunk) over the
+// depth D. A float32 product's three terms (hi hi, hi lo, lo hi) have their
+// own accumulators, so that their mmas do not wait on one another; they are
+// summed at the end in a fixed order.
+template <bool SPLIT>
+__device__ __forceinline__ void fc1_tile(float (&h)[2][4], const bf16* us, const bf16* w1s,
+                                         int D, int fm, int fn, int lane) {
+  constexpr int P = planes(SPLIT), TERMS = SPLIT ? 3 : 1;
+  const int ldd = D + 8;
+  float acc[TERMS][2][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    uint32_t a[P][4], b[P][4];
+#pragma unroll
+    for (int pl = 0; pl < P; ++pl) {
+      load_a_frag<false>(a[pl], us + pl * kFRows * ldd, ldd, fm, k0, lane);
+      load_b_pair<false>(b[pl], w1s + pl * kHC * ldd, ldd, fn, k0, lane);
+    }
+#pragma unroll
+    for (int t = 0; t < TERMS; ++t)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        mma_bf16(acc[t][hf], a[t == 2], b[t == 1][2 * hf], b[t == 1][2 * hf + 1]);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) v += acc[t][hf][e];
+      h[hf][e] = v;
+    }
+}
+
+// DROPOUT: the rate is above 0
+template <typename T, bool DROPOUT>
+__global__ void __launch_bounds__(kThreads, std::is_same_v<T, float> ? 1 : 2)
     fused_ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
-                         const float* __restrict__ ln_b, const float* __restrict__ w1,
-                         const float* __restrict__ b1, const float* __restrict__ w2,
-                         const float* __restrict__ b2, T* __restrict__ y, int64_t R,
-                         int D, int Hd, float eps, uint32_t thresh, float inv_keep,
-                         uint32_t s0, uint32_t s1, int use_dropout) {
+                         const float* __restrict__ ln_b, const char* __restrict__ stages,
+                         const float* __restrict__ b2, T* __restrict__ y, int64_t R, int Hd,
+                         float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                         uint32_t s1) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  constexpr int P = planes(SPLIT);
+  constexpr int RW = kFRows / kWarps;  // LayerNorm rows of a warp
+  constexpr int D = kFD, M = D / 32, ldd = D + 8;
+  constexpr uint32_t stage = static_cast<uint32_t>(fwd_stage_bytes(D, SPLIT));
   extern __shared__ float4 smem4[];
-  float* uT = reinterpret_cast<float*>(smem4);  // [D][kUS]
-  float* w1T = uT + D * kUS;                     // [D][kW1S]
-  float* w2T = w1T + D * kW1S;                   // [kHC][D + 1]
-  float* gT = w2T + kHC * (D + 1);               // [kHC][kGS]
-  uint32_t* qbuf = reinterpret_cast<uint32_t*>(gT + kHC * kGS);  // [8][128]
+  bf16* us = reinterpret_cast<bf16*>(smem4);  // [P][kFRows][ldd] u
+  char* ring = reinterpret_cast<char*>(us + P * kFRows * ldd);  // [kFStages] stages
+  bf16* gds = reinterpret_cast<bf16*>(ring + kFStages * stage);  // [P][kFRows][kLH] gd
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gds + P * kFRows * kLH);  // [kFStages]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTR;
-  const int M = D / 32;
-  uint32_t* wbuf = qbuf + warp * 128;
-
-  // LayerNorm of the block's rows (warp per row), stored k-major and
-  // rounded to T; rows past R are zero.
-  for (int rr = warp; rr < kTR; rr += kThreads / 32) {
-    const int64_t r = r0 + rr;
-    if (r < R) {
-      const T* xr = x + r * D;
-      float s = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float v = to_f(xr[k]);
-        uT[k * kUS + rr] = v;
-        s += v;
-      }
-      const float mu = warp_sum(s) / D;
-      float ss = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float c = uT[k * kUS + rr] - mu;
-        ss += c * c;
-      }
-      const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-      for (int k = lane; k < D; k += 32) {
-        const float c = uT[k * kUS + rr] - mu;
-        uT[k * kUS + rr] = round_to<T>(c * rstd * ln_w[k] + ln_b[k]);
-      }
-    } else {
-      for (int k = lane; k < D; k += 32) uT[k * kUS + rr] = 0.f;
-    }
+  const int g = lane >> 2, t4 = lane & 3;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kFRows;
+  const int chunks = Hd / kHC;
+  auto issue = [&](int i) {  // thread 0 alone
+    bulk_load(ring + (i % kFStages) * stage, stages + static_cast<size_t>(i) * stage, stage,
+              &bars[i % kFStages]);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kFStages; ++s) mbar_init(&bars[s], 1);
+    mbar_init_fence();
+#pragma unroll
+    for (int s = 0; s < kFStages; ++s)
+      if (s < chunks) issue(s);
   }
 
-  float acc[4][kMaxM];
+  // LayerNorm of the block's rows as u planes (rows past R are zero); warp w
+  // takes rows 8w .. 8w+7, lane l columns l + 32 m, all their loads first
+  float v[RW][M];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RW; ++i) {
+    const int64_t r = r0 + warp * RW + i;
 #pragma unroll
-    for (int m = 0; m < kMaxM; ++m) acc[i][m] = 0.f;
-
-  for (int j0 = 0; j0 < Hd; j0 += kHC) {
-    __syncthreads();  // uT complete; previous chunk done with w1T, w2T, gT
-    for (int idx = tid; idx < kHC * D; idx += kThreads) {
-      const int jj = idx / D, k = idx % D;
-      w1T[k * kW1S + jj] = round_to<T>(w1[static_cast<size_t>(j0 + jj) * D + k]);
-    }
-    for (int idx = tid; idx < kHC * D; idx += kThreads) {
-      const int c = idx / kHC, jj = idx % kHC;
-      w2T[jj * (D + 1) + c] = round_to<T>(w2[static_cast<size_t>(c) * Hd + j0 + jj]);
-    }
-    __syncthreads();
-
-    // fc1 for rows 4*warp .. +3, hidden unit j0 + lane
-    float h[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < D; ++k) {
-      const float4 u4 = *reinterpret_cast<const float4*>(&uT[k * kUS + warp * 4]);
-      const float w = w1T[k * kW1S + lane];
-      h[0] = fmaf(u4.x, w, h[0]);
-      h[1] = fmaf(u4.y, w, h[1]);
-      h[2] = fmaf(u4.z, w, h[2]);
-      h[3] = fmaf(u4.w, w, h[3]);
-    }
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if (use_dropout) quad_bits(wbuf, r0 + warp * 4, Hd, j0, lane, 0u, s0, s1, bits);
-    const float bj = b1[j0 + lane];
-    float g4[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float g = gelu(h[i] + bj);
-      if (use_dropout) g = (bits[i] >> 8) < thresh ? g * inv_keep : 0.f;
-      g4[i] = round_to<T>(g);
-    }
-    *reinterpret_cast<float4*>(&gT[lane * kGS + warp * 4]) =
-        make_float4(g4[0], g4[1], g4[2], g4[3]);
-    __syncthreads();
-
-    // fc2 share of the chunk: rows 4*warp .. +3, columns lane + 32*m
-    for (int jj = 0; jj < kHC; ++jj) {
-      const float4 g = *reinterpret_cast<const float4*>(&gT[jj * kGS + warp * 4]);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const float w = w2T[jj * (D + 1) + lane + 32 * m];
-          acc[0][m] = fmaf(g.x, w, acc[0][m]);
-          acc[1][m] = fmaf(g.y, w, acc[1][m]);
-          acc[2][m] = fmaf(g.z, w, acc[2][m]);
-          acc[3][m] = fmaf(g.w, w, acc[3][m]);
-        }
-      }
-    }
+    for (int m = 0; m < M; ++m) v[i][m] = r < R ? to_f(x[r * D + lane + 32 * m]) : 0.f;
   }
-
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) {
-    if (m < M) {
-      uint32_t bits[4] = {0u, 0u, 0u, 0u};
-      if (use_dropout) quad_bits(wbuf, r0 + warp * 4, D, 32 * m, lane, 1u, s0, s1, bits);
+  for (int i = 0; i < RW; ++i) {
+    const int rr = warp * RW + i;
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int m = 0; m < M; ++m) s += v[i][m];
+    const float mu = warp_sum(s) / D;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float c = v[i][m] - mu;
+      ss += c * c;
+    }
+    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
       const int c = lane + 32 * m;
-      const float bc = b2[c];
+      const float u = r0 + rr < R ? round_to<T>((v[i][m] - mu) * rstd * ln_w[c] + ln_b[c]) : 0.f;
+      store1<SPLIT>(us + rr * ldd + c, static_cast<size_t>(kFRows) * ldd, u);
+    }
+  }
+  __syncthreads();  // u and the mbarriers are ready
+
+  // fc1: warp w the 16 x 16 tile at rows fm, units fn of the chunk. fc2: warp
+  // w rows 32 (w & 1) .. +32 of y and the column pairs (16 columns each) cg,
+  // cg + 4, cg + 8, cg + 12 with cg = w >> 1
+  const int fm = 16 * (warp & 3), fn = 16 * (warp >> 2);
+  const int rh = warp & 1, cg = warp >> 1;
+  // fc2's column pairs a warp, D / 64 = 4, counted from cg: with the count a
+  // constant the compiler unrolls fc2 and the epilogue whole, and the bf16
+  // kernel spills at its 128 registers (two blocks an SM)
+  const int pairs = (D / 16 - cg + 3) / 4;
+  float yacc[2][8][4];
+  zero(yacc);
+
+  // The chunks in a software pipeline: the mmas of chunk i + 1's fc1 come
+  // before chunk i's bias, GELU, mask1 and gd stores, which do not depend on
+  // them, so that the warp issues both together. (The last fc1 reads a stage
+  // that holds an earlier chunk, and its result is not used.)
+  auto stage_w1 = [&](int i) {
+    return reinterpret_cast<const bf16*>(ring + (i % kFStages) * stage);
+  };
+  float h[2][4];
+  mbar_wait(&bars[0], 0);
+  fc1_tile<SPLIT>(h, us, stage_w1(0), D, fm, fn, lane);
+  for (int i = 0; i < chunks; ++i) {
+    const bf16* w2s = stage_w1(i) + P * kHC * ldd;
+    const float* b1s = reinterpret_cast<const float*>(w2s + P * D * kLH);
+    const int j0 = i * kHC;
+    if (i + 1 < chunks) mbar_wait(&bars[(i + 1) % kFStages], ((i + 1) / kFStages) & 1);
+    float hn[2][4];
+    fc1_tile<SPLIT>(hn, us, stage_w1(i + 1), D, fm, fn, lane);
+    // gd = round_T(mask1(gelu(h + b1))) into the gd planes
+    const int64_t ra = r0 + fm + g;  // the lane's rows ra and ra + 8
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t r = r0 + warp * 4 + i;
-        float v = acc[i][m] + bc;
-        if (use_dropout) v = (bits[i] >> 8) < thresh ? v * inv_keep : 0.f;
-        if (r < R) y[r * D + c] = from_f<T>(v);
+    for (int n = 0; n < 2; ++n) {
+      const int j = j0 + fn + 8 * n + 2 * t4;
+      uint32_t keep = 0xfu;
+      if constexpr (DROPOUT)
+        keep = pair_keep(static_cast<uint64_t>(ra) * Hd + (j & ~3), Hd, t4, 0u, thresh, s0, s1);
+      const float bj0 = b1s[j - j0], bj1 = b1s[j - j0 + 1];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float v0 = gelu<true>(h[n][2 * rr] + bj0), v1 = gelu<true>(h[n][2 * rr + 1] + bj1);
+        if constexpr (DROPOUT) {
+          v0 = (keep >> (2 * rr)) & 1u ? v0 * inv_keep : 0.f;
+          v1 = (keep >> (2 * rr + 1)) & 1u ? v1 * inv_keep : 0.f;
+        }
+        store2<SPLIT>(gds + (fm + g + 8 * rr) * kLH + fn + 8 * n + 2 * t4,
+                      static_cast<size_t>(kFRows) * kLH, round_to<T>(v0), round_to<T>(v1));
+      }
+    }
+    __syncthreads();  // the chunk's gd is complete
+    warp_gemm<2, 8, false, false, SPLIT>(yacc, gds, kLH, kFRows * kLH, 32 * rh, w2s, kLH,
+                                         D * kLH, 16 * cg, 64, pairs, kHC, lane);
+    __syncthreads();  // every warp is done with this stage and gd
+    if (tid == 0 && i + kFStages < chunks) issue(i + kFStages);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[n][e] = hn[n][e];
+  }
+
+  // y = mask2(y0 + b2) in T
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int64_t ra = r0 + 32 * rh + 16 * m + g;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= pairs) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 16 * (cg + 4 * q) + 8 * hf + 2 * t4;
+        uint32_t keep = 0xfu;
+        if constexpr (DROPOUT)
+          keep = pair_keep(static_cast<uint64_t>(ra) * D + (c & ~3), D, t4, 1u, thresh, s0, s1);
+        const float bc0 = b2[c], bc1 = b2[c + 1];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t r = ra + 8 * rr;
+          float v0 = yacc[m][2 * q + hf][2 * rr] + bc0, v1 = yacc[m][2 * q + hf][2 * rr + 1] + bc1;
+          if constexpr (DROPOUT) {
+            v0 = (keep >> (2 * rr)) & 1u ? v0 * inv_keep : 0.f;
+            v1 = (keep >> (2 * rr + 1)) & 1u ? v1 * inv_keep : 0.f;
+          }
+          if (r < R) {
+            if constexpr (SPLIT) {
+              *reinterpret_cast<float2*>(y + r * D + c) = make_float2(v0, v1);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(y + r * D + c) = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
       }
     }
   }
@@ -175,28 +373,72 @@ __global__ void fused_ffn_bits_kernel(int32_t* __restrict__ m1, uint64_t n1,
   bits24_grid_stride(m2, n2, 1u, s0, s1);
 }
 
-size_t fwd_smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(D) * kUS + static_cast<size_t>(D) * kW1S +
-                          static_cast<size_t>(kHC) * (D + 1) + kHC * kGS) +
-         sizeof(uint32_t) * (kThreads / 32) * 128;
-}
-
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* ln_w, const void* ln_b, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* y,
-                       int64_t R, int D, int Hd, float eps, uint32_t thresh,
-                       float inv_keep, uint32_t s0, uint32_t s1, int use_dropout,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(D);
-  cudaError_t err = allow_smem(fused_ffn_fwd_kernel<T>, smem);
+                       const void* b1, const void* w2, const void* b2, void* y, char* stages,
+                       int64_t R, int D, int Hd, float eps, uint32_t thresh, float inv_keep,
+                       uint32_t s0, uint32_t s1, int use_dropout, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  const int64_t n = static_cast<int64_t>(Hd / kHC) * planes(SPLIT) * (kHC * (D + 8) + D * kLH);
+  stage_planes_kernel<SPLIT><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads,
+                               0, stream>>>(static_cast<const float*>(w1),
+                                            static_cast<const float*>(b1),
+                                            static_cast<const float*>(w2), stages, D, Hd);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((R + kTR - 1) / kTR);
-  fused_ffn_fwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
+  const size_t smem = fwd_smem_bytes(D, SPLIT);
+  const auto kernel =
+      use_dropout ? fused_ffn_fwd_kernel<T, true> : fused_ffn_fwd_kernel<T, false>;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((R + kFRows - 1) / kFRows);
+  kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<T*>(y), R, D, Hd, eps, thresh,
+      static_cast<const float*>(ln_b), stages, static_cast<const float*>(b2),
+      static_cast<T*>(y), R, Hd, eps, thresh, inv_keep, s0, s1);
+  return cudaGetLastError();
+}
+
+// The split path (ffn_wide.cuh) at any width
+template <typename T>
+cudaError_t launch_fwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                            const void* b1, const void* w2, const void* b2, void* y,
+                            bf16* wplanes, bf16* up, float* fbuf, bf16* hp, int64_t R, int D,
+                            int Hd, float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                            uint32_t s1, int use_dropout, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  const int Dp = round_up(D, 32), Hdp = round_up(Hd, 32);
+  bf16* w1p = wplanes;                                                   // [P][Hdp][Dp]
+  bf16* w2p = wplanes + planes(SPLIT) * static_cast<size_t>(Hdp) * Dp;  // [P][Dp][Hdp]
+  cudaError_t err =
+      split_planes<SPLIT>(static_cast<const float*>(w1), Hd, D, w1p, Hdp, Dp, stream);
+  if (err != cudaSuccess) return err;
+  if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, Dp, Hdp, stream)) !=
+      cudaSuccess)
+    return err;
+  wide_rows_kernel<T, false><<<row_tiles(R), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), nullptr, up, nullptr, nullptr, nullptr, R, D, Dp, Hdp,
+      eps, thresh, inv_keep, s0, s1, use_dropout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t rdp = static_cast<size_t>(R) * Dp, rhp = static_cast<size_t>(R) * Hdp;
+  // H = u W1^T [R][Hdp]
+  if ((err = wide_gemm<false, SPLIT>(up, Dp, rdp, w1p, Dp, static_cast<size_t>(Hdp) * Dp, fbuf,
+                                     R, Hdp, Dp, stream)) != cudaSuccess)
+    return err;
+  wide_hidden_kernel<T, false><<<dim3(row_tiles(R), Hdp / 32), kThreads, 0, stream>>>(
+      fbuf, nullptr, static_cast<const float*>(b1), hp, nullptr, R, Hd, Hdp, Dp, thresh,
       inv_keep, s0, s1, use_dropout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // Y = gd W2^T [R][Dp], over H, which is consumed
+  if ((err = wide_gemm<false, SPLIT>(hp, Hdp, rhp, w2p, Hdp, static_cast<size_t>(Dp) * Hdp,
+                                     fbuf, R, Dp, Hdp, stream)) != cudaSuccess)
+    return err;
+  const int64_t n = R * D;
+  const unsigned blocks = static_cast<unsigned>(
+      std::min<int64_t>((n + kThreads - 1) / kThreads, 65535));
+  wide_out_kernel<T><<<blocks, kThreads, 0, stream>>>(fbuf, static_cast<const float*>(b2),
+                                                      static_cast<T*>(y), R, D, Dp, thresh,
+                                                      inv_keep, s0, s1, use_dropout);
   return cudaGetLastError();
 }
 
@@ -204,24 +446,58 @@ cudaError_t launch_fwd(const void* x, const void* ln_w, const void* ln_b, const 
 
 extern "C" {
 
-size_t eavit_fused_ffn_fwd_smem(int D) { return fwd_smem_bytes(D); }
+size_t eavit_fused_ffn_fwd_smem(int D, int dtype) { return fwd_smem_bytes(D, dtype == kF32); }
 
-// Returns the cudaError_t of the launch (0 on success). Needs D % 32 == 0,
-// D <= 256 and Hd % 32 == 0 (checked by the Python wrapper).
-int eavit_fused_ffn_fwd(const void* x, const void* ln_w, const void* ln_b,
-                        const void* w1, const void* b1, const void* w2, const void* b2,
-                        void* y, long long R, int D, int Hd, int dtype, float eps,
-                        uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
-                        int use_dropout, void* stream) {
-  if (D % 32 != 0 || D > 32 * kMaxM || Hd % kHC != 0) return cudaErrorInvalidValue;
+// Bytes of the fused kernel's weight scratch: every chunk's stage
+size_t eavit_fused_ffn_fwd_stage_bytes(int D, int Hd, int dtype) {
+  return static_cast<size_t>(Hd / kHC) * fwd_stage_bytes(D, dtype == kF32);
+}
+
+// The fused kernel. Returns the cudaError_t of the first launch that failed
+// (0 on success). Needs D == 256, Hd % 32 == 0 and R >= 1
+// (checked by the Python wrapper); wplanes: a scratch of
+// eavit_fused_ffn_fwd_stage_bytes bytes on a 16-byte boundary.
+int eavit_fused_ffn_fwd(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* y, void* wplanes,
+                        long long R, int D, int Hd, int dtype, float eps, uint32_t thresh,
+                        float inv_keep, uint32_t s0, uint32_t s1, int use_dropout,
+                        void* stream) {
+  if (D != kFD || Hd % kHC != 0 || R < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  char* wp = static_cast<char*>(wplanes);
   if (dtype == kBF16) {
-    return launch_fwd<__nv_bfloat16>(x, ln_w, ln_b, w1, b1, w2, b2, y, R, D, Hd, eps,
-                                     thresh, inv_keep, s0, s1, use_dropout, st);
+    return launch_fwd<bf16>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, R, D, Hd, eps, thresh,
+                            inv_keep, s0, s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return launch_fwd<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, R, D, Hd, eps, thresh,
+    return launch_fwd<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, R, D, Hd, eps, thresh,
                              inv_keep, s0, s1, use_dropout, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The split path at any D <= 1024 and any Hd, with Dp = round_up(D, 32), Hdp =
+// round_up(Hd, 32) and scratch from the caller: wplanes bf16 [2][P][Hdp*Dp],
+// up bf16 [P][R][Dp] (u), fbuf float32 [R][max(Hdp, Dp)] (H, then Y) and hp
+// bf16 [P][R][Hdp] (gd).
+int eavit_fused_ffn_fwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                             const void* b1, const void* w2, const void* b2, void* y,
+                             void* wplanes, void* up, void* fbuf, void* hp, long long R, int D,
+                             int Hd, int dtype, float eps, uint32_t thresh, float inv_keep,
+                             uint32_t s0, uint32_t s1, int use_dropout, void* stream) {
+  if (D < 1 || D > 1024 || Hd < 1 || R < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* wp = static_cast<bf16*>(wplanes);
+  bf16* u = static_cast<bf16*>(up);
+  float* f = static_cast<float*>(fbuf);
+  bf16* h = static_cast<bf16*>(hp);
+  if (dtype == kBF16) {
+    return launch_fwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, f, h, R, D, Hd, eps,
+                                 thresh, inv_keep, s0, s1, use_dropout, st);
+  }
+  if (dtype == kF32) {
+    return launch_fwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, f, h, R, D, Hd, eps,
+                                  thresh, inv_keep, s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

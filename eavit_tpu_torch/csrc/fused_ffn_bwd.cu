@@ -66,19 +66,15 @@
 
 #include "common.cuh"
 #include "ffn_common.cuh"
+#include "ffn_mma.cuh"
+#include "ffn_wide.cuh"
 #include "mma_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kHC = 32;        // hidden units per chunk
 constexpr int kXRows = 64;     // rows of a dx-kernel block
 constexpr int kMaxD = 256;
-constexpr int kLH = kHC + 8;   // row stride of a [rows][kHC] plane, elements
 constexpr int kHG = kHC + 4;   // row stride of the f32 fc1 / dgd exchange
 constexpr int kEw = kXRows * kHC / 4 / kThreads;  // dx kernel: groups of 4 units a thread
 constexpr int kGT = 128;       // rows and columns of a weight-gradient block tile
@@ -89,8 +85,6 @@ static_assert(kXRows == 64 && kHC == 32 && kGT == 128 && kGK % 16 == 0 && kWarps
                   kXRows * kHC / 4 % kThreads == 0,
               "the warp layouts below assume these tiles");
 
-__host__ __device__ constexpr int planes(bool split) { return split ? 2 : 1; }
-
 // Bytes of the dx kernel's region of the chunk's W2 planes, which the fc1 /
 // dgd exchange and the dh planes reuse once the chunk's dgd is taken
 __host__ __device__ constexpr size_t dx_w2_bytes(int D, bool split) {
@@ -98,94 +92,6 @@ __host__ __device__ constexpr size_t dx_w2_bytes(int D, bool split) {
   const size_t reuse =
       sizeof(float) * 2 * kXRows * kHG + sizeof(bf16) * planes(split) * kXRows * kLH;
   return w2 > reuse ? w2 : reuse;
-}
-
-// ---- warp-level products on bf16 planes ----
-
-// A fragments of the 16 x 16 block at (m0, k0): from an [M][K] plane, or
-// (A_T) from a [K][M] plane through ldmatrix.trans
-template <bool A_T>
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* p, int ld, int m0,
-                                            int k0, int lane) {
-  if constexpr (A_T) {
-    ldsm_x4_t(a, p + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 + ((lane >> 3) & 1) * 8);
-  } else {
-    ldsm_x4(a, p + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-  }
-}
-
-// B fragments of two n8 tiles (n0 .. n0+15) x 16 depth at k0, b[0..1] the
-// first tile's, b[2..3] the second's: from an [N][K] plane, or (B_T) from a
-// [K][N] plane through ldmatrix.trans
-template <bool B_T>
-__device__ __forceinline__ void load_b_pair(uint32_t (&b)[4], const bf16* p, int ld, int n0,
-                                            int k0, int lane) {
-  if constexpr (B_T) {
-    ldsm_x4_t(b, p + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8);
-  } else {
-    ldsm_x4(b, p + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
-  }
-}
-
-// acc[MT][NT] += A * B over depth [0, kdim): A's 16-row tiles at m0, m0+16,
-// ...; B's n8 tiles in pairs, pair q at columns n0 + q * pstride, the first
-// `pairs` of NT / 2 live. Each operand has `planes(SPLIT)` planes, the lo one
-// `a_lo` / `b_lo` elements after the hi one; SPLIT takes hi hi + hi lo + lo
-// hi, in that order, each term over all of a pair's tiles before the next.
-template <int MT, int NT, bool A_T, bool B_T, bool SPLIT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16* a, int lda,
-                                          int a_lo, int m0, const bf16* b, int ldb, int b_lo,
-                                          int n0, int pstride, int pairs, int kdim, int lane) {
-  static_assert(NT % 2 == 0, "n8 tiles come in pairs");
-  constexpr int P = planes(SPLIT);
-  for (int k = 0; k < kdim; k += 16) {
-    uint32_t af[MT][P][4];
-#pragma unroll
-    for (int pl = 0; pl < P; ++pl)
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        load_a_frag<A_T>(af[m][pl], a + pl * a_lo, lda, m0 + 16 * m, k, lane);
-#pragma unroll
-    for (int q = 0; q < NT / 2; ++q) {
-      if (q >= pairs) break;
-      uint32_t bf[P][4];
-#pragma unroll
-      for (int pl = 0; pl < P; ++pl)
-        load_b_pair<B_T>(bf[pl], b + pl * b_lo, ldb, n0 + q * pstride, k, lane);
-#pragma unroll
-      for (int t = 0; t < (SPLIT ? 3 : 1); ++t) {
-        const int pa = t == 2, pb = t == 1;  // the planes of term t
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-            mma_bf16(acc[m][2 * q + hf], af[m][pa], bf[pb][2 * hf], bf[pb][2 * hf + 1]);
-      }
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-}
-
-// four consecutive values as bf16 planes: rounded (hi only) or hi + lo
-template <bool SPLIT>
-__device__ __forceinline__ void store4(bf16* hi, size_t lo_off, float4 v) {
-  uint2 h, l;
-  if constexpr (SPLIT) {
-    split_bf16(v.x, v.y, h.x, l.x);
-    split_bf16(v.z, v.w, h.y, l.y);
-    *reinterpret_cast<uint2*>(hi + lo_off) = l;
-  } else {
-    h.x = pack_bf16(v.x, v.y);
-    h.y = pack_bf16(v.z, v.w);
-  }
-  *reinterpret_cast<uint2*>(hi) = h;
 }
 
 // rows [0, rows) x cols bf16 (cols % 8 == 0) from src (row stride lds) to
@@ -201,7 +107,7 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, i
 
 // The chunk j0 .. j0+kHC of the weight planes into shared memory:
 // w1s [P][kHC][D+8] = W1[j0 + jj][:], w2s [P][D][kLH] = W2[:][j0 + jj].
-// w1p [P][Hd][D] and w2p [P][D][Hd] are the split kernel's planes.
+// w1p [P][Hd][D] and w2p [P][D][Hd] are split_planes_kernel's planes.
 template <bool SPLIT>
 __device__ __forceinline__ void copy_chunk(bf16* w1s, bf16* w2s, const bf16* w1p,
                                            const bf16* w2p, int j0, int D, int Hd) {
@@ -244,15 +150,6 @@ __device__ __forceinline__ void chunk_product(float* hg, int prod, const bf16* u
 }
 
 // ---- the kernels ----
-
-// hi (and lo) bf16 planes of n weights (rounded to bf16 when !SPLIT)
-template <bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-    split_weights_kernel(const float* __restrict__ w, bf16* __restrict__ p, int64_t n) {
-  const int64_t i = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
-  if (i >= n) return;
-  store4<SPLIT>(p + i, n, *reinterpret_cast<const float4*>(w + i));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -620,27 +517,6 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 }
 
-// out[col] = sum over p < parts of part[p * stride + col], in a fixed order:
-// eight strided partial sums per column, then those eight in order.
-__global__ void __launch_bounds__(kThreads)
-    reduce_parts_kernel(const float* __restrict__ part, int64_t parts, size_t stride,
-                        size_t width, float* __restrict__ out) {
-  __shared__ float sm[kWarps][33];
-  const int lane = threadIdx.x & 31, pl = threadIdx.x >> 5;
-  const size_t col = static_cast<size_t>(blockIdx.x) * 32 + lane;
-  float s = 0.f;
-  if (col < width)
-    for (int64_t q = pl; q < parts; q += kWarps) s += part[q * stride + col];
-  sm[pl][lane] = s;
-  __syncthreads();
-  if (pl == 0 && col < width) {
-    float t = 0.f;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) t += sm[q][lane];
-    out[col] = t;
-  }
-}
-
 size_t dx_smem_bytes(int D, bool split) {
   const size_t P = planes(split), ldd = D + 8;
   return sizeof(bf16) * (2 * P * kXRows * ldd + P * kHC * ldd) + dx_w2_bytes(D, split) +
@@ -649,6 +525,25 @@ size_t dx_smem_bytes(int D, bool split) {
 
 size_t dw_smem_bytes(bool split) {
   return sizeof(bf16) * 2 * kGStages * planes(split) * kGK * kGL;
+}
+
+// dW1 and dW2 from the planes (per-slice partials), then every gradient
+// summed from its partials in order into grads: dW1 [Hd][D] | dW2 [D][Hd] |
+// db1 [Hd] | dln_w [D] | dln_b [D] | db2 [D]
+template <bool SPLIT>
+cudaError_t weight_grads(const bf16* rowp, const bf16* hp, float* part_dx, int64_t tiles,
+                         float* part_dw, int slices, float* grads, int64_t R, int D, int Hd,
+                         cudaStream_t stream) {
+  const size_t smem = dw_smem_bytes(SPLIT);
+  cudaError_t err = allow_smem(fused_ffn_bwd_dw_kernel<SPLIT>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles_w = 2 * ((Hd + kGT - 1) / kGT) * ((D + kGT - 1) / kGT);
+  fused_ffn_bwd_dw_kernel<SPLIT><<<dim3(tiles_w, slices), kThreads, smem, stream>>>(
+      rowp, hp, part_dw, R, D, Hd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t wide = 2 * static_cast<size_t>(Hd) * D;
+  if ((err = reduce_parts(part_dw, slices, wide, grads, stream)) != cudaSuccess) return err;
+  return reduce_parts(part_dx, tiles, Hd + 3 * static_cast<size_t>(D), grads + wide, stream);
 }
 
 template <typename T>
@@ -663,42 +558,81 @@ cudaError_t launch_bwd(const void* x, const void* ln_w, const void* ln_b, const 
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   const float* B1 = static_cast<const float*>(b1);
-  const int64_t nw = static_cast<int64_t>(Hd) * D;
-  bf16* w1p = wplanes;               // [P][Hd][D]
-  bf16* w2p = wplanes + planes(SPLIT) * nw;  // [P][D][Hd]
+  bf16* w1p = wplanes;                                                 // [P][Hd][D]
+  bf16* w2p = wplanes + planes(SPLIT) * static_cast<size_t>(Hd) * D;  // [P][D][Hd]
 
-  const unsigned split_blocks = static_cast<unsigned>((nw / 4 + kThreads - 1) / kThreads);
-  split_weights_kernel<SPLIT><<<split_blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(w1), w1p, nw);
-  split_weights_kernel<SPLIT><<<split_blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(w2), w2p, nw);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = split_planes<SPLIT>(static_cast<const float*>(w1), Hd, D, w1p, Hd, D, stream);
   if (err != cudaSuccess) return err;
+  if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, D, Hd, stream)) !=
+      cudaSuccess)
+    return err;
 
-  size_t smem = dx_smem_bytes(D, SPLIT);
+  const size_t smem = dx_smem_bytes(D, SPLIT);
   if ((err = allow_smem(fused_ffn_bwd_dx_kernel<T>, smem)) != cudaSuccess) return err;
   fused_ffn_bwd_dx_kernel<T><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
       static_cast<const T*>(x), lw, lb, w1p, B1, w2p, static_cast<const T*>(dy),
       static_cast<T*>(dx), rowp, hp, part_dx, R, D, Hd, eps, thresh, inv_keep, s0, s1,
       use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return weight_grads<SPLIT>(rowp, hp, part_dx, tiles, part_dw, slices, grads, R, D, Hd, stream);
+}
 
-  smem = dw_smem_bytes(SPLIT);
-  if ((err = allow_smem(fused_ffn_bwd_dw_kernel<SPLIT>, smem)) != cudaSuccess) return err;
-  const unsigned tiles_w = 2 * ((Hd + kGT - 1) / kGT) * ((D + kGT - 1) / kGT);
-  fused_ffn_bwd_dw_kernel<SPLIT><<<dim3(tiles_w, slices), kThreads, smem, stream>>>(
-      rowp, hp, part_dw, R, D, Hd);
+// The split path (ffn_wide.cuh) at any width, on planes padded to Dp =
+// round_up(D, 32) and Hdp = round_up(Hd, 32): every scratch and grads at
+// the padded widths; fbuf float32 [2][R][max(Hdp, Dp)] (H, then DU; G) and
+// stats float32 [2][R] (mu, rstd)
+template <typename T>
+cudaError_t launch_bwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                            const void* b1, const void* w2, const void* dy, void* dx,
+                            float* grads, float* part_dx, float* part_dw, bf16* wplanes,
+                            bf16* rowp, bf16* hp, float* fbuf, float* stats, int64_t R, int D,
+                            int Hd, int slices, float eps, uint32_t thresh, float inv_keep,
+                            uint32_t s0, uint32_t s1, int use_dropout, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  constexpr int P = planes(SPLIT);
+  const int Dp = round_up(D, 32), Hdp = round_up(Hd, 32);
+  const size_t rdp = static_cast<size_t>(R) * Dp, rhp = static_cast<size_t>(R) * Hdp;
+  const size_t wsz = static_cast<size_t>(Hdp) * Dp;
+  bf16* w1p = wplanes;           // [P][Hdp][Dp]
+  bf16* w2p = wplanes + P * wsz;  // [P][Dp][Hdp]
+  float* H = fbuf;
+  float* G = fbuf + static_cast<size_t>(R) * (Hdp > Dp ? Hdp : Dp);
+  cudaError_t err =
+      split_planes<SPLIT>(static_cast<const float*>(w1), Hd, D, w1p, Hdp, Dp, stream);
+  if (err != cudaSuccess) return err;
+  if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, Dp, Hdp, stream)) !=
+      cudaSuccess)
+    return err;
+  size_t smem = sizeof(float) * kWarps * Dp;
+  if ((err = allow_smem(wide_rows_kernel<T, true>, smem)) != cudaSuccess) return err;
+  wide_rows_kernel<T, true><<<row_tiles(R), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<const T*>(dy), rowp, rowp + P * rdp, stats,
+      part_dx, R, D, Dp, Hdp, eps, thresh, inv_keep, s0, s1, use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // grads: dW1 [Hd][D] | dW2 [D][Hd] | db1 [Hd] | dln_w [D] | dln_b [D] | db2 [D]
-  const size_t wide = 2 * static_cast<size_t>(Hd) * D;
-  reduce_parts_kernel<<<static_cast<unsigned>((wide + 31) / 32), kThreads, 0, stream>>>(
-      part_dw, slices, wide, wide, grads);
+  // H = u W1^T and G = dy0 W2, [R][Hdp]
+  if ((err = wide_gemm<false, SPLIT>(rowp, Dp, rdp, w1p, Dp, wsz, H, R, Hdp, Dp, stream)) !=
+      cudaSuccess)
+    return err;
+  if ((err = wide_gemm<true, SPLIT>(rowp + P * rdp, Dp, rdp, w2p, Hdp, wsz, G, R, Hdp, Dp,
+                                    stream)) != cudaSuccess)
+    return err;
+  wide_hidden_kernel<T, true><<<dim3(row_tiles(R), Hdp / 32), kThreads, 0, stream>>>(
+      H, G, static_cast<const float*>(b1), hp, part_dx, R, Hd, Hdp, Dp, thresh, inv_keep, s0,
+      s1, use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t narrow = Hd + 3 * static_cast<size_t>(D);
-  reduce_parts_kernel<<<static_cast<unsigned>((narrow + 31) / 32), kThreads, 0, stream>>>(
-      part_dx, tiles, narrow, narrow, grads + wide);
-  return cudaGetLastError();
+  // DU = dh W1 [R][Dp], over H, which is consumed
+  if ((err = wide_gemm<true, SPLIT>(hp, Hdp, rhp, w1p, Dp, wsz, H, R, Dp, Hdp, stream)) !=
+      cudaSuccess)
+    return err;
+  smem = sizeof(float) * 2 * kWarps * Dp;
+  if ((err = allow_smem(wide_ln_bwd_kernel<T>, smem)) != cudaSuccess) return err;
+  wide_ln_bwd_kernel<T><<<row_tiles(R), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_w), stats, H, static_cast<T*>(dx),
+      part_dx, R, D, Dp, Hdp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return weight_grads<SPLIT>(rowp, hp, part_dx, row_tiles(R), part_dw, slices, grads, R, Dp,
+                             Hdp, stream);
 }
 
 }  // namespace
@@ -735,6 +669,43 @@ int eavit_fused_ffn_bwd(const void* x, const void* ln_w, const void* ln_b,
   if (dtype == kF32) {
     return launch_bwd<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp, R,
                              D, Hd, slices, eps, thresh, inv_keep, s0, s1, use_dropout, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The split path at any D <= 1024 and any Hd (ffn_wide.cuh), with Dp =
+// round_up(D, 32) and Hdp = round_up(Hd, 32): part_dx float32 [ceil(R / 64)]
+// [Hdp + 3*Dp], part_dw float32 [slices][2*Hdp*Dp], wplanes [2][P][Hdp*Dp],
+// rowp [2][P][R][Dp], hplanes [2][P][R][Hdp], fbuf float32 [2][R][max(Hdp,
+// Dp)] and stats float32 [2][R]; grads at the padded widths, dW1 [Hdp][Dp] |
+// dW2 [Dp][Hdp] | db1 [Hdp] | dln_w [Dp] | dln_b [Dp] | db2 [Dp].
+int eavit_fused_ffn_bwd_wide(const void* x, const void* ln_w, const void* ln_b,
+                             const void* w1, const void* b1, const void* w2, const void* dy,
+                             void* dx, void* grads, void* part_dx, void* part_dw,
+                             void* wplanes, void* rowp, void* hplanes, void* fbuf, void* stats,
+                             long long R, int D, int Hd, int slices, int dtype, float eps,
+                             uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                             int use_dropout, void* stream) {
+  if (D < 1 || D > 1024 || Hd < 1 || slices < 1 || slices > 65535 || R < 1)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(grads);
+  float* pdx = static_cast<float*>(part_dx);
+  float* pdw = static_cast<float*>(part_dw);
+  bf16* wp = static_cast<bf16*>(wplanes);
+  bf16* rp = static_cast<bf16*>(rowp);
+  bf16* hp = static_cast<bf16*>(hplanes);
+  float* fb = static_cast<float*>(fbuf);
+  float* sb = static_cast<float*>(stats);
+  if (dtype == kBF16) {
+    return launch_bwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp, fb,
+                                 sb, R, D, Hd, slices, eps, thresh, inv_keep, s0, s1,
+                                 use_dropout, st);
+  }
+  if (dtype == kF32) {
+    return launch_bwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp,
+                                  fb, sb, R, D, Hd, slices, eps, thresh, inv_keep, s0, s1,
+                                  use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

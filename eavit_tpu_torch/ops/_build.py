@@ -45,6 +45,14 @@ SMEM_LIMIT = 227 * 1024
 # between is not measured.
 HEAD_MAX_N = 256
 
+# The head widths the attention kernels are instantiated for. A head of
+# another width up to the last runs at the next of them, zero-padded
+# (:func:`kernel_dim_head`, :func:`pad_last`, :func:`pad_heads`): zero
+# columns add nothing to q k^T and give zero output columns, the scale stays
+# the caller's, and the dropout mask is indexed over N x N, so the sliced
+# result is the unpadded function's.
+DIM_HEADS = (16, 32, 64)
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -154,3 +162,42 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def kernel_dim_head(what: str, dim_head: int) -> int:
+    """The width of the instantiated kernel that a head of ``dim_head`` runs
+    at: the smallest of :data:`DIM_HEADS` that holds it. Raises past the
+    widest (ROADMAP.md Queue 3, fault 6)."""
+    for width in DIM_HEADS:
+        if 1 <= dim_head <= width:
+            return width
+    raise ValueError(f"{what}: dim_head {dim_head} is not in 1..{DIM_HEADS[-1]}: no kernel "
+                     f"takes it yet (ROADMAP.md Queue 3, fault 6)")
+
+
+def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` zero-padded on its last axis to ``width`` (``t`` itself where it
+    has that width already)."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def pad_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
+    """A merged ``[..., heads*Dh]`` layout (K1's qkv with ``heads = 3*H``, its
+    o and dO with ``H``) with each head zero-padded to ``width``."""
+    dim_head = t.shape[-1] // heads
+    if dim_head == width:
+        return t
+    lead = t.shape[:-1]
+    return pad_last(t.reshape(*lead, heads, dim_head), width).reshape(*lead, heads * width)
+
+
+def unpad_heads(t: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads`: each head's first ``dim_head``
+    columns, merged and contiguous."""
+    width = t.shape[-1] // heads
+    if width == dim_head:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, heads, width)[..., :dim_head].reshape(*lead, heads * dim_head)

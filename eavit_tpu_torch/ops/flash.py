@@ -28,8 +28,11 @@ Two versions of each function:
 
 :func:`flash_fwd` and :func:`flash_bwd` take the plain version for a tensor
 on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the
-kernel does not take (another dtype or layout, ``Dh`` not in 16 / 32 / 64,
-bf16 not on a 16-byte boundary) raises before any launch.
+kernel does not take (another dtype or layout, ``Dh`` above 64, bf16 not on
+a 16-byte boundary) raises before any launch. The kernels are instantiated
+at ``Dh`` 16, 32 and 64; a head of another width up to 64 runs at the next
+of them, zero-padded, and the outputs are sliced back
+(``_build.kernel_dim_head``), which is exact.
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
 ``_flash_fwd`` does (line 244). K4b has two bf16 kernels: where a head fits
@@ -57,8 +60,6 @@ from eavit_tpu_torch.ops.attention import dual_query_allowed
 # wrapper calls that launched each kernel since the last reset (chip_smoke.py
 # reads them)
 launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_stream": 0}
-
-DIM_HEADS = (16, 32, 64)
 
 
 def reset_launches() -> None:
@@ -134,8 +135,7 @@ def check_kernel_args(what: str, q: torch.Tensor, *like_q: torch.Tensor,
         raise TypeError(f"{what}: dtype {q.dtype} (float32 or bfloat16)")
     if q.dim() != 4:
         raise ValueError(f"{what}: shape {tuple(q.shape)} is not [B, H, N, Dh]")
-    if q.shape[-1] not in DIM_HEADS:
-        raise ValueError(f"{what}: dim_head {q.shape[-1]} not in {DIM_HEADS}")
+    _build.kernel_dim_head(what, q.shape[-1])
     for t in (q, *like_q):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous()):
@@ -150,21 +150,24 @@ def check_kernel_args(what: str, q: torch.Tensor, *like_q: torch.Tensor,
 
 def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory of one K4f block; N does not enter."""
-    return _lib().eavit_flash_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
+    width = _build.kernel_dim_head("fwd_smem", dim_head)
+    return _lib().eavit_flash_fwd_smem(width, _build.DTYPE_CODES[dtype])
 
 
 def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
     """Bytes of shared memory of one block of K4b's dq and dk/dv passes; N
     does not enter."""
     code = _build.DTYPE_CODES[dtype]
-    return tuple(_lib().eavit_flash_bwd_smem(dim_head, code, w) for w in (0, 1))
+    width = _build.kernel_dim_head("bwd_smem", dim_head)
+    return tuple(_lib().eavit_flash_bwd_smem(width, code, w) for w in (0, 1))
 
 
 def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
     """Whether the whole-head bf16 K4b holds a head of ``n`` tokens in one
     block's shared memory."""
+    width = _build.kernel_dim_head("head_fits", dim_head)
     return (dtype == torch.bfloat16 and
-            _lib().eavit_flash_bwd_head_smem(n, dim_head) <= _build.SMEM_LIMIT)
+            _lib().eavit_flash_bwd_head_smem(n, width) <= _build.SMEM_LIMIT)
 
 
 def bwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
@@ -181,7 +184,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, num_special)
     check_kernel_args("flash_fwd", q, k, v)
-    b, h, n, dh = q.shape
+    b, h, n, dim_head = q.shape
+    dh = _build.kernel_dim_head("flash_fwd", dim_head)
+    q, k, v = (_build.pad_last(t, dh) for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_fwd", q, k, v)
     lib = _lib()
@@ -193,7 +198,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         _build.stream_ptr(q))
     _build.check(err, "flash_fwd")
     launches["flash_fwd"] += 1
-    return o, lse
+    return o[..., :dim_head].contiguous(), lse
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -205,7 +210,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale, num_special)
     check_kernel_args("flash_bwd", q, k, v, o, do, lse=lse)
-    b, h, n, dh = q.shape
+    b, h, n, dim_head = q.shape
+    dh = _build.kernel_dim_head("flash_bwd", dim_head)
+    q, k, v, o, do = (_build.pad_last(t, dh) for t in (q, k, v, o, do))
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_bwd", q, k, v, o, do)
     lib = _lib()
@@ -225,7 +232,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     name = "flash_bwd" if head else "flash_bwd_stream"
     _build.check(err, name)
     launches[name] += 1
-    return dq, dk, dv
+    return tuple(t[..., :dim_head].contiguous() for t in (dq, dk, dv))
 
 
 class _Flash(torch.autograd.Function):

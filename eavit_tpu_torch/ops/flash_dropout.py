@@ -36,8 +36,10 @@ N, where ``supports()`` (line 94) sends long sequences to the XLA path of
 the same function; :func:`fwd_smem` and :func:`bwd_smem` report the
 bytes, which depend on ``Dh`` and the dtype only. The wrappers take the
 plain version for a CPU tensor and the kernel for a CUDA tensor; a CUDA
-tensor the kernel does not take (another dtype or layout, ``Dh`` not in
-16 / 32 / 64, bf16 not on a 16-byte boundary) raises before any launch.
+tensor the kernel does not take (another dtype or layout, ``Dh`` above 64,
+bf16 not on a 16-byte boundary) raises before any launch; a head width
+between the instantiated 16 / 32 / 64 runs zero-padded to the next of them
+(``_build.kernel_dim_head``), which is exact.
 K3b has two bf16 kernels: where a head fits in one block's shared memory
 and N <= 256 (``_build.HEAD_MAX_N``) the wrapper runs the whole-head form
 (``csrc/attn_bwd_head.cuh``, one kernel that draws the mask once per head,
@@ -97,21 +99,24 @@ def _lib():
 
 def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory of one K3f block; N does not enter."""
-    return _lib().eavit_flash_dropout_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
+    width = _build.kernel_dim_head("fwd_smem", dim_head)
+    return _lib().eavit_flash_dropout_fwd_smem(width, _build.DTYPE_CODES[dtype])
 
 
 def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
     """Bytes of shared memory of one block of K3b's dq and dk/dv passes; N
     does not enter."""
     code = _build.DTYPE_CODES[dtype]
-    return tuple(_lib().eavit_flash_dropout_bwd_smem(dim_head, code, w) for w in (0, 1))
+    width = _build.kernel_dim_head("bwd_smem", dim_head)
+    return tuple(_lib().eavit_flash_dropout_bwd_smem(width, code, w) for w in (0, 1))
 
 
 def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
     """Whether the whole-head bf16 K3b holds a head of ``n`` tokens in one
     block's shared memory."""
+    width = _build.kernel_dim_head("head_fits", dim_head)
     return (dtype == torch.bfloat16 and
-            _lib().eavit_flash_dropout_bwd_head_smem(n, dim_head) <= _build.SMEM_LIMIT)
+            _lib().eavit_flash_dropout_bwd_head_smem(n, width) <= _build.SMEM_LIMIT)
 
 
 def bwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
@@ -186,7 +191,9 @@ def flash_dropout_fwd(
     if q.device.type == "cpu":
         return flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_fwd", q, k, v)
-    b, h, n, dh = q.shape
+    b, h, n, dim_head = q.shape
+    dh = _build.kernel_dim_head("flash_dropout_fwd", dim_head)
+    q, k, v = (_build.pad_last(t, dh) for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_dropout_fwd", q, k, v)
     lib = _lib()
@@ -198,7 +205,7 @@ def flash_dropout_fwd(
         float(inv_keep), s0, s1, _build.stream_ptr(q))
     _build.check(err, "flash_dropout_fwd")
     launches["flash_dropout_fwd"] += 1
-    return o, lse
+    return o[..., :dim_head].contiguous(), lse
 
 
 def flash_dropout_bwd(
@@ -213,7 +220,9 @@ def flash_dropout_bwd(
     if q.device.type == "cpu":
         return flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, num_special)
     flash.check_kernel_args("flash_dropout_bwd", q, k, v, do, lse=lse)
-    b, h, n, dh = q.shape
+    b, h, n, dim_head = q.shape
+    dh = _build.kernel_dim_head("flash_dropout_bwd", dim_head)
+    q, k, v, do = (_build.pad_last(t, dh) for t in (q, k, v, do))
     lib = _lib()
     if q.dtype == torch.bfloat16:
         _build.check_aligned("flash_dropout_bwd", q, k, v, do)
@@ -233,7 +242,7 @@ def flash_dropout_bwd(
     name = "flash_dropout_bwd" if head else "flash_dropout_bwd_stream"
     _build.check(err, name)
     launches[name] += 1
-    return dq, dk, dv
+    return tuple(t[..., :dim_head].contiguous() for t in (dq, dk, dv))
 
 
 class _FlashDropout(torch.autograd.Function):

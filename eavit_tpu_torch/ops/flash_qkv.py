@@ -39,8 +39,11 @@ Two versions of each function:
 :func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
 tensor; a CUDA tensor the kernel does not take (another dtype or layout,
-``Dh`` not in 16 / 32 / 64, bf16 not on a 16-byte boundary) raises before
-any launch. :func:`flash_mha_qkv` is differentiable through one
+``Dh`` above 64, bf16 not on a 16-byte boundary) raises before any launch.
+The kernels are instantiated at ``Dh`` 16, 32 and 64; a head of another
+width up to 64 runs at the next of them: the merged layout is viewed as
+``[B, N, 3, H, Dh]``, each head zero-padded and merged back, and the
+outputs sliced the same way (``_build.pad_heads``), which is exact. :func:`flash_mha_qkv` is differentiable through one
 ``torch.autograd.Function`` whose backward is :func:`flash_qkv_bwd`.
 
 K1f and K1b each have two bf16 kernels: where a head fits in one block's
@@ -73,7 +76,6 @@ from eavit_tpu_torch.ops.kernel_prng import dropout_args, keep_mask, raw_bits24
 launches = {"flash_qkv_fwd": 0, "flash_qkv_fwd_stream": 0, "flash_qkv_bwd": 0,
             "flash_qkv_bwd_stream": 0, "flash_qkv_bits": 0}
 
-_DIM_HEADS = (16, 32, 64)
 
 
 def reset_launches() -> None:
@@ -120,14 +122,16 @@ def _lib():
 
 def fwd_smem(dim_head: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory of one K1f block; N does not enter."""
-    return _lib().eavit_flash_qkv_fwd_smem(dim_head, _build.DTYPE_CODES[dtype])
+    width = _build.kernel_dim_head("fwd_smem", dim_head)
+    return _lib().eavit_flash_qkv_fwd_smem(width, _build.DTYPE_CODES[dtype])
 
 
 def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
     """Bytes of shared memory of one block of K1b's dq and dk/dv passes; N
     does not enter."""
     code = _build.DTYPE_CODES[dtype]
-    return tuple(_bwd_lib().eavit_flash_qkv_bwd_smem(dim_head, code, w) for w in (0, 1))
+    width = _build.kernel_dim_head("bwd_smem", dim_head)
+    return tuple(_bwd_lib().eavit_flash_qkv_bwd_smem(width, code, w) for w in (0, 1))
 
 
 def head_fits(which: str, n: int, dim_head: int, dtype: torch.dtype) -> bool:
@@ -137,7 +141,7 @@ def head_fits(which: str, n: int, dim_head: int, dtype: torch.dtype) -> bool:
         return False
     smem = (_lib().eavit_flash_qkv_fwd_head_smem if which == "fwd"
             else _bwd_lib().eavit_flash_qkv_bwd_head_smem)
-    return smem(n, dim_head) <= _build.SMEM_LIMIT
+    return smem(n, _build.kernel_dim_head("head_fits", dim_head)) <= _build.SMEM_LIMIT
 
 
 def fwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:
@@ -191,8 +195,7 @@ def _check_kernel_args(what: str, qkv: torch.Tensor, heads: int, dim_head: int) 
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * heads * dim_head:
         raise ValueError(f"{what}: qkv shape {tuple(qkv.shape)} is not "
                          f"[B, N, 3*{heads}*{dim_head}]")
-    if dim_head not in _DIM_HEADS:
-        raise ValueError(f"{what}: dim_head {dim_head} not in {_DIM_HEADS}")
+    _build.kernel_dim_head(what, dim_head)
     if not qkv.is_contiguous():
         raise ValueError(f"{what}: qkv must be contiguous")
 
@@ -208,6 +211,8 @@ def flash_qkv_fwd(
         return flash_qkv_fwd_plain(qkv, heads, dim_head, scale, num_special, seeds, rate)
     _check_kernel_args("flash_qkv_fwd", qkv, heads, dim_head)
     b, n, _ = qkv.shape
+    logical, dim_head = dim_head, _build.kernel_dim_head("flash_qkv_fwd", dim_head)
+    qkv = _build.pad_heads(qkv, 3 * heads, dim_head)
     if qkv.dtype == torch.bfloat16:
         _build.check_aligned("flash_qkv_fwd", qkv)
     lib = _lib()
@@ -227,7 +232,7 @@ def flash_qkv_fwd(
     name = "flash_qkv_fwd" if head else "flash_qkv_fwd_stream"
     _build.check(err, name)
     launches[name] += 1
-    return o, lse
+    return _build.unpad_heads(o, heads, logical), lse
 
 
 def flash_qkv_bwd_plain(
@@ -287,6 +292,9 @@ def flash_qkv_bwd(
                 or not t.is_contiguous()):
             raise ValueError(f"flash_qkv_bwd: {name} must be contiguous {dtype} "
                              f"{shape} on {qkv.device}")
+    logical, dim_head = dim_head, _build.kernel_dim_head("flash_qkv_bwd", dim_head)
+    qkv = _build.pad_heads(qkv, 3 * heads, dim_head)
+    do = _build.pad_heads(do, heads, dim_head)
     lib = _bwd_lib()
     if qkv.dtype == torch.bfloat16:
         _build.check_aligned("flash_qkv_bwd", qkv, do)
@@ -309,7 +317,7 @@ def flash_qkv_bwd(
     name = "flash_qkv_bwd" if head else "flash_qkv_bwd_stream"
     _build.check(err, name)
     launches[name] += 1
-    return dqkv
+    return _build.unpad_heads(dqkv, 3 * heads, logical)
 
 
 class _FlashQKV(torch.autograd.Function):

@@ -34,8 +34,10 @@ Two versions of each function:
 
 The wrappers take the plain version for a tensor on the CPU and launch the
 kernel for a CUDA tensor; a CUDA tensor the kernel does not take (another
-dtype or layout, ``Dh`` not in 16 / 32 / 64, a bf16 operand not on a 16-byte
-boundary) raises before any launch.
+dtype or layout, ``Dh`` above 64, a bf16 operand not on a 16-byte
+boundary) raises before any launch; a head width between the instantiated
+16 / 32 / 64 runs zero-padded to the next of them
+(``_build.kernel_dim_head``), which is exact.
 :func:`flash_attention_stream` is differentiable through one
 ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
 ``_flash_stream_fwd`` does (line 337). ``launches`` counts kernel launches.
@@ -82,7 +84,7 @@ def smem_bytes(kernel: str, dim_head: int, dtype: torch.dtype) -> int:
     or ``"dkv"``) at head width ``dim_head`` in ``dtype``; N does not
     enter."""
     return getattr(_lib(), f"eavit_flash_stream_{kernel}_smem")(
-        dim_head, _build.DTYPE_CODES[dtype])
+        _build.kernel_dim_head("smem_bytes", dim_head), _build.DTYPE_CODES[dtype])
 
 
 def flash_stream_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -147,19 +149,30 @@ def flash_stream_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     if q.device.type == "cpu":
         return flash_stream_fwd_plain(q, k, v, scale, num_special)
     check_kernel_args("flash_stream_fwd", q, k, v)
+    dim_head = q.shape[-1]
+    q, k, v = _padded("flash_stream_fwd", q, k, v)
     if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte rows
         _build.check_aligned("flash_stream_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("fwd", (q, k, v), (o, lse), q, scale, num_special)
-    return o, lse
+    return o[..., :dim_head].contiguous(), lse
 
 
-def _check_bwd_args(what, q, k, v, lse, delta, do) -> None:
+def _padded(what: str, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands at the width of the kernel that takes their heads."""
+    width = _build.kernel_dim_head(what, ts[0].shape[-1])
+    return tuple(_build.pad_last(t, width) for t in ts)
+
+
+def _check_bwd_args(what, q, k, v, lse, delta, do):
+    """The checked operands ``(q, k, v, do)``, padded to the kernel's width."""
     check_kernel_args(what, q, k, v, do, lse=lse)
     check_kernel_args(what, q, lse=delta)
+    q, k, v, do = _padded(what, q, k, v, do)
     if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte rows
         _build.check_aligned(what, q, k, v, do)
+    return q, k, v, do
 
 
 def flash_stream_dq(q, k, v, lse, delta, do, scale: float,
@@ -167,10 +180,11 @@ def flash_stream_dq(q, k, v, lse, delta, do, scale: float,
     """K5q: ``dq``; plain version on the CPU, the kernel on CUDA."""
     if q.device.type == "cpu":
         return flash_stream_dq_plain(q, k, v, lse, delta, do, scale, num_special)
-    _check_bwd_args("flash_stream_dq", q, k, v, lse, delta, do)
+    dim_head = q.shape[-1]
+    q, k, v, do = _check_bwd_args("flash_stream_dq", q, k, v, lse, delta, do)
     dq = torch.empty_like(q)
     _launch("dq", (q, k, v, lse, delta, do), (dq,), q, scale, num_special)
-    return dq
+    return dq[..., :dim_head].contiguous()
 
 
 def flash_stream_dkv(q, k, v, lse, delta, do, scale: float,
@@ -178,10 +192,11 @@ def flash_stream_dkv(q, k, v, lse, delta, do, scale: float,
     """K5kv: ``(dk, dv)``; plain version on the CPU, the kernel on CUDA."""
     if q.device.type == "cpu":
         return flash_stream_dkv_plain(q, k, v, lse, delta, do, scale, num_special)
-    _check_bwd_args("flash_stream_dkv", q, k, v, lse, delta, do)
+    dim_head = q.shape[-1]
+    q, k, v, do = _check_bwd_args("flash_stream_dkv", q, k, v, lse, delta, do)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("dkv", (q, k, v, lse, delta, do), (dk, dv), q, scale, num_special)
-    return dk, dv
+    return dk[..., :dim_head].contiguous(), dv[..., :dim_head].contiguous()
 
 
 def flash_stream_bwd(q, k, v, lse, delta, do, scale: float,

@@ -27,16 +27,26 @@ Two versions of each function:
   replaces ``_fwd_kernel`` at fused_ffn.py:160 launched at line 288, and K2r
   ``fused_ffn_bits``, which replaces ``_masks_kernel`` at line 433 launched
   at line 455) and of ``csrc/fused_ffn_bwd.cu`` (K2b ``fused_ffn_bwd``, which
-  replaces ``_bwd_kernel`` at line 180 launched at line 321, and runs its
-  five products on the tensor cores).
+  replaces ``_bwd_kernel`` at line 180 launched at line 321). Both run their
+  products on the tensor cores, a float32 operand as hi + lo bf16 planes.
+
+K2f and K2b take every ``dim <= 1024`` and every ``hidden``, as the JAX
+kernel takes any width (fused_ffn.py:287-301). Where :func:`fused_widths`
+says so (K2f at ``dim == 256``, K2b at ``dim % 32 == 0`` up to 256, both at
+``hidden % 32 == 0``; every shipped config) they run their fused kernels,
+which keep the hidden activations out of device memory; every other width
+runs the split path of
+``csrc/ffn_wide.cuh`` (row kernels and tensor-core products through
+scratch, at widths padded to multiples of 32 with zeros), which computes the
+same function with the same masks.
 
 :func:`fused_ffn_fwd`, :func:`fused_ffn_bwd` and :func:`fused_ffn_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
-tensor; a CUDA tensor the kernel does not take raises. :func:`fused_ffn` is
-differentiable through one ``torch.autograd.Function`` whose backward is
-:func:`fused_ffn_bwd`. ``launches`` counts kernel launches (one per call of
-a wrapper; K2b's entry makes its six launches of four ``__global__``
-functions itself).
+tensor; a CUDA tensor the kernel does not take (another dtype, not
+contiguous, ``dim > 1024``) raises. :func:`fused_ffn` is differentiable
+through one ``torch.autograd.Function`` whose backward is
+:func:`fused_ffn_bwd`. ``launches`` counts wrapper calls that launched a
+kernel (one per call; each C entry makes its several launches itself).
 """
 
 from __future__ import annotations
@@ -58,7 +68,8 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 # 256, Hd = 1024) then make 1,056 blocks, four rounds of two blocks on each of
 # the 132 SMs of an H100 (tune_fused_ffn_bwd.py)
 _BWD_SLICES = 33
-_ROW_TILE = 64  # rows per block of K2b's dx kernel (csrc/fused_ffn_bwd.cu kXRows)
+_ROW_TILE = 64  # rows per block of K2b's dx kernel and of the split path's row kernels
+MAX_DIM = 1024  # the widest dim the kernels take: the JAX package's widest model
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -72,10 +83,15 @@ def _lib():
     lib = _build.library("fused_ffn")
     if not getattr(lib, "_eavit_typed", False):
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        lib.eavit_fused_ffn_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i, f, u, f, u,
-            u, i, vp]
+        tail = [ctypes.c_longlong, i, i, i, f, u, f, u, u, i, vp]
+        lib.eavit_fused_ffn_fwd.argtypes = [vp] * 9 + tail
         lib.eavit_fused_ffn_fwd.restype = i
+        lib.eavit_fused_ffn_fwd_wide.argtypes = [vp] * 12 + tail
+        lib.eavit_fused_ffn_fwd_wide.restype = i
+        lib.eavit_fused_ffn_fwd_smem.argtypes = [i, i]  # dim, dtype
+        lib.eavit_fused_ffn_fwd_smem.restype = ctypes.c_size_t
+        lib.eavit_fused_ffn_fwd_stage_bytes.argtypes = [i, i, i]  # dim, hidden, dtype
+        lib.eavit_fused_ffn_fwd_stage_bytes.restype = ctypes.c_size_t
         lib.eavit_fused_ffn_bits.argtypes = [
             vp, ctypes.c_ulonglong, vp, ctypes.c_ulonglong, u, u, vp]
         lib.eavit_fused_ffn_bits.restype = i
@@ -87,10 +103,11 @@ def _bwd_lib():
     lib = _build.library("fused_ffn_bwd")
     if not getattr(lib, "_eavit_typed", False):
         vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        lib.eavit_fused_ffn_bwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i,
-            i, i, f, u, f, u, u, i, vp]
+        tail = [ctypes.c_longlong, i, i, i, i, f, u, f, u, u, i, vp]
+        lib.eavit_fused_ffn_bwd.argtypes = [vp] * 14 + tail
         lib.eavit_fused_ffn_bwd.restype = i
+        lib.eavit_fused_ffn_bwd_wide.argtypes = [vp] * 16 + tail
+        lib.eavit_fused_ffn_bwd_wide.restype = i
         lib._eavit_typed = True
     return lib
 
@@ -144,17 +161,36 @@ def fused_ffn_fwd_plain(
     return y.to(dt)
 
 
+def fused_widths(dim: int, hidden: int, forward: bool) -> bool:
+    """Whether the fused kernel of K2f (``forward``) or of K2b takes these
+    widths: K2f's is compiled for the dim of every shipped config, 256, K2b's
+    takes any multiple of 32 up to 256. Every other width up to ``MAX_DIM``
+    runs the split path (``csrc/ffn_wide.cuh``)."""
+    return hidden % 32 == 0 and (dim == 256 if forward else dim % 32 == 0 and dim <= 256)
+
+
+def _pad32(n: int) -> int:
+    return (n + 31) // 32 * 32
+
+
+def fwd_smem_bytes(dim: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of one block of the fused K2f (``dim`` 256)."""
+    return _lib().eavit_fused_ffn_fwd_smem(dim, _build.DTYPE_CODES[dtype])
+
+
 def _check_kernel_args(what: str, x2, params) -> None:
     if x2.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: dtype {x2.dtype} (float32 or bfloat16)")
     if not x2.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
     w1 = params[2]
-    dim = x2.shape[1]
+    rows, dim = x2.shape
     hidden = w1.shape[0]
-    if dim % 32 or dim > 256 or hidden % 32:
-        raise ValueError(f"{what}: dim {dim} (a multiple of 32, <= 256) and "
-                         f"hidden {hidden} (a multiple of 32)")
+    if dim > MAX_DIM:
+        raise ValueError(f"{what}: dim {dim} > {MAX_DIM}, the widest model the JAX "
+                         f"package names (ROADMAP.md Queue 3, fault 6)")
+    if rows < 1 or dim < 1 or hidden < 1:
+        raise ValueError(f"{what}: empty input {tuple(x2.shape)}, hidden {hidden}")
     # the backward passes no b2: it enters no gradient
     shapes = (("ln_w", (dim,)), ("ln_b", (dim,)), ("w1", (hidden, dim)),
               ("b1", (hidden,)), ("w2", (dim, hidden)), ("b2", (dim,)))
@@ -179,13 +215,31 @@ def fused_ffn_fwd(
     _check_kernel_args("fused_ffn_fwd", x2, params)
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     rows, dim = x2.shape
+    hidden = w1.shape[0]
+    planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
+    bf16 = dict(dtype=torch.bfloat16, device=x2.device)
     y = torch.empty_like(x2)
-    err = _lib().eavit_fused_ffn_fwd(
-        _build.ptr(x2), *(_build.ptr(p) for p in params), _build.ptr(y),
-        rows, dim, w1.shape[0], _build.DTYPE_CODES[x2.dtype], float(eps),
-        thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
-        _build.stream_ptr(x2),
-    )
+    tail = (rows, dim, hidden, _build.DTYPE_CODES[x2.dtype], float(eps), thresh or 0,
+            float(inv_keep), s0, s1, int(thresh is not None), _build.stream_ptr(x2))
+    lib = _lib()
+    if fused_widths(dim, hidden, forward=True):
+        # every hidden chunk's W1 and W2 planes and b1, as one bulk copy moves them
+        code = _build.DTYPE_CODES[x2.dtype]
+        wplanes = torch.empty(lib.eavit_fused_ffn_fwd_stage_bytes(dim, hidden, code),
+                              dtype=torch.uint8, device=x2.device)
+        err = lib.eavit_fused_ffn_fwd(
+            _build.ptr(x2), *(_build.ptr(p) for p in params), _build.ptr(y),
+            _build.ptr(wplanes), *tail)
+    else:
+        dp, hp = _pad32(dim), _pad32(hidden)
+        scratch = (torch.empty((2, planes, hp * dp), **bf16),  # W1, W2
+                   torch.empty((planes, rows, dp), **bf16),  # u
+                   torch.empty((rows, max(hp, dp)), dtype=torch.float32,
+                               device=x2.device),  # fc1, then fc2 sums
+                   torch.empty((planes, rows, hp), **bf16))  # gd
+        err = lib.eavit_fused_ffn_fwd_wide(
+            _build.ptr(x2), *(_build.ptr(p) for p in params), _build.ptr(y),
+            *(_build.ptr(t) for t in scratch), *tail)
     _build.check(err, "fused_ffn_fwd")
     launches["fused_ffn_fwd"] += 1
     return y
@@ -251,15 +305,15 @@ def fused_ffn_bwd(
     if x2.device.type != "cuda":
         raise ValueError(f"fused_ffn_bwd: unsupported device {x2.device}")
     _check_kernel_args("fused_ffn_bwd", x2, (ln_w, ln_b, w1, b1, w2))
-    _build.check_aligned("fused_ffn_bwd", w1, w2)  # read 16 bytes at a time
     if (dy.shape != x2.shape or dy.dtype != x2.dtype or dy.device != x2.device
             or not dy.is_contiguous()):
         raise ValueError(f"fused_ffn_bwd: dy must be contiguous {x2.dtype} "
                          f"{tuple(x2.shape)} on {x2.device}")
     rows, dim = x2.shape
     hidden = w1.shape[0]
-    if rows < 1:
-        raise ValueError("fused_ffn_bwd: no rows")
+    fused = fused_widths(dim, hidden, forward=False)
+    # the split path computes at widths padded to multiples of 32
+    dp, hp = (dim, hidden) if fused else (_pad32(dim), _pad32(hidden))
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
     slices = min(_BWD_SLICES, (rows + 31) // 32)  # no more slices than 32-row steps
@@ -267,24 +321,32 @@ def fused_ffn_bwd(
     bf16 = dict(dtype=torch.bfloat16, device=x2.device)
     planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
     dx = torch.empty_like(x2)
-    grads = torch.empty(2 * hidden * dim + hidden + 3 * dim, **f32)
-    part_dx = torch.empty((tiles, hidden + 3 * dim), **f32)  # db1, dln_w, dln_b, db2
-    part_dw = torch.empty((slices, 2 * hidden * dim), **f32)  # dW1, dW2
-    wplanes = torch.empty((2, planes, hidden * dim), **bf16)  # W1, W2
-    rowp = torch.empty((2, planes, rows, dim), **bf16)  # u, dy0
-    hplanes = torch.empty((2, planes, rows, hidden), **bf16)  # dh, gd
-    err = _bwd_lib().eavit_fused_ffn_bwd(
-        *(_build.ptr(t) for t in (x2, ln_w, ln_b, w1, b1, w2, dy, dx, grads, part_dx,
-                                  part_dw, wplanes, rowp, hplanes)),
-        rows, dim, hidden, slices, _build.DTYPE_CODES[x2.dtype], float(eps),
-        thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
-        _build.stream_ptr(x2),
-    )
+    grads = torch.empty(2 * hp * dp + hp + 3 * dp, **f32)
+    part_dx = torch.empty((tiles, hp + 3 * dp), **f32)  # db1, dln_w, dln_b, db2
+    part_dw = torch.empty((slices, 2 * hp * dp), **f32)  # dW1, dW2
+    wplanes = torch.empty((2, planes, hp * dp), **bf16)  # W1, W2
+    rowp = torch.empty((2, planes, rows, dp), **bf16)  # u, dy0
+    hplanes = torch.empty((2, planes, rows, hp), **bf16)  # dh, gd
+    scratch = (x2, ln_w, ln_b, w1, b1, w2, dy, dx, grads, part_dx, part_dw, wplanes, rowp,
+               hplanes)
+    tail = (rows, dim, hidden, slices, _build.DTYPE_CODES[x2.dtype], float(eps),
+            thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
+            _build.stream_ptr(x2))
+    if fused:
+        err = _bwd_lib().eavit_fused_ffn_bwd(*(_build.ptr(t) for t in scratch), *tail)
+    else:
+        fbuf = torch.empty((2, rows, max(hp, dp)), **f32)  # fc1 then du; dgd
+        stats = torch.empty((2, rows), **f32)  # mu, rstd
+        err = _bwd_lib().eavit_fused_ffn_bwd_wide(
+            *(_build.ptr(t) for t in scratch + (fbuf, stats)), *tail)
     _build.check(err, "fused_ffn_bwd")
     launches["fused_ffn_bwd"] += 1
-    dw1, dw2, db1, dln_w, dln_b, db2 = grads.split(
-        [hidden * dim, dim * hidden, hidden, dim, dim, dim])
-    return (dx, dln_w, dln_b, dw1.view(hidden, dim), db1, dw2.view(dim, hidden), db2)
+    dw1, dw2, db1, dln_w, dln_b, db2 = grads.split([hp * dp, dp * hp, hp, dp, dp, dp])
+    dw1, dw2 = dw1.view(hp, dp), dw2.view(dp, hp)
+    if not fused:  # the logical widths of the padded gradients
+        dw1, dw2 = dw1[:hidden, :dim].contiguous(), dw2[:dim, :hidden].contiguous()
+        db1, dln_w, dln_b, db2 = db1[:hidden], dln_w[:dim], dln_b[:dim], db2[:dim]
+    return (dx, dln_w, dln_b, dw1, db1, dw2, db2)
 
 
 class _FusedFFN(torch.autograd.Function):

@@ -63,7 +63,15 @@ shape and forced onto its streaming kernel, is held to its plain version at
 N = 37, 198, 443, 786 and 1,766 with one launch per call under the launch
 key of the kernel that ran and equal bits twice, and runs at N = 3,137; the
 ragged-N, cancellation and tensor-core tests run both kernels; a dtype or
-Dh the kernels refuse raises at any N.
+Dh the kernels refuse raises at any N. Every attention function also runs
+at head widths between the instantiated 16 / 32 / 64 (8, 24, 40, 48, 60),
+zero-padded to the next of them, held to its plain version at the true
+width; only Dh above 64 raises (ROADMAP.md Queue 3, fault 6). K2f and K2b run
+at every dim up to 1,024 and every hidden width: the fused kernels where dim
+% 32 == 0, dim <= 256 and hidden % 32 == 0, the split path (ffn_wide.cuh)
+elsewhere, held to their plain versions at (40, 100), (384, 1,536), (768,
+3,072) and (1,024, 4,096) too, K2f with equal bits twice and zeros exactly
+where K2r's mask2 drops; dim above 1,024 raises.
 """
 
 import math
@@ -131,11 +139,11 @@ def test_flash_qkv_kernel_matches_plain(cuda, b, n, num_special, dim_head, dtype
 
 
 def test_flash_qkv_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(2, 5, 3 * 2 * 24, device=cuda)
-    with pytest.raises(ValueError):
-        fq.flash_qkv_fwd(x, 2, 24, 0.2)  # dim_head 24 has no kernel
+    x = torch.zeros(2, 5, 3 * 2 * 80, device=cuda)
+    with pytest.raises(ValueError, match="fault 6"):
+        fq.flash_qkv_fwd(x, 2, 80, 0.2)  # no kernel takes dim_head > 64 yet
     with pytest.raises(TypeError):
-        fq.flash_qkv_fwd(x.half(), 2, 24, 0.2)
+        fq.flash_qkv_fwd(x.half(), 2, 80, 0.2)
     # the backward refuses the same, and operands that do not match qkv
     ok = torch.zeros(2, 5, 3 * 2 * 32, device=cuda)
     lse, do = torch.zeros(2, 2, 5, device=cuda), torch.zeros(2, 5, 2 * 32, device=cuda)
@@ -159,15 +167,36 @@ def _ffn_inputs(rows, dim, hidden, device, dtype):
 @pytest.mark.parametrize("rows,dim,hidden", [
     (64 * 198, 256, 1024),   # shared-patch-stream act rows
     (128 * 197, 256, 1024),  # exact stacked act rows
+    (256 * 198, 256, 1024),  # shared-patch-stream minibatch
+    (8 * 198, 256, 1024),    # the gradient check's 8 frames: a partial last block
+    (1001, 256, 1024),       # rows that no row tile divides
     (45, 64, 96),
+    (37, 40, 100),           # ragged widths: the split path
+    (37, 37, 100),           # dim % 4 != 0: rows not 16-byte aligned
+    (1000, 384, 1536),
+    (512, 768, 3072),
+    (256, 1024, 4096),       # the HF flavour's width
 ])
 def test_fused_ffn_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
+    """K2f on the tensor cores (the fused kernel at dim 256, the split path
+    elsewhere): within 1e-4 of the output's scale (float32) or one bf16
+    rounding of the plain version, one launch, equal bits twice, and at rate
+    0.1 zero exactly where K2r's mask2 drops."""
     x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
+    before = ff.launches["fused_ffn_fwd"]
     y = ff.fused_ffn(x, *params, seeds=(5, 6), rate=rate)
     p = ff.fused_ffn_fwd_plain(x, *params, seeds=(5, 6), rate=rate)
     torch.cuda.synchronize()
+    assert ff.launches["fused_ffn_fwd"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
     tol = _bf16_tol(p) if dtype == torch.bfloat16 else 1e-4 * p.abs().max().item()
     assert _max_err(y, p) <= tol
+    assert torch.equal(y, ff.fused_ffn(x, *params, seeds=(5, 6), rate=rate))  # deterministic
+    if ff.fused_widths(dim, hidden, forward=True):
+        assert 0 < ff.fwd_smem_bytes(dim, dtype) <= _build.SMEM_LIMIT
+    if rate:
+        _, m2 = ff.fused_ffn_bits(rows, dim, hidden, (5, 6), cuda)
+        assert torch.equal(y == 0, m2 >= keep_threshold(rate))
 
 
 def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
@@ -178,9 +207,13 @@ def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
         ff.fused_ffn_bwd(x, *params[:5], torch.zeros(8, 32, device=cuda))  # dy shape
     with pytest.raises(ValueError):
         ff.fused_ffn_bwd(x, *params[:5], torch.zeros_like(x).cpu())  # dy on the CPU
-    x48, params48 = _ffn_inputs(8, 48, 96, cuda, torch.float32)
     with pytest.raises(ValueError):
-        ff.fused_ffn(x48.requires_grad_(), *params48)  # dim 48 has no kernel
+        ff.fused_ffn(x.t(), *params)  # not contiguous
+    with pytest.raises(TypeError):
+        ff.fused_ffn(x.half(), *params)  # another dtype
+    wide, wide_params = _ffn_inputs(8, 1056, 96, cuda, torch.float32)
+    with pytest.raises(ValueError, match="fault 6"):
+        ff.fused_ffn(wide.requires_grad_(), *wide_params)  # dim > 1024
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +265,12 @@ K2B_NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
     (130, 32, 64),
     (1000, 256, 512),
     (1001, 128, 384),        # rows that neither row tile (64, 32) divides
+    (8 * 198, 256, 1024),    # the gradient check's 8 frames
+    (37, 40, 100),           # ragged widths: the split path
+    (37, 37, 100),           # dim % 4 != 0
+    (1000, 384, 1536),
+    (512, 768, 3072),
+    (256, 1024, 4096),
 ])
 def test_fused_ffn_bwd_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
@@ -270,15 +309,16 @@ def test_flash_qkv_function_matches_autograd_of_plain_forward(cuda, num_special)
     assert _max_err(mine.grad, ref_in.grad) <= 1e-4 * ref_in.grad.abs().max().item()
 
 
-def test_fused_ffn_function_matches_autograd_of_plain_forward(cuda):
-    x, params = _ffn_inputs(130, 64, 96, cuda, torch.float32)
-    dy = torch.randn(130, 64, generator=torch.Generator().manual_seed(2)).to(cuda)
+@pytest.mark.parametrize("dim,hidden", [(64, 96), (40, 100), (37, 100), (768, 3072)])
+def test_fused_ffn_function_matches_autograd_of_plain_forward(cuda, dim, hidden):
+    x, params = _ffn_inputs(130, dim, hidden, cuda, torch.float32)
+    dy = torch.randn(130, dim, generator=torch.Generator().manual_seed(2)).to(cuda)
     ref_in = [t.clone().requires_grad_() for t in (x, *params)]
     ff.fused_ffn_fwd_plain(*ref_in, (5, 6), 0.1).backward(dy)
     mine = [t.clone().requires_grad_() for t in (x, *params)]
     before = dict(ff.launches)
-    ff.fused_ffn(mine[0].reshape(2, 65, 64), *mine[1:], seeds=(5, 6),
-                 rate=0.1).backward(dy.reshape(2, 65, 64))
+    ff.fused_ffn(mine[0].reshape(2, 65, dim), *mine[1:], seeds=(5, 6),
+                 rate=0.1).backward(dy.reshape(2, 65, dim))
     assert ff.launches["fused_ffn_fwd"] == before["fused_ffn_fwd"] + 1
     assert ff.launches["fused_ffn_bwd"] == before["fused_ffn_bwd"] + 1
     for a, b in zip(mine, ref_in):
@@ -410,9 +450,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         fl.flash_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
     with pytest.raises(ValueError):
         fd.flash_dropout_fwd(q.transpose(1, 2), k, v, (1, 2), 0.1, 0.2)  # not contiguous
-    with pytest.raises(ValueError):
-        fl.flash_fwd(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                     v[..., :24].contiguous(), 0.2)  # dim_head 24 has no kernel
+    wide = torch.zeros(2, 2, 9, 80, device=cuda)
+    with pytest.raises(ValueError, match="fault 6"):
+        fl.flash_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 64 yet
     o, lse = fl.flash_fwd(q, k, v, 0.2)
     with pytest.raises(ValueError):
         fl.flash_bwd(q, k, v, o, lse[:, :1].contiguous(), do, 0.2)  # lse of another shape
@@ -496,9 +536,9 @@ def test_flash_stream_kernels_reject_what_they_do_not_take(cuda):
         fs.flash_stream_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
     with pytest.raises(ValueError):
         fs.flash_stream_fwd(q.transpose(1, 2), k, v, 0.2)  # not contiguous
-    with pytest.raises(ValueError):
-        fs.flash_stream_fwd(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                            v[..., :24].contiguous(), 0.2)  # dim_head 24 has no kernel
+    wide = torch.zeros(2, 2, 9, 80, device=cuda)
+    with pytest.raises(ValueError, match="fault 6"):
+        fs.flash_stream_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 64 yet
     o, lse = fs.flash_stream_fwd(q, k, v, 0.2)
     delta = fs.stream_delta(o, do)
     with pytest.raises(ValueError):
@@ -928,6 +968,55 @@ def test_bf16_flash_backward_keeps_a_cancelling_dq(cuda, choice):
     assert err_rounded > 0 and err <= 0.1 * err_rounded, (err, err_rounded)
 
 
+STREAM_KERNELS = ("flash_stream_fwd", "flash_stream_dq", "flash_stream_dkv")
+
+
+def _stream_calls(kernel, n, dh, dtype, device, ns=2):
+    """``(kernel call, plain call)`` of one K5 wrapper at ``[1, 2, n, dh]``."""
+    q, k, v, do = _heads(1, 2, n, dh, device, dtype, seed=5)
+    scale = dh ** -0.5
+    o, lse = fs.flash_stream_fwd_plain(q, k, v, scale, ns)
+    args = (q, k, v, lse, fs.stream_delta(o, do), do, scale, ns)
+    return {
+        "flash_stream_fwd": (lambda: fs.flash_stream_fwd(q, k, v, scale, ns),
+                             lambda: fs.flash_stream_fwd_plain(q, k, v, scale, ns)),
+        "flash_stream_dq": (lambda: (fs.flash_stream_dq(*args),),
+                            lambda: (fs.flash_stream_dq_plain(*args),)),
+        "flash_stream_dkv": (lambda: fs.flash_stream_dkv(*args),
+                             lambda: fs.flash_stream_dkv_plain(*args)),
+    }[kernel]
+
+
+@pytest.mark.parametrize("n", [37, 198])
+@pytest.mark.parametrize("dim_head", [8, 24, 40, 48, 60])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ATTENTION_KERNELS + STREAM_KERNELS)
+def test_attention_kernels_take_every_head_width(cuda, kernel, dtype, dim_head, n):
+    """Every attention function at a head width between the instantiated 16 /
+    32 / 64, which it runs zero-padded to the next of them: one launch under
+    the key of the kernel that ran, within one bf16 rounding (bf16) or 1e-4 of
+    scale (float32) of the plain version at the true width, lse within 1e-4,
+    outputs of the caller's width, equal bits twice."""
+    if kernel in STREAM_KERNELS:
+        mod, key = fs, kernel
+        call, plain = _stream_calls(kernel, n, dim_head, dtype, cuda)
+    else:
+        mod, key = _module(kernel), _key(kernel, n, dim_head, dtype, None)
+        call, plain = _calls(kernel, n, dim_head, 2, dtype, cuda)
+    before = mod.launches[key]
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    assert mod.launches[key] == before + 1
+    fwd = kernel.endswith("fwd")
+    for a, p in zip(got[:-1] if fwd else got, want[:-1] if fwd else want):
+        assert a.dtype == dtype and a.shape == p.shape
+        assert _max_err(a, p) <= _tol(p, dtype)
+    if fwd:
+        assert _max_err(got[-1], want[-1]) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))  # deterministic
+
+
 def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
     """A dtype or Dh the kernels do not take raises whatever N is, before any
     launch."""
@@ -936,8 +1025,8 @@ def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
     with pytest.raises(TypeError):
         fq.flash_qkv_fwd(qkv, 2, 32, 0.2)
     with pytest.raises(ValueError, match="dim_head"):
-        fq.flash_qkv_fwd(torch.zeros(1, n, 3 * 2 * 24, device=cuda), 2, 24, 0.2)
-    q = torch.zeros(1, 2, n, 24, device=cuda)
+        fq.flash_qkv_fwd(torch.zeros(1, n, 3 * 2 * 80, device=cuda), 2, 80, 0.2)
+    q = torch.zeros(1, 2, n, 80, device=cuda)
     with pytest.raises(ValueError, match="dim_head"):
         fl.flash_fwd(q, q, q, 0.2)
     with pytest.raises(ValueError, match="dim_head"):

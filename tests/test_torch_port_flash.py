@@ -10,8 +10,11 @@ of each output's scale, bfloat16 at 2e-2 (the rounding of o, dq, dk and dv to
 bf16, and a cotangent that reaches the JAX backward through the bf16 output).
 The row log-sum-exp is held to the one the Pallas forward returns (1e-5). The
 explicit plain backward must equal torch autograd through the plain forward
-(1e-5). The CUDA kernels are held to the plain versions on a GPU by
-test_torch_port_cuda.py.
+(1e-5). A head width between the kernels' 16 / 32 / 64 runs zero-padded to
+the next of them: padded by ``_build.pad_last``, through the plain versions
+at the padded width and sliced back, it must equal the JAX kernels at the
+true width (24 and 48, float32, 1e-5). The CUDA kernels are held to the
+plain versions on a GPU by test_torch_port_cuda.py.
 """
 
 import jax
@@ -21,7 +24,7 @@ import pytest
 import torch
 
 from eavit_tpu.ops import flash as jax_flash
-from eavit_tpu_torch.ops import flash
+from eavit_tpu_torch.ops import _build, flash
 
 # One intra-op thread: the suite runs several test processes on one host.
 torch.set_num_threads(1)
@@ -105,3 +108,33 @@ def test_mha_dispatches_the_pallas_impl():
         mha(q, k, v, impl="pallas_stream", dropout_rate=0.1, seeds=(3, 4))
     with pytest.raises(ValueError):
         mha(q, k, v, impl="other")
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("dim_head", [24, 48])
+def test_padded_head_width_is_the_unpadded_function(dim_head, num_special):
+    """What the K4 wrappers do for a head width the kernels are not built for:
+    q, k, v, O and dO zero-padded to ``_build.kernel_dim_head`` (32, 64), K4f
+    and K4b at that width with the caller's scale, the outputs sliced back.
+    Held to the JAX kernels (and ``jax.grad``) at the true width."""
+    b, h, n = 2, 2, 13
+    q, k, v, g = _inputs(dim_head + n, b, h, n, dim_head)
+    scale = dim_head ** -0.5
+    width = _build.kernel_dim_head("test", dim_head)
+    assert width == {24: 32, 48: 64}[dim_head]
+    pq, pk, pv, pg = (_build.pad_last(torch.tensor(t), width) for t in (q, k, v, g))
+    o, lse = flash.flash_fwd_plain(pq, pk, pv, scale, num_special)
+    grads = flash.flash_bwd_plain(pq, pk, pv, o, lse, pg, scale, num_special)
+
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+
+    def jloss(q_, k_, v_):
+        o_ = jax_flash.flash_attention(q_, k_, v_, num_special=num_special)
+        return jnp.sum(o_ * jnp.asarray(g))
+
+    ref_o, ref_lse = jax_flash._fwd(jq, jk, jv, scale, num_special)
+    _assert_close(o[..., :dim_head].numpy(), np.asarray(ref_o), 1e-5)
+    assert not o[..., dim_head:].any()  # zero columns out of zero v columns
+    _assert_close(lse.numpy(), np.asarray(ref_lse), 1e-5)
+    for a, r in zip(grads, jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)):
+        _assert_close(a[..., :dim_head].numpy(), np.asarray(r), 1e-5)

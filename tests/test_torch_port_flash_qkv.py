@@ -5,16 +5,22 @@ run as the JAX package's own tests run it on the CPU (interpret mode), on
 ragged sequence lengths with and without the dual-query mask, at float32
 (tolerance 1e-5) and bfloat16 (2e-2: bf16 rounding of sigma and of o).
 At rate 0.1 the plain version must equal a numpy composition under the
-replayed mask. The CUDA kernel is held to the plain version on a GPU by
-test_torch_port_cuda.py.
+replayed mask. A head width between the kernels' 16 / 32 / 64 runs
+zero-padded to the next of them: the merged layout padded by
+``_build.pad_heads``, through the plain K1f and K1b at the padded width and
+sliced back by ``_build.unpad_heads``, must equal the JAX kernel and
+``jax.grad`` of it at the true width (24 and 48, float32, 1e-5). The CUDA
+kernel is held to the plain version on a GPU by test_torch_port_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from eavit_tpu.ops import flash_qkv as jax_fq
+from eavit_tpu_torch.ops import _build
 from eavit_tpu_torch.ops import flash_qkv as fq
 from eavit_tpu_torch.ops.kernel_prng import inv_keep_scale, keep_threshold
 
@@ -89,3 +95,33 @@ def test_entry_checks():
         fq.flash_mha_qkv(x, 2, 4)  # last dim is not 3*heads*dim_head
     with pytest.raises(ValueError):
         fq.flash_mha_qkv(x, 2, 8, rate=0.1)  # rate > 0 needs seeds
+
+
+@pytest.mark.parametrize("num_special", [0, 2])
+@pytest.mark.parametrize("dim_head", [24, 48])
+def test_padded_head_width_is_the_unpadded_function(dim_head, num_special):
+    """What the K1 wrappers do for a head width the kernels are not built for:
+    the merged ``[B, N, 3*H*Dh]`` layout with each head zero-padded to
+    ``_build.kernel_dim_head`` (32, 64), K1f and K1b at that width with the
+    caller's scale, each head sliced back. Held to the JAX kernel (and
+    ``jax.grad`` of it) at the true width, rate 0."""
+    b, n, heads = 2, 13, 2
+    x = _qkv(dim_head, b, n, heads, dim_head)
+    g = np.random.default_rng(dim_head + 1).standard_normal(
+        (b, n, heads * dim_head)).astype(np.float32)
+    scale = dim_head ** -0.5
+    width = _build.kernel_dim_head("test", dim_head)
+    px = _build.pad_heads(torch.tensor(x), 3 * heads, width)
+    assert px.shape == (b, n, 3 * heads * width)
+    o, lse = fq.flash_qkv_fwd_plain(px, heads, width, scale, num_special)
+    d = fq.flash_qkv_bwd_plain(px, lse, _build.pad_heads(torch.tensor(g), heads, width),
+                               heads, width, scale, num_special)
+    o, d = _build.unpad_heads(o, heads, dim_head), _build.unpad_heads(d, 3 * heads, dim_head)
+
+    jo, jlse = jax_fq._fwd(jnp.asarray(x), jnp.zeros((2,), jnp.int32), scale, heads,
+                           dim_head, num_special, None)
+    ref = jax.grad(lambda t: jnp.sum(jax_fq.flash_mha_qkv(
+        t, heads, dim_head, num_special=num_special) * jnp.asarray(g)))(jnp.asarray(x))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:b, :, :n], **F32_TOL)
+    np.testing.assert_allclose(d.numpy(), np.asarray(ref), **F32_TOL)

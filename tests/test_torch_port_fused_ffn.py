@@ -6,8 +6,12 @@ at float32 (tolerance 1e-5) and bfloat16 (2e-2: the LN output, both weights
 and the hidden activations are rounded to bf16). The JAX weights
 ``[in, out]`` go in transposed, in the torch ``[out, in]`` layout. At rate
 0.1 the plain version must equal a numpy composition under the replayed
-masks. The CUDA kernel is held to the plain version on a GPU by
-test_torch_port_cuda.py.
+masks. The numerics of the CUDA kernel's float32 path (fc1 and fc2 on bf16
+tensor cores, each operand as hi + lo bf16 planes, three products summed in
+f32) are emulated in torch on weights whose fc2 sums nearly cancel and held
+to the Pallas kernel at 1e-4 of the output's scale; one bf16 term per
+operand must err at least 10x as much. The CUDA kernel is held to the plain
+version on a GPU by test_torch_port_cuda.py.
 """
 
 import math
@@ -20,6 +24,9 @@ import torch
 from eavit_tpu.ops import fused_ffn as jax_ff
 from eavit_tpu_torch.ops import fused_ffn as ff
 from eavit_tpu_torch.ops.kernel_prng import inv_keep_scale, keep_threshold
+
+# One intra-op thread: the suite runs several test processes on one host.
+torch.set_num_threads(1)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -88,3 +95,61 @@ def test_entry_checks():
     x, params = _inputs(0, 4, 32, 64)
     with pytest.raises(ValueError):
         ff.fused_ffn(torch.tensor(x), *_torch_params(params), rate=0.1)
+
+
+def _terms(a, split):
+    """An f32 operand as the kernel feeds it to a bf16 mma: ``(hi, lo)``, ``hi
+    = bf16(a)`` and ``lo = bf16(a - hi)`` widened back to f32, or
+    ``(bf16(a),)`` alone."""
+    hi = a.to(torch.bfloat16).float()
+    return (hi, (a - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _product(a, b, split):
+    """``a @ b`` as the kernel takes it: hi hi + hi lo + lo hi, each summed in
+    f32 (``split``), or one product of the bf16 roundings."""
+    ta, tb = _terms(a, split), _terms(b, split)
+    out = torch.matmul(ta[0], tb[0])
+    if split:
+        out = out + torch.matmul(ta[0], tb[1]) + torch.matmul(ta[1], tb[0])
+    return out
+
+
+def test_three_term_forward_keeps_float32():
+    """The float32 K2f on the tensor cores, emulated: LayerNorm in f32, fc1
+    and fc2 through :func:`_product`, rate 0. The hidden units come in pairs
+    with equal W1 rows and W2 columns of opposite sign plus 10% noise, so
+    each output sums terms that cancel to under a fifth of their magnitudes.
+    Held to the Pallas kernel within 1e-4 of the output's scale; one bf16
+    term per operand errs at least 10x as much. (Each three-term product
+    keeps about 2^-16 of its terms' magnitudes, so a sum that cancels to 1%
+    of them would keep only about 3e-4 of itself.)"""
+    rows, dim, hidden, eps = 37, 64, 128, 1e-5
+    rng = np.random.default_rng(7)
+    f = lambda *s_: rng.standard_normal(s_).astype(np.float32)  # noqa: E731
+    half = hidden // 2
+    w1h = f(half, dim) / math.sqrt(dim)
+    w2h = f(dim, half) / math.sqrt(hidden)
+    w1 = np.concatenate([w1h, w1h + 0.1 * f(half, dim) / math.sqrt(dim)], axis=0)
+    w2 = np.concatenate([w2h, -w2h + 0.1 * f(dim, half) / math.sqrt(hidden)], axis=1)
+    x, ln_w, ln_b, b1, b2 = f(rows, dim), 1.0 + 0.1 * f(dim), 0.1 * f(dim), 0.1 * f(
+        hidden), 0.01 * f(dim)
+    b1 = np.concatenate([b1[:half], b1[:half]])
+    ref = np.asarray(jax_ff.fused_ffn(*(jnp.asarray(a) for a in (
+        x, ln_w, ln_b, w1.T, b1, w2.T, b2))), np.float32)
+
+    t = [torch.tensor(a) for a in (x, ln_w, ln_b, w1, b1, w2, b2)]
+    mu = t[0].mean(dim=-1, keepdim=True)
+    xc = t[0] - mu
+    u = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps) * t[1] + t[2]
+    scale = float(np.abs(ref).max())
+    g = ff.gelu_exact(u @ t[3].t() + t[4])
+    magnitude = float((g.abs() @ t[5].t().abs()).max())
+    assert scale < 0.2 * magnitude, (scale, magnitude)  # the sums nearly cancel
+    errs = {}
+    for split in (True, False):
+        g = ff.gelu_exact(_product(u, t[3].t(), split) + t[4])
+        y = _product(g, t[5].t(), split) + t[6]
+        errs[split] = float(np.abs(y.numpy() - ref).max()) / scale
+    assert errs[True] <= 1e-4, errs
+    assert errs[False] >= 10 * errs[True], errs

@@ -6,7 +6,9 @@ At rate 0 all seven gradients of ``fused_ffn`` through the port's
 of ``eavit_tpu.ops.fused_ffn.fused_ffn``, which runs the Pallas
 ``_bwd_kernel`` in interpret mode on the CPU, on row counts that fill no
 block (37 and 130), at float32 (1e-5 of each gradient's scale) and bfloat16
-input (2e-2: the roundings of u, gd, dy0, dh and dx to bf16). The JAX weights
+input (2e-2: the roundings of u, gd, dy0, dh and dx to bf16), and at widths
+the fused CUDA kernels do not take, (40, 100) and (384, 1536), with the
+forward too. The JAX weights
 are ``[in, out]``, the port's ``[out, in]``. At rate 0.1 the explicit plain
 backward must equal torch autograd through the plain forward, which proves
 that it replays both masks (float32, 1e-5). The numerics of the CUDA kernel's
@@ -81,6 +83,27 @@ def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
         if name != "x":
             assert t.grad.dtype == torch.float32
         _assert_close(t.grad.float().numpy(), np.asarray(ref[name], np.float32), tol, name)
+
+
+@pytest.mark.parametrize("dim,hidden", [(40, 100), (384, 1536)])
+def test_plain_forward_and_backward_match_jax_at_other_widths(dim, hidden):
+    """The widths the fused kernels do not take (ragged, and wider than 256),
+    which the JAX kernel takes as one block: the plain forward and all seven
+    gradients through the port's Function held to the Pallas kernel and
+    ``jax.grad`` of it at float32 (1e-5 of each output's scale)."""
+    rows = 11
+    p, g = _inputs(dim + hidden, rows, dim, hidden)
+    ref = _jax_grads(p, g, jnp.float32)
+    jy = jax_ff.fused_ffn(jnp.asarray(p["x"]), jnp.asarray(p["ln_w"]), jnp.asarray(p["ln_b"]),
+                          jnp.asarray(p["w1"].T), jnp.asarray(p["b1"]),
+                          jnp.asarray(p["w2"].T), jnp.asarray(p["b2"]))
+    targs = [torch.tensor(p[k]).requires_grad_() for k in NAMES]
+    y = ff.fused_ffn(*targs)
+    _assert_close(y.detach().numpy(), np.asarray(jy, np.float32), 1e-5, "y")
+    y.backward(torch.tensor(g))
+    for name, t in zip(NAMES, targs):
+        assert t.grad.shape == t.shape
+        _assert_close(t.grad.numpy(), np.asarray(ref[name], np.float32), 1e-5, name)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
