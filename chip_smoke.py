@@ -99,6 +99,23 @@ non-zero on failure:
     for N = 786 and 1,766 and held to its plain version, timed beside the
     bytes bound, the plain version and SDPA (bf16), with its shared memory,
     which does not depend on N.
+16. ``determinism``: after the gradient checks, the same loss and backward
+    twice on each route and dtype, the allocator's free memory filled with
+    NaN bytes, then random bytes, before each run: every kernel output the
+    network's wrappers return must have equal bits in both runs; the spread
+    of the network's gradient between them is printed, with the parameters
+    whose gradient differs (PyTorch's own ops, not the port's kernels).
+17. ``device_env`` (the zero-host path): ``train.train`` on
+    ``configs/synthetic_device_flagship.conf`` at full width, cut to
+    ``ObsNormStep = 1`` and two iterations, with its launch counts; a resume
+    from its checkpoint that brings back the env's ever-visited rooms; one
+    iteration in pieces: ``collect`` with no host sync (counted under
+    ``torch.cuda.set_sync_debug_mode``), K1f and K2f 387 launches a
+    rollout, K1b and K2b 384 an update, the rollout equal bit for bit to the
+    port's device env stepped on the CPU with the card's actions,
+    ``collect_s`` and ``update_s`` beside the host-env iteration of phase 5;
+    then one iteration of ``configs/maze_exploration.conf`` cut to 16 envs
+    x 32 steps (its xla route launches no kernel).
 
 K1f, K1b, K3b and K4b have two bf16 kernels each: the whole-head forms
 (``csrc/attn_fwd_head.cuh``, ``csrc/attn_bwd_head.cuh``), which the wrappers
@@ -127,9 +144,11 @@ nearly equal, so that dq nearly cancels: K3b, K4b and K5q, which keep pd
 and ds in float32 as two bf16 terms, must err at most a tenth as much as
 the dq that rounding ds to bf16 gives), then the ``widths`` line: K2f and
 K2b at (rows, dim, hidden) = (37, 40, 100), (1,000, 384, 1,536), (512, 768,
-3,072) and (256, 1,024, 4,096), and each attention function at ``Dh`` 24
-and 48 (zero-padded to 32 and 64), in bf16 and float32, each call launching
-its kernel once and held to its plain version. No wrapper runs its plain
+3,072), (256, 1,024, 4,096), (256, 1,280, 5,120) and (37, 1,031, 100), and
+each attention function at ``Dh`` 24, 48, 96 (zero-padded to 32, 64, 128)
+and 128, in bf16 and float32, each call launching its kernel once, held to
+its plain version and timed. A spill at ``Dh`` 128 is reported, not failed.
+No wrapper runs its plain
 version on the card: every row of a
 kernel phase is logged only after the call it times launched the kernel
 exactly once.
@@ -562,16 +581,17 @@ def train_kernel_phase(torch, fq, ff, dev):
 # ---------------------------------------------------------------------------
 
 FFN_WIDTHS = ((37, 40, 100), (37, 37, 100), (1000, 384, 1536), (512, 768, 3072),
-              (256, 1024, 4096))
-HEAD_WIDTHS = (24, 48)
+              (256, 1024, 4096), (256, 1280, 5120), (37, 1031, 100))
+HEAD_WIDTHS = (24, 48, 96, 128)
 
 
 def widths_phase(torch, ff, fq, fl, fd, fs, dev):
-    """K2f and K2b at ragged and wide widths (the split path), and every
-    attention function at head widths between the instantiated 16 / 32 / 64
-    (zero-padded to the next), in bf16 and float32: each call launches its
-    kernel once and is held to its plain version (one bf16 rounding, or 1e-4
-    of scale in float32; K2b each output against its own maximum)."""
+    """K2f and K2b at ragged and wide widths (the split path, past 1,024
+    too), and every attention function at head widths between the
+    instantiated 16 / 32 / 64 / 128 (zero-padded to the next) and at 128, in
+    bf16 and float32: each call launches its kernel once, is held to its
+    plain version (one bf16 rounding, or 1e-4 of scale in float32; K2b each
+    output against its own maximum) and is timed."""
     seeds, rate, out = KERNEL_SEEDS, 0.1, []
 
     def held(what, got, want, dtype, rel=False, tols=None):
@@ -657,7 +677,7 @@ def widths_phase(torch, ff, fq, fl, fd, fs, dev):
                 got = once(mod, key, call)
                 worst = held(f"{key} Dh {dh} {name}", got, plain(), dtype)
                 out.append(dict(kernel=key, shape=[b, h, n, dh], dtype=name, launches=1,
-                                worst_err_over_tol=worst))
+                                worst_err_over_tol=worst, ms=time_ms(torch, call, 5)))
     log("widths", cases=len(out), results=out)
     return out
 
@@ -1232,48 +1252,205 @@ def host_batch(torch, n: int):
     )
 
 
-def grad_check(torch, dev, shared: bool, compute_dtype: str, tol: float,
-               attention: str = "pallas_qkv"):
+def grad_check(torch, dev, compute_dtype: str, tol: float, attention: str = "pallas_qkv"):
     """Loss and gradients of the whole network and the RND predictor on one
-    minibatch of 8 frames, kernels on the card against a copy on the CPU
-    (plain versions). Kernel dropout is live at rate 0.1 with the same seed
-    words on both sides (the device Philox equals the plain one). The 16-bit
-    dropout layers outside the kernels draw from the device's own generator,
-    which no CPU generator reproduces, so they are switched off in both
-    copies (on ``pallas_stream`` that is all the attention's dropout);
-    ``UpdateProportion = 1`` takes the RND mask out the same way."""
-    from eavit_tpu_torch.models.layers import Dropout16, Rng
-    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
+    minibatch of 8 frames (shared stream), kernels on the card against a copy
+    on the CPU (plain versions), both from ``SEED``. Kernel dropout is live
+    at rate 0.1 with the same seed words on both sides (the device Philox
+    equals the plain one). The 16-bit dropout layers outside the kernels draw
+    from the device's own generator, which no CPU generator reproduces, so
+    they are switched off in both copies (on ``pallas_stream`` that is all
+    the attention's dropout); ``UpdateProportion = 1`` takes the RND mask out
+    the same way."""
+    from eavit_tpu_torch.ops import flash, flash_dropout, flash_qkv, flash_stream, fused_ffn
 
-    cfg = flagship_cfg(shared, attention).replace(update_proportion=1.0,
-                                                  compute_dtype=compute_dtype)
-    agents = {"cuda": RNDAgent(cfg, 5), "cpu": RNDAgent(cfg, 5, device="cpu")}
-    state = agents["cuda"].init_state(SEED)
-    agents["cpu"].load_state_dict(agents["cuda"].state_dict(state))
-    n = 8
-    host = host_batch(torch, n)
+    mods = (flash_qkv, fused_ffn, flash, flash_dropout, flash_stream)
+    host = host_batch(torch, 8)
     losses, grads = {}, {}
-    for where, agent in agents.items():
-        for m in agent.network.modules():
-            if isinstance(m, Dropout16):
-                m.rate = 0.0
-        batch = TrainBatch(**{k: v.to(agent.device) for k, v in host.items()})
-        loss, _ = agent._loss(batch, torch.arange(n, device=agent.device),
-                              Rng(SEED + 7, agent.device))
-        loss.backward()
-        losses[where] = float(loss.detach())
-        grads[where] = torch.cat([p.grad.float().reshape(-1).cpu()
-                                  for p in agent.trainable_parameters()])
-    rel = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
-    loss_err = abs(losses["cuda"] - losses["cpu"])
+    for where in (dev, "cpu"):
+        loss, g, _ = network_grads(torch, grad_agent(torch, where, attention, compute_dtype),
+                                   host, mods)
+        losses[str(where)] = float(loss)
+        grads[str(where)] = torch.cat([t.float().reshape(-1).cpu() for t in g.values()])
+    on_card = str(dev)
+    rel = ((grads[on_card] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    loss_err = abs(losses[on_card] - losses["cpu"])
     loss_tol = tol * max(1.0, abs(losses["cpu"]))
-    log("grad_check", mode="shared" if shared else "stacked", attention=attention,
-        compute_dtype=compute_dtype,
-        frames=n, loss_cuda=losses["cuda"], loss_cpu=losses["cpu"], loss_err=loss_err,
+    log("grad_check", mode="shared", attention=attention, compute_dtype=compute_dtype,
+        frames=8, loss_cuda=losses[on_card], loss_cpu=losses["cpu"], loss_err=loss_err,
         loss_tol=loss_tol, grad_rel_err=rel, grad_rel_tol=tol,
         grad_elements=grads["cpu"].numel())
     check(loss_err <= loss_tol and rel <= tol,
           f"gradient of the whole network, {compute_dtype}: CUDA kernels vs CPU plain")
+
+
+# ---------------------------------------------------------------------------
+# determinism: equal bits in a repeat (ROADMAP.md Queue 3, fault 7)
+# ---------------------------------------------------------------------------
+
+KERNEL_FUNCS = {  # ops module -> its kernel wrappers that the network calls
+    "flash_qkv": ("flash_qkv_fwd", "flash_qkv_bwd"),
+    "fused_ffn": ("fused_ffn_fwd", "fused_ffn_bwd"),
+    "flash": ("flash_fwd", "flash_bwd"),
+    "flash_dropout": ("flash_dropout_fwd", "flash_dropout_bwd"),
+    "flash_stream": ("flash_stream_fwd", "flash_stream_dq", "flash_stream_dkv"),
+}
+
+
+class KernelRecorder:
+    """While open, every kernel wrapper of ``mods`` also keeps a copy of the
+    tensors it returned, in call order: ``calls`` is ``[(name, (tensor,
+    ...)), ...]``. The autograd Functions find the wrappers by their module
+    names, so the network's own calls are recorded."""
+
+    def __init__(self, mods):
+        self.calls, self._patched = [], []
+        for m in mods:
+            for name in KERNEL_FUNCS[m.__name__.rsplit(".", 1)[1]]:
+                self._patch(m, name)
+
+    def _patch(self, m, name):
+        f = getattr(m, name)
+
+        def recorded(*args, **kw):
+            out = f(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            self.calls.append((name, tuple(t.detach().clone() for t in outs
+                                           if t is not None)))
+            return out
+
+        self._patched.append((m, name, f))
+        setattr(m, name, recorded)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, f in self._patched:
+            setattr(m, name, f)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shape, dtype and bytes (NaN payloads and the sign of 0 count)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def poison_allocator(torch, dev, fill) -> None:
+    """Fill memory that the caching allocator hands out next with the byte
+    ``fill`` (0xFF reads as NaN in float32 and bf16), or with random bytes
+    for ``None``: a kernel that reads memory it did not write then changes
+    its output between repeats."""
+    blocks = [torch.empty(64 << 20, dtype=torch.uint8, device=dev) for _ in range(16)]
+    blocks += [torch.empty(256 << 10, dtype=torch.uint8, device=dev) for _ in range(256)]
+    for b in blocks:
+        if fill is None:
+            b.random_(0, 256)
+        else:
+            b.fill_(fill)
+    del blocks
+
+
+def network_grads(torch, agent, host, mods, rng_seed: int = SEED + 7):
+    """One loss and backward of ``agent`` on the frames ``host`` (as
+    ``grad_check`` does): ``(loss, {parameter: gradient}, kernel calls)``."""
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import TrainBatch
+
+    dev = agent.device
+    named = [(f"policy.{n}", p) for n, p in agent.network.named_parameters()]
+    named += [(f"rnd_pred.{n}", p) for n, p in agent.rnd_pred.named_parameters()]
+    for _, p in named:
+        p.grad = None
+    batch = TrainBatch(**{k: v.to(dev) for k, v in host.items()})
+    n = batch.adv.shape[0]
+    with KernelRecorder(mods) as rec:
+        loss, _ = agent._loss(batch, torch.arange(n, device=dev), Rng(rng_seed, dev))
+        loss.backward()
+    return (loss.detach().clone(), {k: p.grad.detach().clone() for k, p in named},
+            rec.calls)
+
+
+def grad_agent(torch, dev, attention: str, compute_dtype: str):
+    """The flagship agent of ``grad_check`` (shared stream, ``UpdateProportion
+    = 1``, the 16-bit dropout layers off) on ``dev``, from ``SEED``."""
+    from eavit_tpu_torch.models.layers import Dropout16
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    cfg = flagship_cfg(True, attention).replace(update_proportion=1.0,
+                                                compute_dtype=compute_dtype)
+    agent = RNDAgent(cfg, 5, device=dev)
+    agent.init_state(SEED)
+    for m in agent.network.modules():
+        if isinstance(m, Dropout16):
+            m.rate = 0.0
+    return agent
+
+
+def compare_repeats(torch, runs):
+    """What differs from the first of ``runs`` (``network_grads`` results):
+    ``loss_equal``; ``kernels_differing`` ``{kernel: calls whose output bits
+    differ}`` and ``kernel_spread`` (their largest difference over the
+    output's largest value); ``params_differing`` ``{parameter: largest
+    gradient difference over its largest value}`` and ``grad_spread`` (the
+    norm of the whole gradient's difference over its norm)."""
+    loss0, grads0, calls0 = runs[0]
+    kernels, kernel_spread = {}, 0.0
+    params = {}
+    flat0 = torch.cat([g.float().reshape(-1) for g in grads0.values()])
+    grad_spread = 0.0
+    for loss, grads, calls in runs[1:]:
+        if len(calls) != len(calls0):
+            kernels["(call count)"] = kernels.get("(call count)", 0) + 1
+        for (name, outs), (_, outs0) in zip(calls, calls0):
+            bad = [(a, b) for a, b in zip(outs, outs0) if not same_bits(torch, a, b)]
+            if bad or len(outs) != len(outs0):
+                kernels[name] = kernels.get(name, 0) + 1
+            for a, b in bad:
+                scale = max(b.float().abs().max().item(), 1e-30)
+                kernel_spread = max(kernel_spread,
+                                    (a.float() - b.float()).abs().max().item() / scale)
+        for k, g0 in grads0.items():
+            if not same_bits(torch, grads[k], g0):
+                rel = ((grads[k].float() - g0.float()).abs().max().item()
+                       / max(g0.float().abs().max().item(), 1e-30))
+                params[k] = max(params.get(k, 0.0), rel)
+        flat = torch.cat([g.float().reshape(-1) for g in grads.values()])
+        grad_spread = max(grad_spread, ((flat - flat0).norm() / flat0.norm()).item())
+    return dict(loss_equal=all(same_bits(torch, r[0], loss0) for r in runs),
+                kernel_calls=len(calls0), kernels_differing=kernels,
+                kernel_spread=kernel_spread, params_differing=params,
+                grad_spread=grad_spread)
+
+
+def determinism_phase(torch, mods, dev, repeats: int = 2):
+    """Every kernel the network runs, twice on the same inputs: the loss and
+    backward of ``grad_check`` on each route and dtype, the allocator's free
+    memory filled with NaN bytes before the first run and random bytes before
+    the second. Fails on any kernel output whose bits differ; prints the
+    spread of the network's gradient between the repeats, split into the
+    port kernels' outputs and the rest (PyTorch's own ops)."""
+    out = {}
+    for attention in ("pallas_qkv", "pallas", "pallas_stream"):
+        for dtype in ("float32", "bfloat16"):
+            agent = grad_agent(torch, dev, attention, dtype)
+            host = host_batch(torch, 8)
+            runs = []
+            for r in range(repeats):
+                poison_allocator(torch, dev, (0xFF, None)[r % 2])
+                runs.append(network_grads(torch, agent, host, mods))
+            res = compare_repeats(torch, runs)
+            out[f"{attention} {dtype}"] = {
+                **{k: v for k, v in res.items() if k != "params_differing"},
+                "params_differing": len(res["params_differing"]),
+                "params": len(runs[0][1]),
+                "largest_param_spreads": dict(sorted(
+                    res["params_differing"].items(), key=lambda kv: -kv[1])[:4])}
+            del agent, runs
+    log("determinism", repeats=repeats, frames=8, cases=out)
+    bad = {k: v["kernels_differing"] for k, v in out.items() if v["kernels_differing"]}
+    check(not bad, f"kernel outputs differ between two runs on the same inputs: {bad}")
+    return out
 
 
 def _kernel_name(key: str) -> str:
@@ -1281,6 +1458,36 @@ def _kernel_name(key: str) -> str:
     this file's kind, template arguments and parameters."""
     name = key.replace("void ", "").replace("(anonymous namespace)::", "")
     return name.split("<")[0].split("(")[0]
+
+
+def device_activity(prof, per: int):
+    """What a ``torch.profiler`` trace ran on the card: ``(window ms, busy
+    share of the window, {kernel: device ms})``, the times over ``per``; None
+    when it recorded no device activity."""
+    def on_card(e, name):
+        # kernels and copies, not the ranges that annotate them ("Optimizer.step#...";
+        # a kernel's own name has "#" only inside its template arguments)
+        return str(e.device_type).endswith("CUDA") and "#" not in _kernel_name(name)
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if on_card(e, e.name))
+    if not spans:
+        return None
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    by_kernel = {}
+    for e in prof.key_averages():
+        if on_card(e, e.key):
+            name = _kernel_name(e.key)
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / per
+    return window / 1e3 / per, busy / window, by_kernel
 
 
 def profile_minibatches(torch, agent, state, rollout, rng, steps: int = 8):
@@ -1300,36 +1507,37 @@ def profile_minibatches(torch, agent, state, rollout, rng, steps: int = 8):
         for idx in idxs:
             agent._minibatch_step(batch, idx, rng, params)
         torch.cuda.synchronize()
-    def on_card(e, name):
-        # kernels and copies, not the ranges that annotate them ("Optimizer.step#...";
-        # a kernel's own name has "#" only inside its template arguments)
-        return str(e.device_type).endswith("CUDA") and "#" not in _kernel_name(name)
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if on_card(e, e.name))
-    if not spans:
+    act = device_activity(prof, steps)
+    if act is None:
         return {}
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
-    by_kernel = {}
-    for e in prof.key_averages():
-        if on_card(e, e.key):
-            name = _kernel_name(e.key)
-            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / steps
+    window, share, by_kernel = act
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    out = dict(minibatch_steps=steps, window_ms_per_minibatch=window / 1e3 / steps,
-               window_busy_share=busy / window,
-               device_ms_per_minibatch=sum(by_kernel.values()),
+    out = dict(minibatch_steps=steps, window_ms_per_minibatch=window,
+               window_busy_share=share, device_ms_per_minibatch=sum(by_kernel.values()),
                top_kernels_ms_per_minibatch=dict(top))
     log("profile", **out)
     return out
+
+
+def profile_collect(torch, collector, env_state, rng):
+    """``torch.profiler`` over one device-env ``collect``: its device time by
+    kernel a step ({} when the profiler recorded no device activity). The
+    device time over ``collect_s`` measured without the profiler is the
+    card's busy share of a rollout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = collector.cfg.num_step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        collector.collect(env_state, rng)
+        torch.cuda.synchronize()
+    act = device_activity(prof, steps)
+    if act is None:
+        return {}
+    _, _, by_kernel = act
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms_per_step=sum(by_kernel.values()),
+                top_kernels_ms_per_step=dict(top))
 
 
 def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
@@ -1461,6 +1669,207 @@ def training_path(torch, mods, dev, shared: bool, epochs: int, updates: int,
     check_counts(eval_counts, {attention_kernels(attention, False)[0]: per_step,
                                "fused_ffn_fwd": per_step}, f"{what}: evaluate")
     return counts, timing
+
+
+# ---------------------------------------------------------------------------
+# the zero-host path: EnvType = synthetic_device
+# ---------------------------------------------------------------------------
+
+DEVICE_ENV_UPDATES = 2  # iterations of the flagship device-env run (its config runs forever)
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _env_on(state, device):
+    return type(state)(*(t.to(device) for t in state))
+
+
+def device_env_phase(torch, mods, dev, workdir: str, host_timing):
+    """``train.train`` on ``configs/synthetic_device_flagship.conf`` at full
+    width (64 envs x 128 steps, dim 256, depth 3, pallas_qkv, fused FFN, bf16,
+    dropout 0.1), cut to ``ObsNormStep = 1`` and ``DEVICE_ENV_UPDATES``
+    iterations: launch counts (the warm-up's policy rollout included), finite
+    metrics, and a resume from its checkpoint that brings back the env's
+    ever-visited rooms. Then one iteration in pieces with the agent and
+    collector built as ``train`` builds them: ``collect`` under
+    ``torch.cuda.set_sync_debug_mode`` (every host sync counted, none
+    allowed), the rollout replayed bit for bit on the port's own device env
+    stepped on the CPU with the card's actions, ``collect_s`` and
+    ``update_s`` beside the host-env flagship iteration of this call
+    (``host_timing``). Last, one iteration of ``configs/maze_exploration.conf``
+    (16 envs x 32 steps; the xla route without the fused FFN: no kernel)."""
+    import warnings
+
+    from eavit_tpu_torch import train as port_train
+    from eavit_tpu_torch.config import EnvType, load_config
+    from eavit_tpu_torch.envs.device_env import device_env_step, make_device_env
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
+    from eavit_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cuts = dict(obs_norm_step=1, updates=DEVICE_ENV_UPDATES)
+    cfg = load_config(os.path.join(REPO_ROOT, "configs", "synthetic_device_flagship.conf"))
+    check(cfg.env_type == EnvType.SYNTHETIC_DEVICE and cfg.num_env_per_process == NUM_ENVS
+          and cfg.num_step == NUM_STEP and cfg.vit.dim == 256 and cfg.vit.depth == DEPTH
+          and cfg.vit.dropout == 0.1 and cfg.attention_impl == "pallas_qkv" and cfg.fused_ffn
+          and cfg.compute_dtype == "bfloat16" and cfg.shared_patch_stream,
+          "synthetic_device_flagship.conf is the flagship at full width")
+    cfg = cfg.replace(obs_norm_step=cuts["obs_norm_step"], save_ckpt_every=cuts["updates"],
+                      log_name="smoke_device", save_model_path=os.path.join(workdir, "ckpt"))
+    frames = cfg.num_step * cfg.num_env_per_process
+    per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+    per_update = cfg.vit.depth * cfg.epoch * cfg.mini_batch
+    updates = cuts["updates"]
+
+    torch.cuda.synchronize()
+    _reset(mods)
+    t0 = time.perf_counter()
+    metrics = port_train.train(cfg, total_updates=updates,
+                               log_dir=os.path.join(workdir, "logs"))  # CUDA by default
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts(mods)  # the device-env path ends here
+    # the warm-up's policy rollout, then per iteration a rollout and an update
+    fwd = (updates + 1) * per_rollout + updates * per_update
+    expect = {"flash_qkv_fwd": fwd, "fused_ffn_fwd": fwd,
+              "flash_qkv_bwd": updates * per_update, "fused_ffn_bwd": updates * per_update}
+    check_counts(counts, expect, "device env: train")
+    finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
+    check(finite, "device env: finite metrics")
+    env_names = ("data/num_episodes", "data/mean_undiscounted_episode_return",
+                 "data/mean_number_of_visited_rooms", "data/mean_rooms_discovered",
+                 "data/total_rooms_discovered")
+    check(all(k in metrics for k in env_names), f"device env metrics: {sorted(metrics)}")
+
+    # resume: the sidecar's ever-visited rooms come back
+    path = os.path.join(cfg.save_model_path, cfg.log_name)
+    with open(path + ".json") as fh:
+        meta = json.load(fh)
+    params, fresh = make_device_env(
+        cfg.num_env_per_process, seed=cfg.seed, grid=cfg.synthetic_grid,
+        stack=cfg.state_stack_size, height=cfg.pre_proc_height, width=cfg.pre_proc_width,
+        max_episode_steps=cfg.max_step_per_episode, maze=cfg.synthetic_maze,
+        texture=cfg.synthetic_texture, shared_world=cfg.synthetic_shared_world,
+        variants=cfg.synthetic_variants, sparse_goal=cfg.synthetic_sparse_goal,
+        goal_depth=cfg.synthetic_goal_depth, device=dev)
+    restored = port_train._restore_device_env_stats(fresh, meta)
+    saved_rooms = int(restored.ever_visited.sum())
+    resumed = port_train.train(cfg.replace(load_model=True, load_model_path=path,
+                                           log_name="smoke_device_resumed"),
+                               total_updates=updates + 1, log_dir=os.path.join(workdir, "logs"))
+    resumed_ok = (saved_rooms > cfg.num_env_per_process
+                  and resumed["data/mean_rooms_discovered"]
+                  >= saved_rooms / cfg.num_env_per_process)
+    check(resumed_ok, f"device env: resume kept {saved_rooms} rooms, then "
+          f"{resumed['data/mean_rooms_discovered']} per env")
+
+    # one iteration in pieces, as train builds it, from the checkpoint
+    agent = RNDAgent(cfg, 5)
+    agent.init_state(cfg.seed)
+    state, _ = load_checkpoint(path, agent)
+    collector = ScanRolloutCollector(cfg, agent, params)
+    rng = Rng(SEED + 3, agent.device)
+    env_state = restored
+    rollout, env_state, _ = collector.collect(env_state, rng)  # warm: allocator, cuDNN
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rollout, env_state, _ = collector.collect(env_state, rng)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [str(w.message).split("\n")[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        collector.collect(env_state, rng)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e).split("\n")[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    start = _env_on(env_state, "cpu")
+    torch.cuda.synchronize()
+    _reset(mods)
+    t0 = time.perf_counter()
+    rollout, end, env_metrics = collector.collect(env_state, rng)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    collect_counts = _counts(mods)
+    _reset(mods)
+    t0 = time.perf_counter()
+    state, m2 = agent.update(state, rollout, rng)
+    loss = float(m2["train/loss"])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_counts = _counts(mods)
+    # the card's busy share of a rollout: its device time under the profiler
+    # over collect_s without it
+    prof = profile_collect(torch, collector, end, rng)
+    busy = (prof["device_ms_per_step"] * cfg.num_step / (collect_s * 1e3) if prof
+            else None)  # None: not measured
+    check_counts(collect_counts, {"flash_qkv_fwd": per_rollout, "fused_ffn_fwd": per_rollout},
+                 "device env: collect")
+    check_counts(update_counts, {k: per_update for k in expect}, "device env: one update")
+    check(loss == loss, "device env: finite loss in the timed update")
+
+    # the rollout against the port's device env stepped on the CPU with the
+    # card's actions: states, rewards, dones and next_obs bit for bit
+    cpu_params = type(params)(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in params))
+    cpu_state, mismatch = start, []
+    ro = type(rollout)(*(t.cpu() for t in rollout))
+    for t in range(cfg.num_step):
+        if not torch.equal(ro.states[t], cpu_state.stack):
+            mismatch.append(f"states {t}")
+        cpu_state, r, d, _ = device_env_step(cpu_params, cpu_state, ro.actions[t])
+        for name, a, b in (("rewards", ro.rewards[t], r), ("dones", ro.dones[t], d),
+                           ("next_obs", ro.next_obs[t], cpu_state.stack[:, -1:])):
+            if not torch.equal(a, b):
+                mismatch.append(f"{name} {t}")
+    end_cpu = _env_on(end, "cpu")
+    mismatch += [f"final {f}" for f in end._fields
+                 if not torch.equal(getattr(end_cpu, f), getattr(cpu_state, f))]
+    card = gpu_name_power()
+    log("device_env", config="configs/synthetic_device_flagship.conf", cuts=cuts,
+        envs=cfg.num_env_per_process, steps=cfg.num_step, frames=frames,
+        train_s=train_s, train_launches=counts, expected_train_launches=expect,
+        finite=finite, metrics={k: metrics[k] for k in sorted(metrics)},
+        resume_saved_rooms=saved_rooms,
+        resume_mean_rooms_discovered=resumed["data/mean_rooms_discovered"],
+        collect_s=collect_s, update_s=update_s,
+        iteration_s=collect_s + update_s, frames_per_s=frames / (collect_s + update_s),
+        step_ms=collect_s / (cfg.num_step + 1) * 1e3, collect_profile=prof,
+        collect_device_busy_share=busy,
+        launches_per_rollout=collect_counts, launches_per_update=update_counts,
+        host_syncs_in_collect=len(syncs), host_syncs=syncs[:5], sync_error=raised,
+        replay_mismatches=mismatch[:10], replay_equal=not mismatch,
+        rollout_episodes=float(env_metrics["data/num_episodes"]),
+        host_env=dict(collect_s=host_timing["collect_s"], update_s=host_timing["update_s"],
+                      frames_per_s=host_timing["frames_per_s"]),
+        card=card)
+    check(not syncs and raised is None, f"device env: host syncs in collect: {syncs} {raised}")
+    check(not mismatch, f"device env: rollout differs from the CPU replay: {mismatch[:10]}")
+
+    # the maze exploration config, cut to 16 envs x 32 steps, one iteration
+    mcfg = load_config(os.path.join(REPO_ROOT, "configs", "maze_exploration.conf")).replace(
+        num_env_per_process=16, num_step=32, obs_norm_step=1, log_name="smoke_maze",
+        save_model_path=os.path.join(workdir, "maze_ckpt"))
+    _reset(mods)
+    t0 = time.perf_counter()
+    mm = port_train.train(mcfg, total_updates=1, log_dir=os.path.join(workdir, "logs"))
+    torch.cuda.synchronize()
+    maze_counts = _counts(mods)
+    maze_finite = all(v == v and abs(v) != float("inf") for v in mm.values())
+    log("device_env_maze", config="configs/maze_exploration.conf",
+        cuts=dict(envs=16, steps=32, obs_norm_step=1, updates=1),
+        seconds=time.perf_counter() - t0, launches=maze_counts, finite=maze_finite,
+        total_rooms_discovered=mm["data/total_rooms_discovered"],
+        mean_rooms_discovered=mm["data/mean_rooms_discovered"], loss=mm["train/loss"])
+    check_counts(maze_counts, {}, "maze (xla route, no fused FFN)")
+    check(maze_finite, "maze: finite metrics")
+    return counts
 
 
 # (attention, dropout, compute dtype, patch size) of the one-step route checks:
@@ -1812,7 +2221,7 @@ def main() -> int:
         # every kernel at Dh <= 32; K5f (one sweep), K2f and K2b at every Dh and dtype
         spills = {f"{k} {v}": i for k, d in mma.items() for v, i in d.items()
                   if (k in ("flash_stream_fwd", "fused_ffn_fwd", "fused_ffn_bwd")
-                      or int(v[2:4]) <= 32)
+                      or int(re.match(r"Dh(\d+)", v).group(1)) <= 32)
                   and (i.get("spill_stores") or i.get("spill_loads"))}
         check(not spills, f"tensor-core kernels spill: {spills}")
 
@@ -1832,8 +2241,9 @@ def main() -> int:
     main_path(torch, mods, dev, shared=False, attention="pallas_stream")
 
     for attention in ("pallas_qkv", "pallas", "pallas_stream"):
-        grad_check(torch, dev, True, "float32", 2e-3, attention)   # other sum orders only
-        grad_check(torch, dev, True, "bfloat16", 5e-2, attention)  # bf16 Dense layers
+        grad_check(torch, dev, "float32", 2e-3, attention)   # other sum orders only
+        grad_check(torch, dev, "bfloat16", 5e-2, attention)  # bf16 Dense layers
+    determinism_phase(torch, mods, dev)
     with tempfile.TemporaryDirectory() as workdir:
         def run(tag, **kw):
             return training_path(torch, mods, dev, workdir=os.path.join(workdir, tag), **kw)
@@ -1853,6 +2263,7 @@ def main() -> int:
         # other routes take one minibatch step below)
         run("stream_patch4", shared=True, epochs=1, updates=1, attention="pallas_stream",
             vit=dict(patch_size=4))
+        device_env_phase(torch, mods, dev, os.path.join(workdir, "device_env"), timing)
     route_launches = patch4_other_routes(torch, mods, dev)
 
     # the kernels of the flagship iteration (shared stream): launch counts of

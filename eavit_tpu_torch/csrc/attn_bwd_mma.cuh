@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, DH >= 64 ? 1 : kBwdMinBlocks)
           for (int r = 0; r < 2; ++r) {
             float part = 0.f;
             if (live[r]) {
-              constexpr int DQ = DH / 4;  // 4, 8 or 16 dims
+              constexpr int DQ = DH / 4;  // 4, 8, 16 or 32 dims
 #pragma unroll
               for (int dd = 0; dd < DQ; dd += 2) {
                 const int d = t4 * DQ + dd;
@@ -513,7 +513,7 @@ cudaError_t launch_mma_dkv_t(const MmaBwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The dq kernel alone, Dh in {16, 32, 64}
+// The dq kernel alone, Dh in {16, 32, 64, 128}
 template <bool ROUND, bool DROPOUT, int ROWTERM>
 cudaError_t launch_mma_dq(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
@@ -521,6 +521,7 @@ cudaError_t launch_mma_dq(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
     case 16: return launch_mma_dq_t<16, ROUND, DROPOUT, ROWTERM>(a, stream);
     case 32: return launch_mma_dq_t<32, ROUND, DROPOUT, ROWTERM>(a, stream);
     case 64: return launch_mma_dq_t<64, ROUND, DROPOUT, ROWTERM>(a, stream);
+    case 128: return launch_mma_dq_t<128, ROUND, DROPOUT, ROWTERM>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -533,6 +534,7 @@ cudaError_t launch_mma_dkv(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
     case 16: return launch_mma_dkv_t<16, ROUND, DROPOUT>(a, stream);
     case 32: return launch_mma_dkv_t<32, ROUND, DROPOUT>(a, stream);
     case 64: return launch_mma_dkv_t<64, ROUND, DROPOUT>(a, stream);
+    case 128: return launch_mma_dkv_t<128, ROUND, DROPOUT>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -550,7 +552,7 @@ cudaError_t launch_mma_bwd(int DH, const MmaBwdArgs& a, cudaStream_t stream) {
 // shared-memory bytes of each kernel at head width DH (any N); which: 0 = dq,
 // 1 = dk/dv
 inline size_t mma_bwd_smem_by_dh(int DH, int which) {
-  if (DH != 16 && DH != 32 && DH != 64) return 0;
+  if (DH != 16 && DH != 32 && DH != 64 && DH != 128) return 0;
   return which == 0 ? mma_dq_smem_bytes(DH) : mma_dkv_smem_bytes(DH);
 }
 

@@ -352,7 +352,7 @@ cudaError_t launch_mma_fwd_t(const MmaFwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Dh in {16, 32, 64} -> one instantiation
+// Dh in {16, 32, 64, 128} -> one instantiation
 template <bool ROUND, bool DROPOUT, bool ONE_SWEEP = false>
 cudaError_t launch_mma_fwd(int DH, const MmaFwdArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0) return cudaErrorInvalidValue;
@@ -360,13 +360,14 @@ cudaError_t launch_mma_fwd(int DH, const MmaFwdArgs& a, cudaStream_t stream) {
     case 16: return launch_mma_fwd_t<16, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
     case 32: return launch_mma_fwd_t<32, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
     case 64: return launch_mma_fwd_t<64, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
+    case 128: return launch_mma_fwd_t<128, ROUND, DROPOUT, ONE_SWEEP>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // shared-memory bytes of the instantiation at head width DH (any N)
 inline size_t mma_fwd_smem_by_dh(int DH) {
-  return DH == 16 || DH == 32 || DH == 64 ? mma_fwd_smem_bytes(DH) : 0;
+  return DH == 16 || DH == 32 || DH == 64 || DH == 128 ? mma_fwd_smem_bytes(DH) : 0;
 }
 
 }  // namespace

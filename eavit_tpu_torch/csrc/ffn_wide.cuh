@@ -1,7 +1,7 @@
 // The fused FFN at the widths its fused kernels do not take: D not a multiple
-// of 32 or above 256, or Hd not a multiple of 32 (the JAX kernel takes any
-// width, eavit_tpu/ops/fused_ffn.py:287-301; no shipped config needs these
-// widths, and D = 1,024 is the widest model the JAX package names).
+// of 32 or above 256, or Hd not a multiple of 32, at any D and Hd, as the JAX
+// kernel takes any width (eavit_tpu/ops/fused_ffn.py:287-301; no shipped
+// config needs these widths).
 //
 // The fused kernels hold a tile of rows at the full width D in shared memory
 // beside a chunk of both weight matrices, also D wide; as hi + lo bf16 planes
@@ -35,6 +35,7 @@ constexpr int kWRows = 64;   // rows of a block of the row kernels
 constexpr int kWT = 128;     // rows and columns of a product's block tile
 constexpr int kWK = 32;      // depth of one stage of it
 constexpr int kWStages = 3;  // stages in flight
+constexpr int kWCols = 256;  // columns of a slice of the LayerNorm kernels' column sums
 constexpr int kWSlab = kWT * (kWK + 8);  // elements of one plane of one operand's stage
 static_assert(kWK * (kWT + 8) <= kWSlab && kWT * kWK / 8 == 2 * kThreads,
               "two 16-byte pieces a thread per plane and operand");
@@ -43,7 +44,11 @@ __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / 
 
 // LayerNorm of rows: u planes [P][R][Dp]; with BWD also dy0 = mask2(dy)
 // planes, mu and rstd (stats [2][R]) and the block's partial db2 (column sums
-// of dy0, at part[tile][Hdp + 2 Dp + c]). Warp w takes rows 8w .. 8w+7.
+// of dy0, at part[tile][Hdp + 2 Dp + c]). Warp w takes rows 8w .. 8w+7: first
+// their statistics over the whole row, then the row in slices of kWCols
+// columns, each slice's column sums reduced over the warps before the next,
+// so shared memory does not grow with D (the sums keep one order: rows, then
+// warps).
 template <typename T, bool BWD>
 __global__ void __launch_bounds__(kThreads)
     wide_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
@@ -53,52 +58,69 @@ __global__ void __launch_bounds__(kThreads)
                      uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
                      int use_dropout) {
   constexpr bool SPLIT = std::is_same_v<T, float>;
-  extern __shared__ float red[];  // BWD: [kWarps][Dp], each warp's column sums of dy0
+  constexpr int RW = kWRows / kWarps;  // rows of a warp
+  __shared__ float red[kWarps][kWCols];  // BWD: each warp's column sums of dy0 in a slice
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = static_cast<size_t>(R) * Dp;
-  if constexpr (BWD)
-    for (int c = lane; c < Dp; c += 32) red[warp * Dp + c] = 0.f;
-  for (int i = 0; i < kWRows / kWarps; ++i) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * kWRows + warp * (kWRows / kWarps) + i;
-    if (r >= R) break;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kWRows + warp * RW;
+  float mu[RW], rstd[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int64_t r = r0 + i;
+    mu[i] = rstd[i] = 0.f;
+    if (r >= R) continue;
     const T* xr = x + r * D;
     float s = 0.f;
     for (int c = lane; c < D; c += 32) s += to_f(xr[c]);
-    const float mu = warp_sum(s) / D;
+    mu[i] = warp_sum(s) / D;
     float ss = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float v = to_f(xr[c]) - mu;
+      const float v = to_f(xr[c]) - mu[i];
       ss += v * v;
     }
-    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-    for (int c = lane; c < Dp; c += 32) {
-      const float u = c < D ? round_to<T>((to_f(xr[c]) - mu) * rstd * ln_w[c] + ln_b[c]) : 0.f;
-      store1<SPLIT>(up + r * Dp + c, plane, u);
-      if constexpr (BWD) {
-        float v = 0.f;
-        if (c < D) {
-          v = to_f(dy[r * D + c]);
-          if (use_dropout)
-            v = mask_word(static_cast<uint64_t>(r) * D + c, 1u, s0, s1) < thresh ? v * inv_keep
-                                                                                 : 0.f;
-          red[warp * Dp + c] += v;
-        }
-        store1<SPLIT>(dp + r * Dp + c, plane, round_to<T>(v));
-      }
-    }
+    rstd[i] = rsqrtf(warp_sum(ss) / D + eps);
     if (BWD && lane == 0) {
-      stats[r] = mu;
-      stats[R + r] = rstd;
+      stats[r] = mu[i];
+      stats[R + r] = rstd[i];
     }
   }
-  if constexpr (BWD) {
-    __syncthreads();
-    float* my = part + static_cast<size_t>(blockIdx.x) * (Hdp + 3 * Dp) + Hdp + 2 * Dp;
-    for (int c = threadIdx.x; c < Dp; c += kThreads) {
-      float t = 0.f;
+  for (int c0 = 0; c0 < Dp; c0 += kWCols) {
+    const int cn = min(kWCols, Dp - c0);
+    if constexpr (BWD)
+      for (int c = lane; c < cn; c += 32) red[warp][c] = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) t += red[w * Dp + c];
-      my[c] = t;
+    for (int i = 0; i < RW; ++i) {
+      const int64_t r = r0 + i;
+      if (r >= R) continue;
+      const T* xr = x + r * D;
+      for (int c = c0 + lane; c < c0 + cn; c += 32) {
+        const float u =
+            c < D ? round_to<T>((to_f(xr[c]) - mu[i]) * rstd[i] * ln_w[c] + ln_b[c]) : 0.f;
+        store1<SPLIT>(up + r * Dp + c, plane, u);
+        if constexpr (BWD) {
+          float v = 0.f;
+          if (c < D) {
+            v = to_f(dy[r * D + c]);
+            if (use_dropout)
+              v = mask_word(static_cast<uint64_t>(r) * D + c, 1u, s0, s1) < thresh
+                      ? v * inv_keep
+                      : 0.f;
+            red[warp][c - c0] += v;
+          }
+          store1<SPLIT>(dp + r * Dp + c, plane, round_to<T>(v));
+        }
+      }
+    }
+    if constexpr (BWD) {
+      __syncthreads();
+      float* my = part + static_cast<size_t>(blockIdx.x) * (Hdp + 3 * Dp) + Hdp + 2 * Dp + c0;
+      for (int c = threadIdx.x; c < cn; c += kThreads) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) t += red[w][c];
+        my[c] = t;
+      }
+      __syncthreads();  // the slice's sums are read before the next slice zeroes them
     }
   }
 }
@@ -284,48 +306,64 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // LayerNorm backward of rows from DU = dh W1 [R][Dp]: dx in T and the block's
-// partial dln_w, dln_b at part[tile][Hdp + c], part[tile][Hdp + Dp + c]
+// partial dln_w, dln_b at part[tile][Hdp + c], part[tile][Hdp + Dp + c]. As
+// wide_rows_kernel: each row's sums over the whole row first, then the row in
+// slices of kWCols columns (dx, and the column sums reduced over the warps).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     wide_ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
                        const float* __restrict__ stats, const float* __restrict__ DU,
                        T* __restrict__ dx, float* __restrict__ part, int64_t R, int D, int Dp,
                        int Hdp) {
-  extern __shared__ float red[];  // [2][kWarps][Dp]: dln_w, dln_b by warp
+  constexpr int RW = kWRows / kWarps;  // rows of a warp
+  __shared__ float red[2][kWarps][kWCols];  // dln_w, dln_b by warp, in a slice
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* gw = red + warp * Dp;
-  float* gb = red + (kWarps + warp) * Dp;
-  for (int c = lane; c < Dp; c += 32) gw[c] = gb[c] = 0.f;
-  for (int i = 0; i < kWRows / kWarps; ++i) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * kWRows + warp * (kWRows / kWarps) + i;
-    if (r >= R) break;
-    const float mu = stats[r], rstd = stats[R + r];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kWRows + warp * RW;
+  float mu[RW], rstd[RW], mt[RW], mtx[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int64_t r = r0 + i;
+    mu[i] = rstd[i] = mt[i] = mtx[i] = 0.f;
+    if (r >= R) continue;
+    mu[i] = stats[r], rstd[i] = stats[R + r];
     float st = 0.f, stx = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float g = DU[r * Dp + c], xh = (to_f(x[r * D + c]) - mu) * rstd;
+      const float g = DU[r * Dp + c], xh = (to_f(x[r * D + c]) - mu[i]) * rstd[i];
       const float t = g * ln_w[c];
       st += t;
       stx = fmaf(t, xh, stx);
-      gw[c] = fmaf(g, xh, gw[c]);
-      gb[c] += g;
     }
-    const float mt = warp_sum(st) / D, mtx = warp_sum(stx) / D;
-    for (int c = lane; c < D; c += 32) {
-      const float xh = (to_f(x[r * D + c]) - mu) * rstd;
-      dx[r * D + c] = from_f<T>((DU[r * Dp + c] * ln_w[c] - mt - xh * mtx) * rstd);
-    }
+    mt[i] = warp_sum(st) / D, mtx[i] = warp_sum(stx) / D;
   }
-  __syncthreads();
   float* my = part + static_cast<size_t>(blockIdx.x) * (Hdp + 3 * Dp) + Hdp;
-  for (int c = threadIdx.x; c < Dp; c += kThreads) {
-    float tw = 0.f, tb = 0.f;
+  for (int c0 = 0; c0 < Dp; c0 += kWCols) {
+    const int cn = min(kWCols, Dp - c0);
+    float* gw = red[0][warp];
+    float* gb = red[1][warp];
+    for (int c = lane; c < cn; c += 32) gw[c] = gb[c] = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      tw += red[w * Dp + c];
-      tb += red[(kWarps + w) * Dp + c];
+    for (int i = 0; i < RW; ++i) {
+      const int64_t r = r0 + i;
+      if (r >= R) continue;
+      for (int c = c0 + lane; c < c0 + cn && c < D; c += 32) {
+        const float g = DU[r * Dp + c], xh = (to_f(x[r * D + c]) - mu[i]) * rstd[i];
+        gw[c - c0] = fmaf(g, xh, gw[c - c0]);
+        gb[c - c0] += g;
+        dx[r * D + c] = from_f<T>((g * ln_w[c] - mt[i] - xh * mtx[i]) * rstd[i]);
+      }
     }
-    my[c] = tw;
-    my[Dp + c] = tb;
+    __syncthreads();
+    for (int c = threadIdx.x; c < cn; c += kThreads) {
+      float tw = 0.f, tb = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        tw += red[0][w][c];
+        tb += red[1][w][c];
+      }
+      my[c0 + c] = tw;
+      my[Dp + c0 + c] = tb;
+    }
+    __syncthreads();  // the slice's sums are read before the next slice zeroes them
   }
 }
 

@@ -12,7 +12,7 @@
 // strides (the merged qkv [B, N, 3*H*Dh], o and dO [B, N, H*Dh]). lse and the
 // row terms are [B, H, N]. The dual-query mask is applied on
 // absolute row and column indices; masked edges contribute exactly 0. Dh is
-// 16, 32 or 64; every operand and sum is float32. N is taken as it is.
+// 16, 32, 64 or 128; every operand and sum is float32. N is taken as it is.
 //
 //   forward, one block per (bh, tile of kRows query rows), K/V tiles streamed:
 //     s = q k^T * scale, running max m, normaliser l and accumulator acc (the
@@ -80,10 +80,14 @@ static_assert(kDims % 4 == 0 && 64 % kDims == 0, "a thread reads its dims as flo
 template <int DH>
 struct Split {
   static constexpr int DPT = DH < kDims ? DH : kDims;  // dims a thread owns
-  static constexpr int TPR = DH / DPT;                 // threads per row: 1, 2 or 4
+  static constexpr int TPR = DH / DPT;                 // threads per row: 1, 2, 4 or 8
   static constexpr int CH = DPT + (TPR > 1 ? 4 : 0);   // floats per part of a row
   static constexpr int RS = TPR * CH;                  // shared-memory row stride
   static constexpr int THREADS = kRows * TPR;
+  // rows of a streamed tile: half at Dh 128, so that two tiles stay within
+  // the 48 KB of static shared memory a block may hold
+  static constexpr int TILE = DH > 64 ? kTile / 2 : kTile;
+  static_assert(TILE % kFwdChunk == 0 && TILE % kKeepRun == 0, "chunks and keep runs split a tile");
 };
 
 struct StreamArgs {
@@ -113,9 +117,9 @@ struct StreamArgs {
 // shared memory of each kernel: two tiles (K and V, or Q and dO), plus the
 // lse and row term of the streamed query rows in dk/dv
 template <int DH>
-constexpr size_t fwd_smem() { return 2 * sizeof(float) * kTile * Split<DH>::RS; }
+constexpr size_t fwd_smem() { return 2 * sizeof(float) * Split<DH>::TILE * Split<DH>::RS; }
 template <int DH>
-constexpr size_t dkv_smem() { return fwd_smem<DH>() + 2 * sizeof(float) * kTile; }
+constexpr size_t dkv_smem() { return fwd_smem<DH>() + 2 * sizeof(float) * Split<DH>::TILE; }
 
 // The keep bits of mask elements e .. e + C - 1 (bit c for e + c), from the
 // Philox groups that hold them
@@ -156,15 +160,15 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Rows [t0, t0 + kTile) of a head (row t at src + t * tok) into a
-// [kTile][RS] f32 tile; rows at or past N are zero, so the products over them
+// Rows [t0, t0 + TILE) of a head (row t at src + t * tok) into a
+// [TILE][RS] f32 tile; rows at or past N are zero, so the products over them
 // stay finite (their weights are 0).
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, size_t tok, int t0,
                                           int N) {
   using S = Split<DH>;
-  const int len = min(kTile, N - t0);
-  for (int idx = threadIdx.x; idx < kTile * DH; idx += blockDim.x) {
+  const int len = min(S::TILE, N - t0);
+  for (int idx = threadIdx.x; idx < S::TILE * DH; idx += blockDim.x) {
     const int r = idx / DH, d = idx % DH;
     dst[r * S::RS + (d / S::DPT) * S::CH + d % S::DPT] =
         r < len ? src[static_cast<size_t>(t0 + r) * tok + d] : 0.f;
@@ -208,8 +212,8 @@ __device__ __forceinline__ Head<DH, MERGED> head_of(const StreamArgs a, size_t b
 template <int DH, bool DROPOUT, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamArgs a) {
   using S = Split<DH>;
-  __shared__ __align__(16) float ks[kTile * S::RS];
-  __shared__ __align__(16) float vs[kTile * S::RS];
+  __shared__ __align__(16) float ks[S::TILE * S::RS];
+  __shared__ __align__(16) float vs[S::TILE * S::RS];
   const int N = a.N, ns = a.num_special;  // read once: no reloads in the loops
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
@@ -228,12 +232,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
   for (int d = 0; d < S::DPT; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  for (int t0 = 0; t0 < N; t0 += kTile) {
+  for (int t0 = 0; t0 < N; t0 += S::TILE) {
     __syncthreads();  // every thread is done with the previous tile
     load_tile<DH>(ks, kh, hd.x_tok, t0, N);
     load_tile<DH>(vs, vh, hd.x_tok, t0, N);
     __syncthreads();
-    const int len = min(kTile, N - t0);
+    const int len = min(S::TILE, N - t0);
     for (int j0 = 0; j0 < len; j0 += kFwdChunk) {
       float s[kFwdChunk];
 #pragma unroll
@@ -309,8 +313,8 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_fwd_kernel(StreamAr
 template <int DH, bool DROPOUT, int ROWTERM, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArgs a) {
   using S = Split<DH>;
-  __shared__ __align__(16) float ks[kTile * S::RS];
-  __shared__ __align__(16) float vs[kTile * S::RS];
+  __shared__ __align__(16) float ks[S::TILE * S::RS];
+  __shared__ __align__(16) float vs[S::TILE * S::RS];
   const int N = a.N, ns = a.num_special;  // read once: no reloads in the loops
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
@@ -342,12 +346,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     delta = row_sum<S::TPR>(part_sum);
   } else {
     // rowsum = sum_j dsigma p, in a first sweep over the keys
-    for (int t0 = 0; t0 < N; t0 += kTile) {
+    for (int t0 = 0; t0 < N; t0 += S::TILE) {
       __syncthreads();
       load_tile<DH>(ks, kh, hd.x_tok, t0, N);
       load_tile<DH>(vs, vh, hd.x_tok, t0, N);
       __syncthreads();
-      const int len = min(kTile, N - t0);
+      const int len = min(S::TILE, N - t0);
       uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
       for (int j0 = 0; j0 < len; ++j0) {
         if constexpr (DROPOUT) {
@@ -382,12 +386,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
     if (live && part == 0) a.rowterm[bh * N + row] = delta;
   }
 
-  for (int t0 = 0; t0 < N; t0 += kTile) {
+  for (int t0 = 0; t0 < N; t0 += S::TILE) {
     __syncthreads();
     load_tile<DH>(ks, kh, hd.x_tok, t0, N);
     load_tile<DH>(vs, vh, hd.x_tok, t0, N);
     __syncthreads();
-    const int len = min(kTile, N - t0);
+    const int len = min(S::TILE, N - t0);
     uint32_t keep = ~0u;  // bit j0 % kKeepRun: key t0 + j0
 #pragma unroll 2
     for (int j0 = 0; j0 < len; j0 += kBwdChunk) {
@@ -450,10 +454,10 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dq_kernel(StreamArg
 template <int DH, bool DROPOUT, bool MERGED>
 __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamArgs a) {
   using S = Split<DH>;
-  __shared__ __align__(16) float qs[kTile * S::RS];
-  __shared__ __align__(16) float gs[kTile * S::RS];  // dO
-  __shared__ float ls[kTile];                        // lse of the tile's rows
-  __shared__ float es[kTile];                        // row term of the tile's rows
+  __shared__ __align__(16) float qs[S::TILE * S::RS];
+  __shared__ __align__(16) float gs[S::TILE * S::RS];  // dO
+  __shared__ float ls[S::TILE];                        // lse of the tile's rows
+  __shared__ float es[S::TILE];                        // row term of the tile's rows
   const int N = a.N, ns = a.num_special;  // read once: no reloads in the loops
   const float scale = a.scale;
   const size_t bh = blockIdx.x;
@@ -471,12 +475,12 @@ __global__ void __launch_bounds__(Split<DH>::THREADS) stream_dkv_kernel(StreamAr
 #pragma unroll
   for (int d = 0; d < S::DPT; ++d) dk[d] = dv[d] = 0.f;
 
-  for (int t0 = 0; t0 < N; t0 += kTile) {
+  for (int t0 = 0; t0 < N; t0 += S::TILE) {
     __syncthreads();
     load_tile<DH>(qs, qh, hd.x_tok, t0, N);
     load_tile<DH>(gs, gh, hd.g_tok, t0, N);
-    const int len = min(kTile, N - t0);
-    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+    const int len = min(S::TILE, N - t0);
+    for (int r = threadIdx.x; r < S::TILE; r += blockDim.x) {
       ls[r] = r < len ? a.lse[bh * N + t0 + r] : 0.f;
       es[r] = r < len ? a.delta[bh * N + t0 + r] : 0.f;
     }
@@ -563,7 +567,7 @@ cudaError_t launch_stream_t(int BH, const StreamArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// one pass of the template, Dh in {16, 32, 64}; BH = B * H. MERGED: K1's
+// one pass of the template, Dh in {16, 32, 64, 128}; BH = B * H. MERGED: K1's
 // merged qkv layout (strides from the arguments), else [B*H, N, Dh]
 template <int W, bool DROPOUT = false, int ROWTERM = kGiven, bool MERGED = false>
 cudaError_t launch_stream(int DH, int BH, const StreamArgs& a, cudaStream_t st) {
@@ -572,6 +576,7 @@ cudaError_t launch_stream(int DH, int BH, const StreamArgs& a, cudaStream_t st) 
     case 16: return launch_stream_t<W, 16, DROPOUT, ROWTERM, MERGED>(BH, a, st);
     case 32: return launch_stream_t<W, 32, DROPOUT, ROWTERM, MERGED>(BH, a, st);
     case 64: return launch_stream_t<W, 64, DROPOUT, ROWTERM, MERGED>(BH, a, st);
+    case 128: return launch_stream_t<W, 128, DROPOUT, ROWTERM, MERGED>(BH, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -592,6 +597,7 @@ inline size_t stream_smem_by_dh(int W, int DH) {
     case 16: return W == kDkv ? dkv_smem<16>() : fwd_smem<16>();
     case 32: return W == kDkv ? dkv_smem<32>() : fwd_smem<32>();
     case 64: return W == kDkv ? dkv_smem<64>() : fwd_smem<64>();
+    case 128: return W == kDkv ? dkv_smem<128>() : fwd_smem<128>();
     default: return 0;
   }
 }

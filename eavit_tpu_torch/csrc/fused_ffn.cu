@@ -476,7 +476,7 @@ int eavit_fused_ffn_fwd(const void* x, const void* ln_w, const void* ln_b, const
   return cudaErrorInvalidValue;
 }
 
-// The split path at any D <= 1024 and any Hd, with Dp = round_up(D, 32), Hdp =
+// The split path at any D and Hd, with Dp = round_up(D, 32), Hdp =
 // round_up(Hd, 32) and scratch from the caller: wplanes bf16 [2][P][Hdp*Dp],
 // up bf16 [P][R][Dp] (u), fbuf float32 [R][max(Hdp, Dp)] (H, then Y) and hp
 // bf16 [P][R][Hdp] (gd).
@@ -485,7 +485,7 @@ int eavit_fused_ffn_fwd_wide(const void* x, const void* ln_w, const void* ln_b, 
                              void* wplanes, void* up, void* fbuf, void* hp, long long R, int D,
                              int Hd, int dtype, float eps, uint32_t thresh, float inv_keep,
                              uint32_t s0, uint32_t s1, int use_dropout, void* stream) {
-  if (D < 1 || D > 1024 || Hd < 1 || R < 1) return cudaErrorInvalidValue;
+  if (D < 1 || Hd < 1 || R < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* wp = static_cast<bf16*>(wplanes);
   bf16* u = static_cast<bf16*>(up);

@@ -603,9 +603,7 @@ cudaError_t launch_bwd_wide(const void* x, const void* ln_w, const void* ln_b, c
   if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, Dp, Hdp, stream)) !=
       cudaSuccess)
     return err;
-  size_t smem = sizeof(float) * kWarps * Dp;
-  if ((err = allow_smem(wide_rows_kernel<T, true>, smem)) != cudaSuccess) return err;
-  wide_rows_kernel<T, true><<<row_tiles(R), kThreads, smem, stream>>>(
+  wide_rows_kernel<T, true><<<row_tiles(R), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), static_cast<const T*>(dy), rowp, rowp + P * rdp, stats,
       part_dx, R, D, Dp, Hdp, eps, thresh, inv_keep, s0, s1, use_dropout);
@@ -625,9 +623,7 @@ cudaError_t launch_bwd_wide(const void* x, const void* ln_w, const void* ln_b, c
   if ((err = wide_gemm<true, SPLIT>(hp, Hdp, rhp, w1p, Dp, wsz, H, R, Dp, Hdp, stream)) !=
       cudaSuccess)
     return err;
-  smem = sizeof(float) * 2 * kWarps * Dp;
-  if ((err = allow_smem(wide_ln_bwd_kernel<T>, smem)) != cudaSuccess) return err;
-  wide_ln_bwd_kernel<T><<<row_tiles(R), kThreads, smem, stream>>>(
+  wide_ln_bwd_kernel<T><<<row_tiles(R), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_w), stats, H, static_cast<T*>(dx),
       part_dx, R, D, Dp, Hdp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -673,7 +669,7 @@ int eavit_fused_ffn_bwd(const void* x, const void* ln_w, const void* ln_b,
   return cudaErrorInvalidValue;
 }
 
-// The split path at any D <= 1024 and any Hd (ffn_wide.cuh), with Dp =
+// The split path at any D and Hd (ffn_wide.cuh), with Dp =
 // round_up(D, 32) and Hdp = round_up(Hd, 32): part_dx float32 [ceil(R / 64)]
 // [Hdp + 3*Dp], part_dw float32 [slices][2*Hdp*Dp], wplanes [2][P][Hdp*Dp],
 // rowp [2][P][R][Dp], hplanes [2][P][R][Hdp], fbuf float32 [2][R][max(Hdp,
@@ -686,8 +682,7 @@ int eavit_fused_ffn_bwd_wide(const void* x, const void* ln_w, const void* ln_b,
                              long long R, int D, int Hd, int slices, int dtype, float eps,
                              uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
                              int use_dropout, void* stream) {
-  if (D < 1 || D > 1024 || Hd < 1 || slices < 1 || slices > 65535 || R < 1)
-    return cudaErrorInvalidValue;
+  if (D < 1 || Hd < 1 || slices < 1 || slices > 65535 || R < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(grads);
   float* pdx = static_cast<float*>(part_dx);

@@ -50,8 +50,11 @@ HEAD_MAX_N = 256
 # (:func:`kernel_dim_head`, :func:`pad_last`, :func:`pad_heads`): zero
 # columns add nothing to q k^T and give zero output columns, the scale stays
 # the caller's, and the dropout mask is indexed over N x N, so the sliced
-# result is the unpadded function's.
-DIM_HEADS = (16, 32, 64)
+# result is the unpadded function's. Every streaming kernel takes each of
+# them; the whole-head bf16 kernels (attn_fwd_head.cuh, attn_bwd_head.cuh)
+# are instantiated up to HEAD_MAX_DIM_HEAD, so a wider head always streams.
+DIM_HEADS = (16, 32, 64, 128)
+HEAD_MAX_DIM_HEAD = 64
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -167,12 +170,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def kernel_dim_head(what: str, dim_head: int) -> int:
     """The width of the instantiated kernel that a head of ``dim_head`` runs
     at: the smallest of :data:`DIM_HEADS` that holds it. Raises past the
-    widest (ROADMAP.md Queue 3, fault 6)."""
+    widest."""
     for width in DIM_HEADS:
         if 1 <= dim_head <= width:
             return width
     raise ValueError(f"{what}: dim_head {dim_head} is not in 1..{DIM_HEADS[-1]}: no kernel "
-                     f"takes it yet (ROADMAP.md Queue 3, fault 6)")
+                     f"takes it")
 
 
 def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:

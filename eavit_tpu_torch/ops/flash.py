@@ -28,10 +28,10 @@ Two versions of each function:
 
 :func:`flash_fwd` and :func:`flash_bwd` take the plain version for a tensor
 on the CPU and launch the kernel for a CUDA tensor; a CUDA tensor the
-kernel does not take (another dtype or layout, ``Dh`` above 64, bf16 not on
+kernel does not take (another dtype or layout, ``Dh`` above 128, bf16 not on
 a 16-byte boundary) raises before any launch. The kernels are instantiated
-at ``Dh`` 16, 32 and 64; a head of another width up to 64 runs at the next
-of them, zero-padded, and the outputs are sliced back
+at ``Dh`` 16, 32, 64 and 128 (the whole-head K4b up to 64); a head of another
+width up to 128 runs at the next of them, zero-padded, and the outputs are sliced back
 (``_build.kernel_dim_head``), which is exact.
 :func:`flash_attention` is differentiable through one
 ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as
@@ -166,7 +166,7 @@ def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
     """Whether the whole-head bf16 K4b holds a head of ``n`` tokens in one
     block's shared memory."""
     width = _build.kernel_dim_head("head_fits", dim_head)
-    return (dtype == torch.bfloat16 and
+    return (dtype == torch.bfloat16 and width <= _build.HEAD_MAX_DIM_HEAD and
             _lib().eavit_flash_bwd_head_smem(n, width) <= _build.SMEM_LIMIT)
 
 

@@ -36,9 +36,10 @@ N, where ``supports()`` (line 94) sends long sequences to the XLA path of
 the same function; :func:`fwd_smem` and :func:`bwd_smem` report the
 bytes, which depend on ``Dh`` and the dtype only. The wrappers take the
 plain version for a CPU tensor and the kernel for a CUDA tensor; a CUDA
-tensor the kernel does not take (another dtype or layout, ``Dh`` above 64,
+tensor the kernel does not take (another dtype or layout, ``Dh`` above 128,
 bf16 not on a 16-byte boundary) raises before any launch; a head width
-between the instantiated 16 / 32 / 64 runs zero-padded to the next of them
+between the instantiated 16 / 32 / 64 / 128 (the whole-head K3b up to 64)
+runs zero-padded to the next of them
 (``_build.kernel_dim_head``), which is exact.
 K3b has two bf16 kernels: where a head fits in one block's shared memory
 and N <= 256 (``_build.HEAD_MAX_N``) the wrapper runs the whole-head form
@@ -115,7 +116,7 @@ def head_fits(n: int, dim_head: int, dtype: torch.dtype) -> bool:
     """Whether the whole-head bf16 K3b holds a head of ``n`` tokens in one
     block's shared memory."""
     width = _build.kernel_dim_head("head_fits", dim_head)
-    return (dtype == torch.bfloat16 and
+    return (dtype == torch.bfloat16 and width <= _build.HEAD_MAX_DIM_HEAD and
             _lib().eavit_flash_dropout_bwd_head_smem(n, width) <= _build.SMEM_LIMIT)
 
 

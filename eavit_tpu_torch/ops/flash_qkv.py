@@ -39,9 +39,10 @@ Two versions of each function:
 :func:`flash_qkv_fwd`, :func:`flash_qkv_bwd` and :func:`flash_qkv_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
 tensor; a CUDA tensor the kernel does not take (another dtype or layout,
-``Dh`` above 64, bf16 not on a 16-byte boundary) raises before any launch.
-The kernels are instantiated at ``Dh`` 16, 32 and 64; a head of another
-width up to 64 runs at the next of them: the merged layout is viewed as
+``Dh`` above 128, bf16 not on a 16-byte boundary) raises before any launch.
+The kernels are instantiated at ``Dh`` 16, 32, 64 and 128 (the whole-head
+ones up to 64); a head of another width up to 128 runs at the next of them:
+the merged layout is viewed as
 ``[B, N, 3, H, Dh]``, each head zero-padded and merged back, and the
 outputs sliced the same way (``_build.pad_heads``), which is exact. :func:`flash_mha_qkv` is differentiable through one
 ``torch.autograd.Function`` whose backward is :func:`flash_qkv_bwd`.
@@ -137,11 +138,12 @@ def bwd_smem(dim_head: int, dtype: torch.dtype) -> Tuple[int, int]:
 def head_fits(which: str, n: int, dim_head: int, dtype: torch.dtype) -> bool:
     """Whether the whole-head bf16 kernel of K1f (``"fwd"``) or K1b
     (``"bwd"``) holds a head of ``n`` tokens in one block's shared memory."""
-    if dtype != torch.bfloat16:
+    width = _build.kernel_dim_head("head_fits", dim_head)
+    if dtype != torch.bfloat16 or width > _build.HEAD_MAX_DIM_HEAD:
         return False
     smem = (_lib().eavit_flash_qkv_fwd_head_smem if which == "fwd"
             else _bwd_lib().eavit_flash_qkv_bwd_head_smem)
-    return smem(n, _build.kernel_dim_head("head_fits", dim_head)) <= _build.SMEM_LIMIT
+    return smem(n, width) <= _build.SMEM_LIMIT
 
 
 def fwd_kernel(n: int, dim_head: int, dtype: torch.dtype) -> str:

@@ -34,9 +34,9 @@ Two versions of each function:
 
 The wrappers take the plain version for a tensor on the CPU and launch the
 kernel for a CUDA tensor; a CUDA tensor the kernel does not take (another
-dtype or layout, ``Dh`` above 64, a bf16 operand not on a 16-byte
+dtype or layout, ``Dh`` above 128, a bf16 operand not on a 16-byte
 boundary) raises before any launch; a head width between the instantiated
-16 / 32 / 64 runs zero-padded to the next of them
+16 / 32 / 64 / 128 runs zero-padded to the next of them
 (``_build.kernel_dim_head``), which is exact.
 :func:`flash_attention_stream` is differentiable through one
 ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` as

@@ -30,8 +30,8 @@ Two versions of each function:
   replaces ``_bwd_kernel`` at line 180 launched at line 321). Both run their
   products on the tensor cores, a float32 operand as hi + lo bf16 planes.
 
-K2f and K2b take every ``dim <= 1024`` and every ``hidden``, as the JAX
-kernel takes any width (fused_ffn.py:287-301). Where :func:`fused_widths`
+K2f and K2b take every ``dim`` and every ``hidden``, as the JAX kernel takes
+any width (fused_ffn.py:287-301). Where :func:`fused_widths`
 says so (K2f at ``dim == 256``, K2b at ``dim % 32 == 0`` up to 256, both at
 ``hidden % 32 == 0``; every shipped config) they run their fused kernels,
 which keep the hidden activations out of device memory; every other width
@@ -43,7 +43,7 @@ same function with the same masks.
 :func:`fused_ffn_fwd`, :func:`fused_ffn_bwd` and :func:`fused_ffn_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
 tensor; a CUDA tensor the kernel does not take (another dtype, not
-contiguous, ``dim > 1024``) raises. :func:`fused_ffn` is differentiable
+contiguous) raises. :func:`fused_ffn` is differentiable
 through one ``torch.autograd.Function`` whose backward is
 :func:`fused_ffn_bwd`. ``launches`` counts wrapper calls that launched a
 kernel (one per call; each C entry makes its several launches itself).
@@ -69,7 +69,6 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 # the 132 SMs of an H100 (tune_fused_ffn_bwd.py)
 _BWD_SLICES = 33
 _ROW_TILE = 64  # rows per block of K2b's dx kernel and of the split path's row kernels
-MAX_DIM = 1024  # the widest dim the kernels take: the JAX package's widest model
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -164,8 +163,8 @@ def fused_ffn_fwd_plain(
 def fused_widths(dim: int, hidden: int, forward: bool) -> bool:
     """Whether the fused kernel of K2f (``forward``) or of K2b takes these
     widths: K2f's is compiled for the dim of every shipped config, 256, K2b's
-    takes any multiple of 32 up to 256. Every other width up to ``MAX_DIM``
-    runs the split path (``csrc/ffn_wide.cuh``)."""
+    takes any multiple of 32 up to 256. Every other width runs the split
+    path (``csrc/ffn_wide.cuh``)."""
     return hidden % 32 == 0 and (dim == 256 if forward else dim % 32 == 0 and dim <= 256)
 
 
@@ -186,9 +185,6 @@ def _check_kernel_args(what: str, x2, params) -> None:
     w1 = params[2]
     rows, dim = x2.shape
     hidden = w1.shape[0]
-    if dim > MAX_DIM:
-        raise ValueError(f"{what}: dim {dim} > {MAX_DIM}, the widest model the JAX "
-                         f"package names (ROADMAP.md Queue 3, fault 6)")
     if rows < 1 or dim < 1 or hidden < 1:
         raise ValueError(f"{what}: empty input {tuple(x2.shape)}, hidden {hidden}")
     # the backward passes no b2: it enters no gradient

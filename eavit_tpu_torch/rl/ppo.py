@@ -32,9 +32,15 @@ def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
 
 def sample_categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """Sample one action per row from softmax(logits) with an explicit
-    generator on the logits' device; [B, A] -> [B] int64."""
+    generator on the logits' device; [B, A] -> [B] int64.
+
+    Gumbel-max in its exponential form, ``argmax(p / q)`` with ``q ~
+    Exp(1)``, as ``jax.random.categorical`` samples: the same draws and the
+    same result as ``torch.multinomial(p, 1)``, whose check of the
+    distribution reads a device value back and so waits for the card."""
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    return torch.argmax(probs / q, dim=-1)
 
 
 class PPOLossOut(NamedTuple):

@@ -1,5 +1,6 @@
-"""Training entry point (counterpart of ``eavit_tpu/train.py``, host-env path,
-lines 313-464; reference train.py:21-878).
+"""Training entry point (counterpart of ``eavit_tpu/train.py``: the host-env
+path, lines 313-464, and the device-env path, lines 177-310; reference
+train.py:21-878).
 
 Phases, in reference order: logger; env fleet; agent; checkpoint resume;
 obs-norm warm-up (skipped on resume, reference train.py:503); then the
@@ -9,9 +10,13 @@ and a profile-N-updates-then-exit mode. The loop runs forever unless
 
 Single device: the agent runs on CUDA unless ``device="cpu"`` (CLI
 ``--device cpu``) is given, and raises when there is no GPU and no device was
-named. ``EnvType = synthetic_device``, the SSL methods, ``Render = True``
-and ``DataAxisSize > 1`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items. ``SSL_pretraining =
+named. ``EnvType = synthetic_device`` runs the zero-host path: the env of
+``envs/device_env.py`` and ``rl/scan_rollout.py``'s collector keep the frames,
+the env state and the rollout on the agent's device, the obs-norm warm-up
+runs policy rollouts through that collector, and a checkpoint carries the
+env's episode bookkeeping. The SSL methods, ``Render = True`` and
+``DataAxisSize > 1`` are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP items. ``SSL_pretraining =
 True`` with no representation method trains without SSL, as the reference
 pretrains only when both are set (``eavit_tpu/train.py:258``, ``:392``).
 """
@@ -20,6 +25,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
+import torch
+
 from eavit_tpu_torch.config import (
     Config,
     EnvType,
@@ -27,9 +35,11 @@ from eavit_tpu_torch.config import (
     config_from_args,
 )
 from eavit_tpu_torch.envs.builders import make_vector_env
+from eavit_tpu_torch.envs.device_env import DeviceEnvState, make_device_env
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import RNDAgent
 from eavit_tpu_torch.rl.rollout import RolloutCollector
+from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
 from eavit_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from eavit_tpu_torch.utils.logger import Logger
 from eavit_tpu_torch.utils.seed import set_seed
@@ -37,10 +47,6 @@ from eavit_tpu_torch.utils.seed import set_seed
 
 def check_ported(cfg: Config) -> None:
     """Raise for what the torch package cannot train yet."""
-    if cfg.env_type == EnvType.SYNTHETIC_DEVICE:
-        raise NotImplementedError(
-            "EnvType = synthetic_device is not ported to the torch package yet "
-            "(ROADMAP.md Queue 1, item 6)")
     if cfg.representation_lr_method != RepresentationMethod.NONE:
         raise NotImplementedError(
             "SSL pretraining and BYOL / Barlow-Twins are not ported to the torch "
@@ -55,6 +61,136 @@ def check_ported(cfg: Config) -> None:
             "yet (ROADMAP.md Queue 1, item 9)")
 
 
+def _device_env_stats_meta(env_state: DeviceEnvState) -> Dict[str, Any]:
+    """The device env's episode bookkeeping as a JSON-able dict, in
+    ``eavit_tpu``'s sidecar format (``eavit_tpu/train.py:177-188``: the
+    cumulative ever-visited bits packed and hex-encoded)."""
+    ev = env_state.ever_visited.cpu().numpy().astype(bool)
+    return {
+        "finished_episodes": env_state.finished_episodes.cpu().tolist(),
+        "last_episode_return": env_state.last_episode_return.cpu().tolist(),
+        "last_episode_rooms": env_state.last_episode_rooms.cpu().tolist(),
+        "ever_visited_hex": np.packbits(ev, axis=None).tobytes().hex(),
+        "ever_visited_shape": list(ev.shape),
+    }
+
+
+def _restore_device_env_stats(env_state: DeviceEnvState,
+                              metadata: Dict[str, Any]) -> DeviceEnvState:
+    """Resume the ever-visited frontier and the last-episode aggregates from
+    a checkpoint sidecar (``eavit_tpu/train.py:191-210``); positions and
+    stacks start fresh, like the reference's env workers on resume."""
+    d = metadata.get("device_env_stats")
+    if not d:
+        return env_state
+    dev = env_state.stack.device
+    shape = tuple(d["ever_visited_shape"])
+    bits = np.unpackbits(np.frombuffer(bytes.fromhex(d["ever_visited_hex"]), np.uint8))
+    bits = bits[:int(np.prod(shape))].reshape(shape).astype(bool)
+    return env_state._replace(
+        finished_episodes=torch.tensor(d["finished_episodes"], dtype=torch.int32, device=dev),
+        last_episode_return=torch.tensor(d["last_episode_return"], dtype=torch.float32,
+                                         device=dev),
+        last_episode_rooms=torch.tensor(d["last_episode_rooms"], dtype=torch.int32,
+                                        device=dev),
+        ever_visited=torch.from_numpy(bits).to(dev),
+    )
+
+
+def _log_histograms(cfg: Config, logger: Logger, agent: RNDAgent, grads) -> None:
+    """Parameter and gradient histograms (reference utils.py:345-419)."""
+    if not cfg.verbose_logging:
+        return
+    logger.log_params_histograms(dict(agent.network.named_parameters()), "PPO")
+    if agent.use_rnd:
+        logger.log_params_histograms(dict(agent.rnd_pred.named_parameters()), "RND")
+    if grads is not None:
+        logger.log_params_histograms(grads["policy"], "PPO_grads")
+        if agent.use_rnd:
+            logger.log_params_histograms(grads["rnd_pred"], "RND_grads")
+
+
+def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates: int,
+                      log_dir: str, device) -> Dict[str, Any]:
+    """The zero-host training loop over the device env
+    (``eavit_tpu/train.py:212-310``): rollouts from ``ScanRolloutCollector``
+    on the agent's device, then ``RNDAgent.update`` as on the host path."""
+    agent = RNDAgent(cfg, 5, device=device)  # the device env's action set is 5
+    logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
+                    verbose=cfg.verbose_logging)
+    logger.log(f"device: {agent.device}")
+    logger.log(f"config: {cfg}")
+    env_params, env_state = make_device_env(
+        cfg.num_env_per_process,
+        seed=cfg.seed,
+        grid=cfg.synthetic_grid,
+        stack=cfg.state_stack_size,
+        height=cfg.pre_proc_height,
+        width=cfg.pre_proc_width,
+        max_episode_steps=cfg.max_step_per_episode,
+        maze=cfg.synthetic_maze,
+        texture=cfg.synthetic_texture,
+        shared_world=cfg.synthetic_shared_world,
+        variants=cfg.synthetic_variants,
+        sparse_goal=cfg.synthetic_sparse_goal,
+        goal_depth=cfg.synthetic_goal_depth,
+        device=agent.device,
+    )
+    state = agent.init_state(cfg.seed)
+    rng = Rng(cfg.seed + 1, agent.device)
+    collector = ScanRolloutCollector(cfg, agent, env_params)
+    ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every)
+
+    update = 0
+    if cfg.load_model and cfg.load_model_path:
+        state, meta = load_checkpoint(cfg.load_model_path, agent)
+        update = int(meta.get("global_update", state.global_update))
+        ckpt.restore_best(meta)
+        env_state = _restore_device_env_stats(env_state, meta)
+        logger.log(f"resumed from {cfg.load_model_path} @ update {update}")
+
+    # warm-up: policy rollouts feed obs_rms (eavit_tpu/train.py:269-275)
+    if agent.use_rnd and not cfg.load_model:
+        logger.log("obs-norm warm-up...")
+        for _ in range(max(1, cfg.obs_norm_step)):
+            ro, env_state, _ = collector.collect(env_state, rng)
+            state = agent.update_obs_rms(
+                state, ro.next_obs.reshape((-1,) + tuple(ro.next_obs.shape[2:])))
+
+    if profile_updates:
+        logger.start_profiling(profile_updates)
+    logger.log("entering training loop")
+    last_metrics: Dict[str, Any] = {}
+    while total_updates is None or total_updates < 0 or update < total_updates:
+        rollout, env_state, env_metrics = collector.collect(env_state, rng)
+        state, metrics = agent.update(state, rollout, rng)
+        update += 1
+        grads = metrics.pop("_grads", None)
+        metrics = {k: float(v) for k, v in {**metrics, **env_metrics}.items()}
+        logger.log_scalars(metrics, step=update)
+        _log_histograms(cfg, logger, agent, grads)
+        last_metrics = metrics
+        logger.log(
+            f"update {update} | global_step {state.global_step} | "
+            f"loss {metrics['train/loss']:.4f} | "
+            f"return {metrics['data/mean_undiscounted_episode_return']:.2f} | "
+            f"rooms {metrics['data/total_rooms_discovered']:.0f}"
+        )
+        ckpt.maybe_save(
+            agent, state, update,
+            # a callable: the env bookkeeping is read back only when a
+            # checkpoint is written
+            lambda u=update, st=state, es=env_state: {
+                "global_update": u, "global_step": st.global_step,
+                "device_env_stats": _device_env_stats_meta(es), "config": cfg},
+            mean_episode_return=metrics["data/mean_undiscounted_episode_return"],
+        )
+        if logger.step_profiler():
+            break
+    logger.close()
+    return last_metrics
+
+
 def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int = 0,
           log_dir: str = "logs", device=None) -> Dict[str, Any]:
     """Run the training loop; returns the last update's metrics as floats."""
@@ -64,6 +200,8 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
     check_ported(cfg)
 
     set_seed(cfg.seed)
+    if cfg.env_type == EnvType.SYNTHETIC_DEVICE:
+        return _train_device_env(cfg, total_updates, profile_updates, log_dir, device)
     env = make_vector_env(cfg, rank=0, render=cfg.render)
     agent = RNDAgent(cfg, env.action_space_n, device=device)  # raises without CUDA
     logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
@@ -106,16 +244,7 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics.update(collector.stats.summary())
         logger.log_scalars(metrics, step=update)
-        if cfg.verbose_logging:
-            # parameter and gradient histograms (reference utils.py:345-419)
-            logger.log_params_histograms(dict(agent.network.named_parameters()), "PPO")
-            if agent.use_rnd:
-                logger.log_params_histograms(
-                    dict(agent.rnd_pred.named_parameters()), "RND")
-            if grads is not None:
-                logger.log_params_histograms(grads["policy"], "PPO_grads")
-                if agent.use_rnd:
-                    logger.log_params_histograms(grads["rnd_pred"], "RND_grads")
+        _log_histograms(cfg, logger, agent, grads)
         last_metrics = metrics
         ret = metrics.get("data/mean_undiscounted_episode_return")
         logger.log(

@@ -64,14 +64,16 @@ N = 37, 198, 443, 786 and 1,766 with one launch per call under the launch
 key of the kernel that ran and equal bits twice, and runs at N = 3,137; the
 ragged-N, cancellation and tensor-core tests run both kernels; a dtype or
 Dh the kernels refuse raises at any N. Every attention function also runs
-at head widths between the instantiated 16 / 32 / 64 (8, 24, 40, 48, 60),
-zero-padded to the next of them, held to its plain version at the true
-width; only Dh above 64 raises (ROADMAP.md Queue 3, fault 6). K2f and K2b run
-at every dim up to 1,024 and every hidden width: the fused kernels where dim
-% 32 == 0, dim <= 256 and hidden % 32 == 0, the split path (ffn_wide.cuh)
-elsewhere, held to their plain versions at (40, 100), (384, 1,536), (768,
-3,072) and (1,024, 4,096) too, K2f with equal bits twice and zeros exactly
-where K2r's mask2 drops; dim above 1,024 raises.
+at head widths between the instantiated 16 / 32 / 64 / 128 (8, 24, 40, 48,
+60, 96), zero-padded to the next of them, and at 128 on the streaming
+kernels (N 198 and 443, both dtypes and rates), held to its plain version at
+the true width; only Dh above 128 raises. K2f and K2b run at every dim and
+hidden width: the fused kernels where dim % 32 == 0, dim <= 256 and hidden
+% 32 == 0, the split path (ffn_wide.cuh) elsewhere, held to their plain
+versions at (40, 100), (384, 1,536), (768, 3,072), (1,024, 4,096), (1,280,
+5,120) and (1,031, 100) too, with equal bits twice, K2f with zeros exactly
+where K2r's mask2 drops. The network's loss and backward, run twice on the
+same inputs, gives every kernel output the same bits.
 """
 
 import math
@@ -139,11 +141,11 @@ def test_flash_qkv_kernel_matches_plain(cuda, b, n, num_special, dim_head, dtype
 
 
 def test_flash_qkv_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(2, 5, 3 * 2 * 80, device=cuda)
-    with pytest.raises(ValueError, match="fault 6"):
-        fq.flash_qkv_fwd(x, 2, 80, 0.2)  # no kernel takes dim_head > 64 yet
+    x = torch.zeros(2, 5, 3 * 2 * 136, device=cuda)
+    with pytest.raises(ValueError, match="dim_head 136"):
+        fq.flash_qkv_fwd(x, 2, 136, 0.2)  # no kernel takes dim_head > 128
     with pytest.raises(TypeError):
-        fq.flash_qkv_fwd(x.half(), 2, 80, 0.2)
+        fq.flash_qkv_fwd(x.half(), 2, 136, 0.2)
     # the backward refuses the same, and operands that do not match qkv
     ok = torch.zeros(2, 5, 3 * 2 * 32, device=cuda)
     lse, do = torch.zeros(2, 2, 5, device=cuda), torch.zeros(2, 5, 2 * 32, device=cuda)
@@ -176,6 +178,8 @@ def _ffn_inputs(rows, dim, hidden, device, dtype):
     (1000, 384, 1536),
     (512, 768, 3072),
     (256, 1024, 4096),       # the HF flavour's width
+    (256, 1280, 5120),       # wider than any model the JAX package names
+    (37, 1031, 100),         # an odd dim past 1,024
 ])
 def test_fused_ffn_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     """K2f on the tensor cores (the fused kernel at dim 256, the split path
@@ -211,9 +215,6 @@ def test_fused_ffn_kernel_rejects_what_it_does_not_take(cuda):
         ff.fused_ffn(x.t(), *params)  # not contiguous
     with pytest.raises(TypeError):
         ff.fused_ffn(x.half(), *params)  # another dtype
-    wide, wide_params = _ffn_inputs(8, 1056, 96, cuda, torch.float32)
-    with pytest.raises(ValueError, match="fault 6"):
-        ff.fused_ffn(wide.requires_grad_(), *wide_params)  # dim > 1024
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +272,8 @@ K2B_NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
     (1000, 384, 1536),
     (512, 768, 3072),
     (256, 1024, 4096),
+    (256, 1280, 5120),
+    (37, 1031, 100),
 ])
 def test_fused_ffn_bwd_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
@@ -450,9 +453,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         fl.flash_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
     with pytest.raises(ValueError):
         fd.flash_dropout_fwd(q.transpose(1, 2), k, v, (1, 2), 0.1, 0.2)  # not contiguous
-    wide = torch.zeros(2, 2, 9, 80, device=cuda)
-    with pytest.raises(ValueError, match="fault 6"):
-        fl.flash_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 64 yet
+    wide = torch.zeros(2, 2, 9, 136, device=cuda)
+    with pytest.raises(ValueError, match="dim_head 136"):
+        fl.flash_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 128
     o, lse = fl.flash_fwd(q, k, v, 0.2)
     with pytest.raises(ValueError):
         fl.flash_bwd(q, k, v, o, lse[:, :1].contiguous(), do, 0.2)  # lse of another shape
@@ -536,9 +539,9 @@ def test_flash_stream_kernels_reject_what_they_do_not_take(cuda):
         fs.flash_stream_fwd(q, k.bfloat16(), v, 0.2)  # mixed dtypes
     with pytest.raises(ValueError):
         fs.flash_stream_fwd(q.transpose(1, 2), k, v, 0.2)  # not contiguous
-    wide = torch.zeros(2, 2, 9, 80, device=cuda)
-    with pytest.raises(ValueError, match="fault 6"):
-        fs.flash_stream_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 64 yet
+    wide = torch.zeros(2, 2, 9, 136, device=cuda)
+    with pytest.raises(ValueError, match="dim_head 136"):
+        fs.flash_stream_fwd(wide, wide, wide, 0.2)  # no kernel takes dim_head > 128
     o, lse = fs.flash_stream_fwd(q, k, v, 0.2)
     delta = fs.stream_delta(o, do)
     with pytest.raises(ValueError):
@@ -556,7 +559,7 @@ def test_flash_stream_shared_memory_does_not_grow_with_n(cuda):
     alone, within one block's limit (the bf16 K5q and K5kv pass 48 KB at Dh
     64 and opt in); the kernels launch at N = 3,137."""
     for dtype in (torch.bfloat16, torch.float32):
-        for dh in (16, 32, 64):
+        for dh in (16, 32, 64, 128):
             sizes = {name: fs.smem_bytes(name, dh, dtype) for name in ("fwd", "dq", "dkv")}
             assert all(0 < b <= _build.SMEM_LIMIT for b in sizes.values()), (dtype, sizes)
     q, k, v, do = _heads(1, 2, 3137, 64, cuda, torch.bfloat16, seed=5)
@@ -809,11 +812,12 @@ def test_bf16_flash_backward_kernel_matches_plain(cuda, n, num_special, dim_head
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # deterministic
 
 
-def _calls(kernel, n, dh, h, dtype, device, ns=2, choice=None):
+def _calls(kernel, n, dh, h, dtype, device, ns=2, choice=None, rate=0.1):
     """``(kernel call, plain call)`` of one wrapper at ``[1, h, n, dh]``, each
     returning a tuple of outputs (lse last for a forward); ``choice`` goes to
-    the ``kernel`` argument of the wrappers that have one."""
-    seeds, rate = (3, 5), 0.1
+    the ``kernel`` argument of the wrappers that have one, ``rate`` to K1's
+    and K3's."""
+    seeds = (3, 5)
     scale = dh ** -0.5
     q, k, v, do = _heads(1, h, n, dh, device, dtype, seed=4)
     if kernel.startswith("flash_qkv"):
@@ -903,7 +907,7 @@ def test_attention_shared_memory_does_not_grow_with_n(cuda):
     """Each kernel's shared memory is a function of Dh and the dtype alone,
     within one block's limit; every kernel launches at N = 3,137."""
     for dtype in (torch.bfloat16, torch.float32):
-        for dh in (16, 32, 64):
+        for dh in (16, 32, 64, 128):
             sizes = [fq.fwd_smem(dh, dtype), *fq.bwd_smem(dh, dtype), fl.fwd_smem(dh, dtype),
                      *fl.bwd_smem(dh, dtype), fd.fwd_smem(dh, dtype), *fd.bwd_smem(dh, dtype)]
             assert all(0 < b <= _build.SMEM_LIMIT for b in sizes), (dtype, dh, sizes)
@@ -988,7 +992,7 @@ def _stream_calls(kernel, n, dh, dtype, device, ns=2):
 
 
 @pytest.mark.parametrize("n", [37, 198])
-@pytest.mark.parametrize("dim_head", [8, 24, 40, 48, 60])
+@pytest.mark.parametrize("dim_head", [8, 24, 40, 48, 60, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel", ATTENTION_KERNELS + STREAM_KERNELS)
 def test_attention_kernels_take_every_head_width(cuda, kernel, dtype, dim_head, n):
@@ -1017,6 +1021,65 @@ def test_attention_kernels_take_every_head_width(cuda, kernel, dtype, dim_head, 
     assert all(torch.equal(a, b) for a, b in zip(got, call()))  # deterministic
 
 
+# (kernel, rate): K1 at both rates, K3 at 0.1 (at rate 0 it is K4), K4 and K5 at 0
+WIDE_HEAD_CASES = [(k, r) for k in ATTENTION_KERNELS + STREAM_KERNELS
+                   for r in ((0.0, 0.1) if k.startswith("flash_qkv") else
+                             (0.1,) if k.startswith("flash_dropout") else (0.0,))]
+
+
+@pytest.mark.parametrize("n", [198, 443])
+@pytest.mark.parametrize("dim_head", [96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel,rate", WIDE_HEAD_CASES)
+def test_attention_kernels_take_head_widths_to_128(cuda, kernel, rate, dtype, dim_head, n):
+    """Every attention function at Dh 96 (zero-padded) and 128, on the
+    streaming kernels whatever N is (the whole-head ones stop at 64), K1 at
+    rates 0 and 0.1: one launch under the streaming key, within one
+    bf16 rounding (bf16) or 1e-4 of scale (float32) of the plain version, lse
+    within 1e-4, equal bits twice."""
+    if kernel in STREAM_KERNELS:
+        mod, key = fs, kernel
+        call, plain = _stream_calls(kernel, n, dim_head, dtype, cuda)
+    else:
+        mod, key = _module(kernel), _key(kernel, n, dim_head, dtype, None)
+        assert key == kernel or key.endswith("_stream")
+        call, plain = _calls(kernel, n, dim_head, 2, dtype, cuda, rate=rate)
+    before = mod.launches[key]
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    assert mod.launches[key] == before + 1
+    fwd = kernel.endswith("fwd")
+    for a, p in zip(got[:-1] if fwd else got, want[:-1] if fwd else want):
+        assert a.dtype == dtype and a.shape == p.shape
+        assert _max_err(a, p) <= _tol(p, dtype)
+    if fwd:
+        assert _max_err(got[-1], want[-1]) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, call()))  # deterministic
+
+
+@pytest.mark.parametrize("attention", ["pallas_qkv", "pallas", "pallas_stream"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_network_backward_gives_every_kernel_equal_bits_twice(cuda, attention, compute_dtype):
+    """The flagship network's loss and backward on 8 frames (chip_smoke's
+    gradient check), twice on the same inputs with the allocator's free memory
+    filled with NaN bytes before the first run and random bytes before the
+    second: every kernel output the network's wrappers return has the same
+    bits in both runs."""
+    import chip_smoke as cs
+
+    mods = (fq, ff, fl, fd, fs)
+    agent = cs.grad_agent(torch, cuda, attention, compute_dtype)
+    host = cs.host_batch(torch, 8)
+    runs = []
+    for fill in (0xFF, None):
+        cs.poison_allocator(torch, cuda, fill)
+        runs.append(cs.network_grads(torch, agent, host, mods))
+    res = cs.compare_repeats(torch, runs)
+    assert res["kernel_calls"] > 0 and res["kernels_differing"] == {}, res
+    assert res["loss_equal"]
+
+
 def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
     """A dtype or Dh the kernels do not take raises whatever N is, before any
     launch."""
@@ -1025,8 +1088,8 @@ def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
     with pytest.raises(TypeError):
         fq.flash_qkv_fwd(qkv, 2, 32, 0.2)
     with pytest.raises(ValueError, match="dim_head"):
-        fq.flash_qkv_fwd(torch.zeros(1, n, 3 * 2 * 80, device=cuda), 2, 80, 0.2)
-    q = torch.zeros(1, 2, n, 80, device=cuda)
+        fq.flash_qkv_fwd(torch.zeros(1, n, 3 * 2 * 136, device=cuda), 2, 136, 0.2)
+    q = torch.zeros(1, 2, n, 136, device=cuda)
     with pytest.raises(ValueError, match="dim_head"):
         fl.flash_fwd(q, q, q, 0.2)
     with pytest.raises(ValueError, match="dim_head"):

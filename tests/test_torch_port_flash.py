@@ -111,17 +111,18 @@ def test_mha_dispatches_the_pallas_impl():
 
 
 @pytest.mark.parametrize("num_special", [0, 2])
-@pytest.mark.parametrize("dim_head", [24, 48])
+@pytest.mark.parametrize("dim_head", [24, 48, 96, 128])
 def test_padded_head_width_is_the_unpadded_function(dim_head, num_special):
     """What the K4 wrappers do for a head width the kernels are not built for:
-    q, k, v, O and dO zero-padded to ``_build.kernel_dim_head`` (32, 64), K4f
+    q, k, v, O and dO zero-padded to ``_build.kernel_dim_head`` (32, 64, 128;
+    128 itself unpadded, the widest instantiation), K4f
     and K4b at that width with the caller's scale, the outputs sliced back.
     Held to the JAX kernels (and ``jax.grad``) at the true width."""
     b, h, n = 2, 2, 13
     q, k, v, g = _inputs(dim_head + n, b, h, n, dim_head)
     scale = dim_head ** -0.5
     width = _build.kernel_dim_head("test", dim_head)
-    assert width == {24: 32, 48: 64}[dim_head]
+    assert width == {24: 32, 48: 64, 96: 128, 128: 128}[dim_head]
     pq, pk, pv, pg = (_build.pad_last(torch.tensor(t), width) for t in (q, k, v, g))
     o, lse = flash.flash_fwd_plain(pq, pk, pv, scale, num_special)
     grads = flash.flash_bwd_plain(pq, pk, pv, o, lse, pg, scale, num_special)

@@ -98,11 +98,11 @@ def test_entry_checks():
 
 
 @pytest.mark.parametrize("num_special", [0, 2])
-@pytest.mark.parametrize("dim_head", [24, 48])
+@pytest.mark.parametrize("dim_head", [24, 48, 96, 128])
 def test_padded_head_width_is_the_unpadded_function(dim_head, num_special):
     """What the K1 wrappers do for a head width the kernels are not built for:
     the merged ``[B, N, 3*H*Dh]`` layout with each head zero-padded to
-    ``_build.kernel_dim_head`` (32, 64), K1f and K1b at that width with the
+    ``_build.kernel_dim_head`` (32, 64, 128; 128 itself unpadded), K1f and K1b at that width with the
     caller's scale, each head sliced back. Held to the JAX kernel (and
     ``jax.grad`` of it) at the true width, rate 0."""
     b, n, heads = 2, 13, 2

@@ -85,9 +85,10 @@ def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
         _assert_close(t.grad.float().numpy(), np.asarray(ref[name], np.float32), tol, name)
 
 
-@pytest.mark.parametrize("dim,hidden", [(40, 100), (384, 1536)])
+@pytest.mark.parametrize("dim,hidden", [(40, 100), (384, 1536), (1280, 5120), (1031, 100)])
 def test_plain_forward_and_backward_match_jax_at_other_widths(dim, hidden):
-    """The widths the fused kernels do not take (ragged, and wider than 256),
+    """The widths the fused kernels do not take (ragged, wider than 256, and
+    past 1,024),
     which the JAX kernel takes as one block: the plain forward and all seven
     gradients through the port's Function held to the Pallas kernel and
     ``jax.grad`` of it at float32 (1e-5 of each output's scale)."""

@@ -174,7 +174,10 @@ def test_cli_trains_on_cpu_and_refuses_a_silent_cpu_run(tmp_path):
 
 def test_unported_run_options_raise(tmp_path):
     byol = dict(ssl_pretraining=True, representation_lr_method=RepresentationMethod.BYOL)
-    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE), byol,
+    # the device env is ported (tests/test_torch_port_device_env.py); with an
+    # SSL method it still raises for the SSL item first
+    check_ported(_cfg(tmp_path, env_type=EnvType.SYNTHETIC_DEVICE))
+    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE, **byol), byol,
                dict(data_axis_size=2), dict(env_type=EnvType.ATARI)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train(_cfg(tmp_path, **kw), total_updates=1, log_dir=str(tmp_path),
