@@ -116,6 +116,28 @@ non-zero on failure:
     ``collect_s`` and ``update_s`` beside the host-env iteration of phase 5;
     then one iteration of ``configs/maze_exploration.conf`` cut to 16 envs
     x 32 steps (its xla route launches no kernel).
+18. ``continuous`` (ROADMAP.md Queue 1, item 5): ``configs/
+    pendulum_continuous.conf`` at full width with ``UseNoisyNet = True`` on
+    ``ContinuousSmokeEnv`` (Pendulum's dynamics and interface after the
+    port's classic-control stack, frames from the angle; no gymnasium), 64
+    envs x 128 steps: the warm-up (none under PPO), ``collect`` (K1f and
+    K2f 387 launches) and one update of 4 epochs x 8 minibatches of 1,024
+    frames (K1f, K2f, K1b and K2b 96 each), timed; finite actions [T, N, 1]
+    with their log-probs, the tanh mean in [-1, 1], ``log_std`` after the
+    update; the gradient of the network on 8 frames at dropout 0 with one
+    NoisyLinear noise given to both copies, against the CPU copy within
+    1.2e-6 (float32) and 5.3e-4 (bf16).
+19. ``modified_rnd``: ``configs/synthetic_device_flagship.conf`` with
+    ``TrainMethod = modified_RND``, ``UseNoisyNet = True`` and ``ObsNormStep
+    = 1`` through ``train.train`` for two iterations, its launches counted
+    (the next-obs embedding pass: 3 layers x 4 chunks of 2,048 frames of K1f
+    and K2f at rate 0, in the warm-up and in each update); one iteration in
+    pieces: ``collect`` with no host sync, the embedding pass alone, the
+    update with its peak memory; the gradient check of phase 18 for the
+    network and the ``MlpTrunk`` RND predictor. Before the training phases,
+    K1f and K2f run at the shapes of item 5 (the embedding pass's chunk of
+    2,048 frames at rate 0, the 1,024-frame minibatch at rate 0.1) against
+    their plain versions, timed beside their bounds.
 
 K1f, K1b, K3b and K4b have two bf16 kernels each: the whole-head forms
 (``csrc/attn_fwd_head.cuh``, ``csrc/attn_bwd_head.cuh``), which the wrappers
@@ -318,97 +340,122 @@ def _ffn_params(torch, dev, d, hid, seed):
     return params, f
 
 
-def kernel_phase(torch, fq, ff, kp, dev):
+def k1f_rows(torch, fq, dev, use: str, b: int, n: int, ns: int, rates):
+    """K1f on ``[b, n, 3 * 8 * 32]`` bf16 at each rate of ``rates`` against
+    its plain version (one bf16 rounding of o, 1e-4 on lse, equal bits twice),
+    timed beside the plain version, the bound and SDPA on the same head-split
+    tensors and mask at rate 0: ``{("flash_qkv_fwd", use, n, rate): row}``."""
     import torch.nn.functional as F
 
     from eavit_tpu_torch.ops.attention import dual_query_allowed
 
-    heads, dh, seeds = 8, 32, KERNEL_SEEDS
+    heads, dh, seeds, rows = 8, 32, KERNEL_SEEDS, {}
+    g = torch.Generator().manual_seed(n + b)
+    qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
+    q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2).contiguous()
+               for t in qkv.split(heads * dh, dim=-1))
+    mask = dual_query_allowed(n, n, ns, dev) if ns else None
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 50)
+    del q, k, v
+    for rate in rates:
+        args = (heads, dh, dh ** -0.5, ns, seeds, rate)
+        o, lse = once(fq, "flash_qkv_fwd", lambda: fq.flash_qkv_fwd(qkv, *args))
+        po, plse = fq.flash_qkv_fwd_plain(qkv, *args)
+        torch.cuda.synchronize()
+        err = (o.float() - po.float()).abs().max().item()
+        lse_err = (lse - plse).abs().max().item()
+        tol = 1e-2 + 8e-3 * po.float().abs().max().item()  # one bf16 rounding of o
+        del po, plse
+        ms = time_ms(torch, lambda: fq.flash_qkv_fwd(qkv, *args), 50)
+        plain = time_ms(torch, lambda: fq.flash_qkv_fwd_plain(qkv, *args), 5)
+        nbytes = 2 * qkv.numel() + 2 * o.numel() + 4 * lse.numel()
+        bms, by = bound_ms(nbytes, 4.0 * b * heads * n * n * dh, "bfloat16")
+        again = fq.flash_qkv_fwd(qkv, *args)
+        same = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
+        del again
+        row = dict(kernel="flash_qkv_fwd", use=use, b=b, n=n, num_special=ns, rate=rate,
+                   dtype="bfloat16", max_abs_err=err, tol=tol, lse_err=lse_err,
+                   lse_tol=1e-4, deterministic=same, ms=ms, plain_ms=plain,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        log("kernel", **row)
+        check(err <= tol and lse_err <= 1e-4 and same, f"flash_qkv_fwd {row}")
+        rows[("flash_qkv_fwd", use, n, rate)] = row
+    return rows
+
+
+def k2f_rows(torch, ff, kp, dev, r: int, dtypes, rates):
+    """K2f on ``r`` rows at dim 256, hidden 1,024 for each dtype and rate
+    against its plain version (1e-4 of scale in float32, one bf16 rounding
+    in bf16, equal bits twice, zeros exactly where K2r's mask2 drops), timed
+    beside the plain version and the bound. Beside the float32 rows the
+    float32 rate-0 chain of four PyTorch calls (LayerNorm, Linear, exact
+    GELU, Linear; "highest" precision), a yardstick the port never calls: no
+    one PyTorch call computes K2f. ``{("fused_ffn_fwd", r, dtype, rate):
+    row}``."""
+    import torch.nn.functional as F
+
+    d, hid, seeds, rows = 256, 1024, KERNEL_SEEDS, {}
+    params, f = _ffn_params(torch, dev, d, hid, r)
+    x32 = f(r, d).to(dev)
+    chain_ms = time_ms(torch, lambda: F.linear(F.gelu(F.linear(F.layer_norm(
+        x32, (d,), params[0], params[1], 1e-5), params[2], params[3])), params[4],
+        params[5]), 20)
+    for dtype in dtypes:
+        x = x32.to(dtype)
+        for rate in rates:
+            y = once(ff, "fused_ffn_fwd",
+                     lambda: ff.fused_ffn(x, *params, seeds=seeds, rate=rate))
+            p = ff.fused_ffn_fwd_plain(x, *params, seeds=seeds, rate=rate)
+            torch.cuda.synchronize()
+            err = (y.float() - p.float()).abs().max().item()
+            scale = p.float().abs().max().item()
+            tol = 1e-4 * scale if dtype == torch.float32 else 1e-2 + 8e-3 * scale
+            same = bool(torch.equal(y, ff.fused_ffn(x, *params, seeds=seeds, rate=rate)))
+            masks = True
+            if rate:  # zero exactly where K2r's mask2 drops
+                _, m2 = ff.fused_ffn_bits(r, d, hid, seeds, dev)
+                masks = bool(torch.equal(y == 0, m2 >= kp.keep_threshold(rate)))
+            del p
+            ms = time_ms(torch, lambda: ff.fused_ffn(x, *params, seeds=seeds,
+                                                     rate=rate), 20)
+            plain = time_ms(torch, lambda: ff.fused_ffn_fwd_plain(
+                x, *params, seeds=seeds, rate=rate), 5)
+            name = str(dtype).split(".")[-1]
+            nbytes = 2 * x.numel() * x.element_size() + 4 * sum(t.numel() for t in params)
+            # two products on the tensor cores, a float32 one as three bf16
+            # products; beside it the bound on the float32 CUDA cores
+            bms, by = tensor_core_bound_ms(nbytes, 4.0 * r * d * hid, name)
+            row = dict(kernel="fused_ffn_fwd", rows=r, dtype=name, rate=rate,
+                       max_abs_err=err, tol=tol, deterministic=same, masks_equal_k2r=masks,
+                       ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                       cuda_core_bound_ms=bound_ms(nbytes, 4.0 * r * d * hid, name)[0],
+                       **({"chain_ms": chain_ms, "chain": "F.layer_norm, F.linear, "
+                           "F.gelu, F.linear; float32 rate 0"}
+                          if dtype == torch.float32 else {}))
+            log("kernel", **row)
+            check(err <= tol and same and masks, f"fused_ffn_fwd {row}")
+            rows[("fused_ffn_fwd", r, name, rate)] = row
+        del x
+    return rows
+
+
+def kernel_phase(torch, fq, ff, kp, dev):
+    heads, seeds = 8, KERNEL_SEEDS
     rows = {}
 
     # K1f at both act shapes and the shared minibatch, rate 0 and 0.1 (the
     # paths run 0.1); SDPA on the same head-split tensors and mask at rate 0
     for use, b, n, ns in (("act", NUM_ENVS, 198, 2), ("act", 2 * NUM_ENVS, 197, 0),
                           ("train", MB_FRAMES, 198, 2)):
-        g = torch.Generator().manual_seed(n + b)
-        qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
-        q, k, v = (t.reshape(b, n, heads, dh).transpose(1, 2).contiguous()
-                   for t in qkv.split(heads * dh, dim=-1))
-        mask = dual_query_allowed(n, n, ns, dev) if ns else None
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), 50)
-        del q, k, v
-        for rate in (0.0, 0.1):
-            args = (heads, dh, dh ** -0.5, ns, seeds, rate)
-            o, lse = once(fq, "flash_qkv_fwd", lambda: fq.flash_qkv_fwd(qkv, *args))
-            po, plse = fq.flash_qkv_fwd_plain(qkv, *args)
-            torch.cuda.synchronize()
-            err = (o.float() - po.float()).abs().max().item()
-            lse_err = (lse - plse).abs().max().item()
-            tol = 1e-2 + 8e-3 * po.float().abs().max().item()  # one bf16 rounding of o
-            ms = time_ms(torch, lambda: fq.flash_qkv_fwd(qkv, *args), 50)
-            plain = time_ms(torch, lambda: fq.flash_qkv_fwd_plain(qkv, *args), 5)
-            nbytes = 2 * qkv.numel() + 2 * o.numel() + 4 * lse.numel()
-            bms, by = bound_ms(nbytes, 4.0 * b * heads * n * n * dh, "bfloat16")
-            again = fq.flash_qkv_fwd(qkv, *args)
-            same = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
-            del po, plse, again
-            row = dict(kernel="flash_qkv_fwd", use=use, b=b, n=n, num_special=ns, rate=rate,
-                       dtype="bfloat16", max_abs_err=err, tol=tol, lse_err=lse_err,
-                       lse_tol=1e-4, deterministic=same, ms=ms, plain_ms=plain,
-                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
-            log("kernel", **row)
-            check(err <= tol and lse_err <= 1e-4 and same, f"flash_qkv_fwd {row}")
-            rows[("flash_qkv_fwd", use, n, rate)] = row
+        rows.update(k1f_rows(torch, fq, dev, use, b, n, ns, (0.0, 0.1)))
 
     # K2f at both act row counts and the minibatch's; float32 is what the
-    # path feeds it. Beside it the float32 rate-0 chain of four PyTorch calls
-    # (LayerNorm, Linear, exact GELU, Linear; "highest" precision), a
-    # yardstick the port never calls: no one PyTorch call computes K2f
+    # path feeds it
     d, hid = 256, 1024
     for r in (NUM_ENVS * 198, 2 * NUM_ENVS * 197, MB_FRAMES * 198):
-        params, f = _ffn_params(torch, dev, d, hid, r)
-        x32 = f(r, d).to(dev)
-        chain_ms = time_ms(torch, lambda: F.linear(F.gelu(F.linear(F.layer_norm(
-            x32, (d,), params[0], params[1], 1e-5), params[2], params[3])), params[4],
-            params[5]), 20)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            for rate in (0.0, 0.1):
-                y = once(ff, "fused_ffn_fwd",
-                         lambda: ff.fused_ffn(x, *params, seeds=seeds, rate=rate))
-                p = ff.fused_ffn_fwd_plain(x, *params, seeds=seeds, rate=rate)
-                torch.cuda.synchronize()
-                err = (y.float() - p.float()).abs().max().item()
-                scale = p.float().abs().max().item()
-                tol = 1e-4 * scale if dtype == torch.float32 else 1e-2 + 8e-3 * scale
-                same = bool(torch.equal(y, ff.fused_ffn(x, *params, seeds=seeds, rate=rate)))
-                masks = True
-                if rate:  # zero exactly where K2r's mask2 drops
-                    _, m2 = ff.fused_ffn_bits(r, d, hid, seeds, dev)
-                    masks = bool(torch.equal(y == 0, m2 >= kp.keep_threshold(rate)))
-                del p
-                ms = time_ms(torch, lambda: ff.fused_ffn(x, *params, seeds=seeds,
-                                                         rate=rate), 20)
-                plain = time_ms(torch, lambda: ff.fused_ffn_fwd_plain(
-                    x, *params, seeds=seeds, rate=rate), 5)
-                name = str(dtype).split(".")[-1]
-                nbytes = 2 * x.numel() * x.element_size() + 4 * sum(
-                    t.numel() for t in params)
-                # two products on the tensor cores, a float32 one as three bf16
-                # products; beside it the bound on the float32 CUDA cores
-                bms, by = tensor_core_bound_ms(nbytes, 4.0 * r * d * hid, name)
-                row = dict(kernel="fused_ffn_fwd", rows=r, dtype=name, rate=rate,
-                           max_abs_err=err, tol=tol, deterministic=same, masks_equal_k2r=masks,
-                           ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
-                           cuda_core_bound_ms=bound_ms(nbytes, 4.0 * r * d * hid, name)[0],
-                           **({"chain_ms": chain_ms, "chain": "F.layer_norm, F.linear, "
-                               "F.gelu, F.linear; float32 rate 0"}
-                              if dtype == torch.float32 else {}))
-                log("kernel", **row)
-                check(err <= tol and same and masks, f"fused_ffn_fwd {row}")
-                rows[("fused_ffn_fwd", r, name, rate)] = row
-        del x32, x
+        rows.update(k2f_rows(torch, ff, kp, dev, r, (torch.float32, torch.bfloat16),
+                             (0.0, 0.1)))
 
     # K1r and K2r: bit for bit, and the keep rate at 0.1 within 4 sigma
     thresh = kp.keep_threshold(0.1)
@@ -1359,16 +1406,20 @@ def network_grads(torch, agent, host, mods, rng_seed: int = SEED + 7):
 
     dev = agent.device
     named = [(f"policy.{n}", p) for n, p in agent.network.named_parameters()]
-    named += [(f"rnd_pred.{n}", p) for n, p in agent.rnd_pred.named_parameters()]
+    if agent.rnd_pred is not None:
+        named += [(f"rnd_pred.{n}", p) for n, p in agent.rnd_pred.named_parameters()]
     for _, p in named:
         p.grad = None
-    batch = TrainBatch(**{k: v.to(dev) for k, v in host.items()})
+    batch = TrainBatch(**{k: None if v is None else v.to(dev) for k, v in host.items()})
     n = batch.adv.shape[0]
     with KernelRecorder(mods) as rec:
         loss, _ = agent._loss(batch, torch.arange(n, device=dev), Rng(rng_seed, dev))
         loss.backward()
-    return (loss.detach().clone(), {k: p.grad.detach().clone() for k, p in named},
-            rec.calls)
+    # a parameter the loss does not reach (critic_int under PPO) gets zeros,
+    # as in the agent's minibatch step
+    return (loss.detach().clone(),
+            {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for k, p in named}, rec.calls)
 
 
 def grad_agent(torch, dev, attention: str, compute_dtype: str):
@@ -1697,8 +1748,6 @@ def device_env_phase(torch, mods, dev, workdir: str, host_timing):
     ``update_s`` beside the host-env flagship iteration of this call
     (``host_timing``). Last, one iteration of ``configs/maze_exploration.conf``
     (16 envs x 32 steps; the xla route without the fused FFN: no kernel)."""
-    import warnings
-
     from eavit_tpu_torch import train as port_train
     from eavit_tpu_torch.config import EnvType, load_config
     from eavit_tpu_torch.envs.device_env import device_env_step, make_device_env
@@ -1771,17 +1820,8 @@ def device_env_phase(torch, mods, dev, workdir: str, host_timing):
     rng = Rng(SEED + 3, agent.device)
     env_state = restored
     rollout, env_state, _ = collector.collect(env_state, rng)  # warm: allocator, cuDNN
-    syncs = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            rollout, env_state, _ = collector.collect(env_state, rng)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        syncs = [str(w.message).split("\n")[0] for w in caught
-                 if "called a synchronizing" in str(w.message)]
+    (rollout, env_state, _), syncs = host_syncs(
+        torch, lambda: collector.collect(env_state, rng))
     torch.cuda.set_sync_debug_mode("error")
     try:
         collector.collect(env_state, rng)
@@ -1869,6 +1909,454 @@ def device_env_phase(torch, mods, dev, workdir: str, host_timing):
         mean_rooms_discovered=mm["data/mean_rooms_discovered"], loss=mm["train/loss"])
     check_counts(maze_counts, {}, "maze (xla route, no fused FFN)")
     check(maze_finite, "maze: finite metrics")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# continuous actions, NoisyNet and modified_RND (ROADMAP.md Queue 1, item 5)
+# ---------------------------------------------------------------------------
+
+# the criteria of the network's gradient against its CPU copy (ROADMAP.md
+# Queue 2, the precision contract of float32 K2): 1.2e-6 was read on the
+# original_RND flagship, whose RND convolutions carry much of the gradient's
+# norm. Float32 K2 keeps about 2^-16 a product (three bf16 terms), and on a
+# network without the conv RND its share of the gradient is larger: there
+# the float32 criterion holds with K2 on its plain version (every other
+# kernel on the card), and the whole network with K2's kernels is held to
+# the products' own precision, 2^-16
+GRAD_CRITERIA = {"float32": 1.2e-6, "bfloat16": 5.3e-4}
+K2_PRODUCT_PRECISION = 2.0 ** -16
+
+
+class ContinuousSmokeEnv:
+    """A vectorised continuous-action env with the interface the port's
+    classic-control fleet gives Pendulum-v1 (``envs/pool.py``), and no
+    gymnasium: Pendulum's dynamics (g 10, m 1, l 1, dt 0.05, speed capped at
+    8), one action in [-1, 1] clipped and scaled to a torque in [-2, 2] as
+    ``ActionScaleWrapper`` does, the reward scaled by 1/16 as
+    ``pendulum_continuous.conf``'s ``RewardScale``, episodes cut at 200
+    steps with auto-reset, and 84 x 84 uint8 frames drawn from the angle
+    (a rod at one of 360 angles, looked up), stacked 4 deep. Modelled on
+    ``tests/test_continuous.py``'s ``ContinuousSyntheticEnv``."""
+
+    def __init__(self, num_envs: int, seed: int = 0, stack: int = 4, size: int = 84,
+                 max_steps: int = 200):
+        import numpy as np
+
+        self.np, self.num_envs, self.max_steps = np, num_envs, max_steps
+        self.action_space_n, self.action_dim = None, 1
+        self.rng = np.random.default_rng(seed)
+        grid = np.linspace(-1.0, 1.0, size, dtype=np.float32)
+        yy, xx = np.meshgrid(grid, grid, indexing="ij")
+        angles = np.arange(360) * (2 * np.pi / 360)
+        c, s = np.cos(angles)[:, None, None], np.sin(angles)[:, None, None]
+        # a bright rod from the centre along the angle, on a dim ramp
+        along, across = xx * s - yy * c, xx * c + yy * s
+        rod = (np.abs(across) < 0.08) & (along > 0.0) & (along < 0.8)
+        self.table = np.where(rod, 255, 40 + 30 * (yy + 1)).astype(np.uint8)
+        self.theta = np.zeros(num_envs, np.float32)
+        self.omega = np.zeros(num_envs, np.float32)
+        self.steps = np.zeros(num_envs, np.int64)
+        self.returns = np.zeros(num_envs, np.float64)
+        self.stack = np.zeros((num_envs, stack, size, size), np.uint8)
+        self.torque_range = [np.inf, -np.inf]  # of the torques the env applied
+
+    def _frames(self, idx):
+        bins = (self.theta[idx] * (360 / (2 * self.np.pi))).round().astype(self.np.int64)
+        return self.table[bins % 360]
+
+    def _reset_envs(self, idx):
+        self.theta[idx] = self.rng.uniform(-self.np.pi, self.np.pi, len(idx))
+        self.omega[idx] = self.rng.uniform(-1.0, 1.0, len(idx))
+        self.steps[idx] = 0
+        self.returns[idx] = 0.0
+        self.stack[idx] = self._frames(idx)[:, None]
+
+    def reset(self):
+        self._reset_envs(self.np.arange(self.num_envs))
+        return self.stack.copy()
+
+    def sample_random_actions(self, rng):
+        return rng.uniform(-1.0, 1.0, (self.num_envs, 1)).astype(self.np.float32)
+
+    def step(self, actions):
+        np = self.np
+        u = 2.0 * np.clip(np.asarray(actions, np.float32).reshape(self.num_envs), -1.0, 1.0)
+        self.torque_range = [min(self.torque_range[0], float(u.min())),
+                             max(self.torque_range[1], float(u.max()))]
+        th = ((self.theta + np.pi) % (2 * np.pi)) - np.pi
+        reward = -(th ** 2 + 0.1 * self.omega ** 2 + 0.001 * u ** 2) / 16.0
+        self.omega = np.clip(self.omega + (15.0 * np.sin(self.theta) + 3.0 * u) * 0.05,
+                             -8.0, 8.0).astype(np.float32)
+        self.theta = (self.theta + self.omega * 0.05).astype(np.float32)
+        self.steps += 1
+        self.returns += reward
+        all_envs = np.arange(self.num_envs)
+        self.stack[:, :-1] = self.stack[:, 1:]
+        self.stack[:, -1] = self._frames(all_envs)
+        truns = self.steps >= self.max_steps
+        dones = np.zeros(self.num_envs, np.bool_)
+        infos = [{"episode": {"r": float(self.returns[i]), "l": int(self.steps[i])}}
+                 if truns[i] else {} for i in range(self.num_envs)]
+        if truns.any():
+            self._reset_envs(np.nonzero(truns)[0])
+        return self.stack.copy(), reward.astype(np.float32), dones, truns, infos
+
+    def close(self):
+        pass
+
+
+def freeze_noise(torch, agents, seed: int) -> None:
+    """Give every NoisyLinear of the agents' networks one eps, drawn once on
+    the CPU from ``seed``: the same noise in each copy (the card's generator
+    draws other numbers than the CPU's)."""
+    from eavit_tpu_torch.models.layers import NoisyLinear
+
+    gen = torch.Generator().manual_seed(seed)
+    heads = [[m for m in a.network.modules() if isinstance(m, NoisyLinear)] for a in agents]
+    for layers in zip(*heads):
+        std = layers[0].sigma0 / layers[0].in_features ** 0.5
+        eps = (torch.randn(layers[0].in_features, generator=gen) * std,
+               torch.randn(layers[0].out_features, generator=gen) * std)
+        for m in layers:
+            m.sample_noise = lambda rng, device, eps=eps: tuple(e.to(device) for e in eps)
+
+
+class K2Plain:
+    """While open, the fused FFN's wrappers run their plain versions, on the
+    card too (a diagnosis of the gradient check, never the main path)."""
+
+    def __init__(self, ff):
+        self.ff, self.saved = ff, (ff.fused_ffn_fwd, ff.fused_ffn_bwd)
+
+    def __enter__(self):
+        self.ff.fused_ffn_fwd = self.ff.fused_ffn_fwd_plain
+        self.ff.fused_ffn_bwd = self.ff.fused_ffn_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.ff.fused_ffn_fwd, self.ff.fused_ffn_bwd = self.saved
+
+
+def noisy_grad_check(torch, dev, cfg, output_size: int, action_space, host, what: str):
+    """The loss and gradient of the whole network (and of ``rnd_pred``, if
+    any) on the frames ``host``, on the card against a copy on the CPU, both
+    from ``SEED`` at dropout 0 with one NoisyLinear noise given to both. bf16:
+    within ``GRAD_CRITERIA``. Float32: within ``GRAD_CRITERIA`` with K2 on its
+    plain version (``K2Plain``), and within ``K2_PRODUCT_PRECISION`` with
+    every kernel (see the criteria's comment)."""
+    import dataclasses
+
+    from eavit_tpu_torch.ops import fused_ffn
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    def rel_errs(dtype):
+        c = cfg.replace(compute_dtype=dtype, update_proportion=1.0,
+                        vit=dataclasses.replace(cfg.vit, dropout=0.0, emb_dropout=0.0))
+        agents = [RNDAgent(c, output_size, action_space, device=where) for where in (dev, "cpu")]
+        for a in agents:
+            a.init_state(SEED)
+        freeze_noise(torch, agents, SEED + 11)
+        (loss_d, g_d, _), (loss_c, g_c, _) = (network_grads(torch, a, host, ())
+                                              for a in agents)
+        flat_d = torch.cat([t.float().reshape(-1).cpu() for t in g_d.values()])
+        flat_c = torch.cat([t.float().reshape(-1) for t in g_c.values()])
+        return dict(loss_cuda=float(loss_d), loss_cpu=float(loss_c),
+                    loss_rel_err=abs(float(loss_d) - float(loss_c)) / max(1.0, abs(float(loss_c))),
+                    grad_rel_err=((flat_d - flat_c).norm() / flat_c.norm()).item(),
+                    grad_elements=flat_c.numel())
+
+    out = {}
+    for dtype, crit in GRAD_CRITERIA.items():
+        res = rel_errs(dtype)
+        res["criterion"] = crit if dtype == "bfloat16" else K2_PRODUCT_PRECISION
+        if dtype == "float32":
+            with K2Plain(fused_ffn):
+                plain = rel_errs(dtype)
+            res["k2_plain"] = {**plain, "criterion": crit}
+            check(plain["grad_rel_err"] <= crit and plain["loss_rel_err"] <= crit,
+                  f"{what}: gradient on the card (K2 plain) vs the CPU copy: {plain}")
+        out[dtype] = res
+        check(res["grad_rel_err"] <= res["criterion"] and res["loss_rel_err"] <= res["criterion"],
+              f"{what}: gradient on the card vs the CPU copy, {dtype}: {res}")
+    return out
+
+
+def host_syncs(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its result
+    and the first lines of the host-sync warnings it raised."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return out, [str(w.message).split("\n")[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def item5_kernel_shapes(torch, fq, ff, kp, dev, chunk: int):
+    """K1f and K2f at the shapes item 5 adds: the ``modified_RND`` next-obs
+    pass (``chunk`` frames a backbone call, rate 0) and the 1,024-frame
+    minibatch of ``pendulum_continuous.conf`` (8,192 / ``MiniBatch`` 8, rate
+    0.1), each held to its plain version and timed (``k1f_rows``,
+    ``k2f_rows``)."""
+    rows = {}
+    for use, frames, rate in (("next_obs", chunk, 0.0), ("train_mb1024", 1024, 0.1)):
+        rows[("flash_qkv_fwd", use)] = k1f_rows(torch, fq, dev, use, frames, 198, 2,
+                                                (rate,))[("flash_qkv_fwd", use, 198, rate)]
+        rows[("fused_ffn_fwd", use)] = k2f_rows(
+            torch, ff, kp, dev, frames * 198, (torch.float32,),
+            (rate,))[("fused_ffn_fwd", frames * 198, "float32", rate)]
+    return rows
+
+
+def continuous_phase(torch, mods, dev):
+    """``configs/pendulum_continuous.conf`` with ``UseNoisyNet = True`` at full
+    width (dim 256, depth 3, bf16, pallas_qkv, fused FFN, dropout 0.1) on
+    ``ContinuousSmokeEnv``, 64 envs x 128 steps: the obs-norm warm-up (none
+    under PPO), ``RolloutCollector.collect`` and one ``update`` (4 epochs x 8
+    minibatches of 1,024 frames), with their launch counts; the actions
+    finite and the policy's mean in [-1, 1]; ``log_std`` after the update;
+    the gradient on 8 frames against the CPU copy (``noisy_grad_check``)."""
+    import numpy as np
+
+    from eavit_tpu_torch.config import TrainMethod, load_config
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.models.policy import ActionSpaceType
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.rollout import RolloutCollector
+
+    cfg = load_config(os.path.join(REPO_ROOT, "configs", "pendulum_continuous.conf"))
+    check(cfg.vit.dim == 256 and cfg.vit.depth == DEPTH and cfg.vit.dropout == 0.1
+          and cfg.attention_impl == "pallas_qkv" and cfg.fused_ffn
+          and cfg.compute_dtype == "bfloat16" and cfg.shared_patch_stream
+          and cfg.train_method == TrainMethod.PPO and cfg.num_env_per_process == NUM_ENVS
+          and cfg.num_step == NUM_STEP and (cfg.epoch, cfg.mini_batch) == (4, 8),
+          "pendulum_continuous.conf at full width")
+    cfg = cfg.replace(use_noisy_net=True, seed=SEED)
+    env = ContinuousSmokeEnv(cfg.num_env_per_process, seed=SEED)
+    agent = RNDAgent(cfg, env.action_dim, ActionSpaceType.CONTINUOUS)  # CUDA by default
+    check(agent.device.type == "cuda", "continuous agent on CUDA")
+    state = agent.init_state(SEED)
+    rng = Rng(SEED + 1, agent.device)
+    collector = RolloutCollector(cfg, agent, env)
+    states = env.reset()
+    state, states = collector.warmup_obs_rms(state, states, rng)
+    frames = cfg.num_step * cfg.num_env_per_process
+    per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+    per_update = cfg.vit.depth * cfg.epoch * cfg.mini_batch
+
+    torch.cuda.synchronize()
+    _reset(mods)
+    t0 = time.perf_counter()
+    rollout, states = collector.collect(states, rng)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    collect_counts = _counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(mods)
+    t0 = time.perf_counter()
+    state, metrics = agent.update(state, rollout, rng)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_counts = _counts(mods)  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # where a collect step goes: the act call alone (device work waited for)
+    # and the env step alone, each averaged over 20 calls
+    t0 = time.perf_counter()
+    for _ in range(20):
+        agent.act(states, rng)[0].cpu()
+    act_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        env.step(np.zeros((cfg.num_env_per_process, 1), np.float32))
+    env_step_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    acts, logp = rollout.actions, rollout.policy
+    with torch.no_grad():
+        probe = agent.network(torch.from_numpy(states[:16]).to(dev).float() / 255.0)
+    mean_max = probe.policy.abs().max().item()
+    log_std = agent.network.log_std.detach().cpu().tolist()
+    finite = bool(torch.isfinite(acts).all() and torch.isfinite(logp).all()
+                  and all(np.isfinite(v) for v in metrics.values())
+                  and np.all(np.isfinite(log_std)))
+    expect_collect = {"flash_qkv_fwd": per_rollout, "fused_ffn_fwd": per_rollout}
+    expect_update = {k: per_update for k in ("flash_qkv_fwd", "fused_ffn_fwd",
+                                             "flash_qkv_bwd", "fused_ffn_bwd")}
+    host = host_batch(torch, 8)
+    g = np.random.default_rng(SEED + 5)
+    host.update(actions=torch.from_numpy(g.uniform(-1, 1, (8, 1)).astype(np.float32)),
+                old_policy=torch.from_numpy((g.standard_normal((8, 1)) * 0.3 - 1.0)
+                                            .astype(np.float32)),
+                int_target=None, rnd_in=None)
+    grads = noisy_grad_check(torch, dev, cfg, 1, ActionSpaceType.CONTINUOUS, host,
+                             "continuous + NoisyNet")
+    log("continuous", config="configs/pendulum_continuous.conf",
+        changes=dict(UseNoisyNet=True, env="ContinuousSmokeEnv (no gymnasium)"),
+        envs=cfg.num_env_per_process, steps=cfg.num_step, frames=frames,
+        epochs=cfg.epoch, mini_batch=cfg.mini_batch, collect_s=collect_s,
+        update_s=update_s, iteration_s=collect_s + update_s,
+        frames_per_s=frames / (collect_s + update_s), collect_frames_per_s=frames / collect_s,
+        step_ms=collect_s / (cfg.num_step + 1) * 1e3, act_ms=act_ms, env_step_ms=env_step_ms,
+        launches_per_rollout=collect_counts, expected_per_rollout=expect_collect,
+        launches_per_update=update_counts, expected_per_update=expect_update,
+        peak_memory_gb=peak_gb, actions_shape=list(acts.shape),
+        policy_shape=list(logp.shape), actions_min=acts.min().item(),
+        actions_max=acts.max().item(), mean_abs_max=mean_max,
+        env_torque_range=env.torque_range, finite=finite, log_std=log_std,
+        metrics=metrics, grad_check=grads, episodes=collector.stats.num_episodes,
+        card=gpu_name_power())
+    check_counts(collect_counts, expect_collect, "continuous: collect")
+    check_counts(update_counts, expect_update, "continuous: update")
+    check(tuple(acts.shape) == (cfg.num_step, cfg.num_env_per_process, 1)
+          and acts.dtype == torch.float32
+          and tuple(logp.shape) == (cfg.num_step, cfg.num_env_per_process, 1),
+          "continuous: actions [T, N, 1] float32 and log-probs [T, N, 1]")
+    check(finite, "continuous: finite actions, log-probs, metrics and log_std")
+    check(mean_max <= 1.0 and -2.0 <= env.torque_range[0] <= env.torque_range[1] <= 2.0,
+          "continuous: the tanh mean in [-1, 1], the torques in [-2, 2]")
+    check(log_std != [-0.5], "continuous: the update moved log_std")
+    return {"collect": collect_counts, "update": update_counts}
+
+
+def modified_rnd_phase(torch, mods, dev, workdir: str, kernel_rows):
+    """``configs/synthetic_device_flagship.conf`` with ``TrainMethod =
+    modified_RND``, ``UseNoisyNet = True`` and ``ObsNormStep = 1`` through
+    ``train.train`` for two iterations at full width, with its launch counts
+    (the next-obs embedding pass runs ``depth x 8,192 / feature_chunk``
+    launches of K1f and K2f at rate 0 in the warm-up and in each update).
+    Then one iteration in pieces from its checkpoint: ``collect`` with its
+    host syncs counted (none allowed, the NoisyNet noise included), the
+    embedding pass of ``prepare_batch`` alone, and ``update`` with its peak
+    memory; K1f and K2f at the pass's shape (``kernel_rows``, from
+    ``item5_kernel_shapes``); the gradient of the network and the ``MlpTrunk``
+    RND predictor on 8 frames against the CPU copy (``noisy_grad_check``)."""
+    import math
+
+    import numpy as np
+
+    from eavit_tpu_torch import train as port_train
+    from eavit_tpu_torch.config import EnvType, TrainMethod, load_config
+    from eavit_tpu_torch.envs.device_env import make_device_env
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.models.policy import ActionSpaceType
+    from eavit_tpu_torch.models.rnd import MlpTrunk
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
+    from eavit_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cuts = dict(obs_norm_step=1, updates=2)
+    cfg = load_config(os.path.join(REPO_ROOT, "configs", "synthetic_device_flagship.conf"))
+    check(cfg.env_type == EnvType.SYNTHETIC_DEVICE and cfg.vit.dim == 256
+          and cfg.vit.depth == DEPTH and cfg.num_env_per_process == NUM_ENVS
+          and cfg.num_step == NUM_STEP, "synthetic_device_flagship.conf at full width")
+    cfg = cfg.replace(train_method=TrainMethod.MODIFIED_RND, use_noisy_net=True,
+                      obs_norm_step=cuts["obs_norm_step"], save_ckpt_every=cuts["updates"],
+                      log_name="smoke_modified_rnd",
+                      save_model_path=os.path.join(workdir, "ckpt"))
+    updates = cuts["updates"]
+    frames = cfg.num_step * cfg.num_env_per_process
+    chunk = RNDAgent.feature_chunk
+    per_pass = cfg.vit.depth * math.ceil(frames / chunk)
+    per_rollout = cfg.vit.depth * (cfg.num_step + 1)
+    per_update = cfg.vit.depth * cfg.epoch * cfg.mini_batch
+
+    torch.cuda.synchronize()
+    _reset(mods)
+    t0 = time.perf_counter()
+    metrics = port_train.train(cfg, total_updates=updates,
+                               log_dir=os.path.join(workdir, "logs"))  # CUDA by default
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts(mods)  # the main path ends here
+    # warm-up: a policy rollout and its embedding pass; then per iteration a
+    # rollout, the update's embedding pass and its minibatches
+    fwd = (updates + 1) * (per_rollout + per_pass) + updates * per_update
+    expect = {"flash_qkv_fwd": fwd, "fused_ffn_fwd": fwd,
+              "flash_qkv_bwd": updates * per_update, "fused_ffn_bwd": updates * per_update}
+    finite = all(np.isfinite(v) for v in metrics.values())
+
+    # one iteration in pieces, as train builds it, from the checkpoint
+    path = os.path.join(cfg.save_model_path, cfg.log_name)
+    agent = RNDAgent(cfg, 5)
+    agent.init_state(cfg.seed)
+    state, _ = load_checkpoint(path, agent)
+    check(isinstance(agent.rnd_pred.trunk, MlpTrunk)
+          and tuple(state.obs_rms.mean.shape) == (1, cfg.vit.dim),
+          "modified_RND: the MLP trunk and an obs_rms over the embedding")
+    params, env_state = make_device_env(
+        cfg.num_env_per_process, seed=cfg.seed, grid=cfg.synthetic_grid,
+        stack=cfg.state_stack_size, height=cfg.pre_proc_height, width=cfg.pre_proc_width,
+        max_episode_steps=cfg.max_step_per_episode, maze=cfg.synthetic_maze,
+        texture=cfg.synthetic_texture, shared_world=cfg.synthetic_shared_world,
+        variants=cfg.synthetic_variants, sparse_goal=cfg.synthetic_sparse_goal,
+        goal_depth=cfg.synthetic_goal_depth, device=dev)
+    collector = ScanRolloutCollector(cfg, agent, params)
+    rng = Rng(SEED + 3, agent.device)
+    _, env_state, _ = collector.collect(env_state, rng)  # warm: allocator, cuDNN
+    (rollout, env_state, _), syncs = host_syncs(
+        torch, lambda: collector.collect(env_state, rng))
+    _reset(mods)
+    t0 = time.perf_counter()
+    rollout, env_state, _ = collector.collect(env_state, rng)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    collect_counts = _counts(mods)
+    _reset(mods)
+    t0 = time.perf_counter()
+    agent.prepare_batch(state, rollout)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    pass_counts = _counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(mods)
+    t0 = time.perf_counter()
+    state, m2 = agent.update(state, rollout, rng)
+    loss = float(m2["train/loss"])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_counts = _counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    host = host_batch(torch, 8)
+    host["rnd_in"] = torch.from_numpy(np.random.default_rng(SEED + 6).standard_normal(
+        (8, cfg.vit.dim)).astype(np.float32))
+    grads = noisy_grad_check(torch, dev, cfg, 5, ActionSpaceType.DISCRETE, host,
+                             "modified_RND + NoisyNet")
+    log("modified_rnd", config="configs/synthetic_device_flagship.conf",
+        changes=dict(TrainMethod="modified_RND", UseNoisyNet=True), cuts=cuts,
+        envs=cfg.num_env_per_process, steps=cfg.num_step, frames=frames,
+        feature_chunk=chunk, train_s=train_s, train_launches=counts,
+        expected_train_launches=expect, finite=finite,
+        metrics={k: metrics[k] for k in sorted(metrics)}, collect_s=collect_s,
+        prepare_batch_s=prepare_s, update_s=update_s, iteration_s=collect_s + update_s,
+        frames_per_s=frames / (collect_s + update_s), host_syncs_in_collect=len(syncs),
+        host_syncs=syncs[:5], launches_per_rollout=collect_counts,
+        launches_next_obs_pass=pass_counts, launches_per_update=update_counts,
+        update_peak_memory_gb=peak_gb, grad_check=grads,
+        next_obs_pass_kernels={name: {k: kernel_rows[(name, "next_obs")][k] for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "max_abs_err", "tol")}
+            for name in ("flash_qkv_fwd", "fused_ffn_fwd")},
+        card=gpu_name_power())
+    check_counts(counts, expect, "modified_RND: train")
+    check(finite and loss == loss, "modified_RND: finite metrics")
+    check(metrics["train/rnd_loss"] > 0.0, "modified_RND: the predictor's loss is live")
+    check(not syncs, f"modified_RND: host syncs in collect with NoisyNet on: {syncs}")
+    check_counts(collect_counts, {"flash_qkv_fwd": per_rollout, "fused_ffn_fwd": per_rollout},
+                 "modified_RND: collect")
+    check_counts(pass_counts, {"flash_qkv_fwd": per_pass, "fused_ffn_fwd": per_pass},
+                 "modified_RND: the next-obs embedding pass")
+    check_counts(update_counts, {"flash_qkv_fwd": per_pass + per_update,
+                                 "fused_ffn_fwd": per_pass + per_update,
+                                 "flash_qkv_bwd": per_update, "fused_ffn_bwd": per_update},
+                 "modified_RND: one update")
     return counts
 
 
@@ -2233,6 +2721,9 @@ def main() -> int:
     widths_phase(torch, ff, fq, fl, fd, fs, dev)
     stream_rows = stream_flagship_phase(torch, fq, fl, fd, dev)
     long_rows = long_n_phase(torch, fq, fl, fd, dev)
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    item5_rows = item5_kernel_shapes(torch, fq, ff, kernel_prng, dev, RNDAgent.feature_chunk)
     act_launches = main_path(torch, mods, dev, shared=True)
     main_path(torch, mods, dev, shared=False)
     pallas_act = main_path(torch, mods, dev, shared=True, attention="pallas")
@@ -2264,6 +2755,10 @@ def main() -> int:
         run("stream_patch4", shared=True, epochs=1, updates=1, attention="pallas_stream",
             vit=dict(patch_size=4))
         device_env_phase(torch, mods, dev, os.path.join(workdir, "device_env"), timing)
+        continuous_launches = continuous_phase(torch, mods, dev)
+        modified_launches = modified_rnd_phase(torch, mods, dev,
+                                               os.path.join(workdir, "modified_rnd"),
+                                               item5_rows)
     route_launches = patch4_other_routes(torch, mods, dev)
 
     # the kernels of the flagship iteration (shared stream): launch counts of
@@ -2271,6 +2766,23 @@ def main() -> int:
     # forward kernels, which run there too) and at the minibatch shape
     def train_ms(name, use="train", n=198, key="ms"):
         return rows[(name, use, n, "bfloat16")][key]
+
+    def item5_fields(name):
+        """Launches of ``name`` in the continuous and modified_RND runs and,
+        for K1f and K2f, their rows at the next-obs pass's and the
+        1,024-frame minibatch's shapes."""
+        out = {"continuous_launches_per_rollout": continuous_launches["collect"][name],
+               "continuous_launches_per_update": continuous_launches["update"][name],
+               "modified_rnd_train_launches": modified_launches[name]}
+        for use in ("next_obs", "train_mb1024"):
+            row = item5_rows.get((name, use))
+            if row:
+                shape = ({"b": row["b"], "n": row["n"]} if "b" in row else {"rows": row["rows"]})
+                out[f"{use}_shape"] = {**shape, "rate": row["rate"], "dtype": row["dtype"],
+                                       **{k: row[k] for k in (
+                                           "ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err", "tol")}}
+        return out
 
     k1f_train = rows[("flash_qkv_fwd", "train", 198, 0.1)]
     k2f_act = rows[("fused_ffn_fwd", NUM_ENVS * 198, "float32", 0.1)]
@@ -2285,10 +2797,11 @@ def main() -> int:
                      train_shape_ms=k1f_train["ms"], train_shape_plain_ms=k1f_train["plain_ms"],
                      train_shape_bound_ms=k1f_train["bound_ms"],
                      train_shape_library_ms=k1f_train["library_ms"],
-                     train_shape_rate0_ms=rows[("flash_qkv_fwd", "train", 198, 0.0)]["ms"]),
+                     train_shape_rate0_ms=rows[("flash_qkv_fwd", "train", 198, 0.0)]["ms"],
+                     **item5_fields("flash_qkv_fwd")),
         kernel_entry("flash_qkv_bwd", rows[("flash_qkv_bwd", 198, 0.1)],
                      train_launches["flash_qkv_bwd"], header="attn_bwd_head.cuh",
-                     ptxas=mma["flash_qkv_bwd"]),
+                     ptxas=mma["flash_qkv_bwd"], **item5_fields("flash_qkv_bwd")),
         kernel_entry("flash_qkv_bits", rows["flash_qkv_bits"], train_launches["flash_qkv_bits"]),
         kernel_entry("fused_ffn_fwd", k2f_act, train_launches["fused_ffn_fwd"],
                      header="fused_ffn.cu (mma.sync)", ptxas=mma["fused_ffn_fwd"],
@@ -2304,7 +2817,8 @@ def main() -> int:
                      **{f"train_shape_{key}": k2f_train[key] for key in (
                          "ms", "plain_ms", "bound_ms", "cuda_core_bound_ms", "chain_ms")},
                      bfloat16_train_shape_ms=rows[("fused_ffn_fwd", MB_FRAMES * 198,
-                                                   "bfloat16", 0.1)]["ms"]),
+                                                   "bfloat16", 0.1)]["ms"],
+                     **item5_fields("fused_ffn_fwd")),
         kernel_entry("fused_ffn_bwd", rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)],
                      train_launches["fused_ffn_bwd"], header="fused_ffn_bwd.cu (mma.sync)",
                      ptxas=mma["fused_ffn_bwd"],
@@ -2313,7 +2827,8 @@ def main() -> int:
                      stacked_train_shape_ms=rows[("fused_ffn_bwd", 2 * MB_FRAMES * 197,
                                                   "float32", 0.1)]["ms"],
                      bfloat16_train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198,
-                                                   "bfloat16", 0.1)]["ms"]),
+                                                   "bfloat16", 0.1)]["ms"],
+                     **item5_fields("fused_ffn_bwd")),
         kernel_entry("fused_ffn_bits", rows["fused_ffn_bits"], train_launches["fused_ffn_bits"]),
         # K4 runs on the pallas route at dropout 0 (and in evaluate); K3 while
         # dropout is live

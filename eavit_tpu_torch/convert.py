@@ -4,12 +4,14 @@ The JAX package keeps parameters as nested dicts (flax trees); the port's
 modules mirror their names (``feature.transformer.attn_0.to_qkv`` ...), so
 the mapping is by path, with these conversions:
 
-- Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
+- Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed), and
+  NoisyLinear's ``noisy_kernel`` -> ``noisy_weight`` the same way (its
+  ``noisy_bias`` and the continuous head's ``log_std`` keep their names);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - LayerNorm ``scale`` -> ``weight``;
-- the RND trunk, auto-named ``ConvTrunk_0`` by flax, is the port's
-  ``trunk``. The trunk flattens in NHWC order in both packages, so
-  ``head1`` / ``head`` rows need no permutation.
+- the RND trunks, auto-named ``ConvTrunk_0`` / ``MlpTrunk_0`` by flax, are
+  the port's ``trunk``. The conv trunk flattens in NHWC order in both
+  packages, so ``head1`` / ``head`` rows need no permutation.
 
 Every parameter of the module must be covered and every shape must match,
 or :func:`load_flax_tree` raises.
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_RENAME = {"ConvTrunk_0": "trunk"}
+_RENAME = {"ConvTrunk_0": "trunk", "MlpTrunk_0": "trunk"}
+_TRANSPOSED = {"kernel": "weight", "noisy_kernel": "noisy_weight"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -48,8 +51,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 def _to_torch(path: str, value: np.ndarray) -> tuple:
     leaf = path.rsplit(".", 1)[-1]
-    if leaf == "kernel":
-        path = path[: -len("kernel")] + "weight"
+    if leaf in _TRANSPOSED:
+        path = path[: -len(leaf)] + _TRANSPOSED[leaf]
         if value.ndim == 2:
             value = value.T
         elif value.ndim == 4:

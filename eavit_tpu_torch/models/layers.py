@@ -1,5 +1,6 @@
 """Shared layers: dense layers with the JAX package's dtype rule, inits,
-the 16-bit dropout module and the generators a stochastic forward draws from.
+the NoisyNet linear, the 16-bit dropout module and the generators a
+stochastic forward draws from.
 
 Counterpart of ``eavit_tpu/models/layers.py`` (lines 1-131):
 
@@ -12,10 +13,9 @@ Counterpart of ``eavit_tpu/models/layers.py`` (lines 1-131):
   zero bias for heads (``make_dense``, lines 69-86). Each layer records its
   init and :func:`init_module` applies them from one ``torch.Generator``.
 - :class:`Dropout16` (lines 49-66) over ``ops/attention.dropout16``.
+- :class:`NoisyLinear` (lines 89-131): the Gaussian NoisyNet layer with
+  its noise-free eval forward.
 - :class:`Rng`: explicit generators in place of JAX keys.
-
-``NoisyLinear`` (lines 89-131) is not ported yet: ``UseNoisyNet = False``
-on the acting path.
 """
 
 from __future__ import annotations
@@ -82,6 +82,50 @@ class Dense(nn.Linear):
         self.weight.uniform_(-bound, bound, generator=gen)
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=gen)
+
+
+class NoisyLinear(nn.Module):
+    """Gaussian NoisyNet linear layer (``eavit_tpu/models/layers.py:89-131``).
+
+    ``y = x W + b + x (W_noisy * outer(eps_in, eps_out)) + b_noisy * eps_out``
+    with ``eps ~ N(0, 1) * sigma0 / sqrt(fan_in)`` drawn at every forward
+    that gets an ``Rng``, from its device generator (no host sync). Without
+    one the forward is noise-free: the JAX package's documented divergence
+    from the reference's stale eval-time noise. All four parameters are
+    U(+-1/sqrt(fan_in)) in torch's ``[out, in]`` layout and float32; the
+    layer computes in its input's dtype, as the JAX layer does, and keeps
+    the two products apart (each weight cast on its own, so bf16 rounds as
+    there)."""
+
+    def __init__(self, in_features: int, out_features: int, sigma0: float = 0.5) -> None:
+        super().__init__()
+        self.in_features, self.out_features, self.sigma0 = in_features, out_features, sigma0
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.noisy_weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.noisy_bias = nn.Parameter(torch.empty(out_features))
+
+    def sample_noise(self, rng: Rng, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(eps_in [in], eps_out [out])`` from ``rng.device``."""
+        std = self.sigma0 / math.sqrt(self.in_features)
+        eps_in = torch.randn(self.in_features, generator=rng.device, device=device)
+        eps_out = torch.randn(self.out_features, generator=rng.device, device=device)
+        return eps_in * std, eps_out * std
+
+    def forward(self, x: torch.Tensor, rng: Optional[Rng] = None) -> torch.Tensor:
+        dt = x.dtype
+        y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
+        if rng is None:
+            return y
+        eps_in, eps_out = self.sample_noise(rng, x.device)
+        noisy_w = self.noisy_weight * torch.outer(eps_out, eps_in)
+        return y + F.linear(x, noisy_w.to(dt), (self.noisy_bias * eps_out).to(dt))
+
+    @torch.no_grad()
+    def init_params(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.in_features)
+        for p in (self.weight, self.bias, self.noisy_weight, self.noisy_bias):
+            p.uniform_(-bound, bound, generator=gen)
 
 
 class Conv(nn.Conv2d):

@@ -3,20 +3,22 @@
 Counterpart of ``eavit_tpu/models/policy.py`` (lines 1-185; reference
 model.py:85-354). Heads:
 
-- actor: Dense(D, D) -> ReLU -> Dense(D, A);
+- actor: Dense(D, D) -> ReLU -> Dense(D, A) (then tanh for continuous
+  actions, with a learnt float32 ``log_std [A]`` initialised to -0.5);
 - extra_fc: Dense(D, D) -> ReLU, shared by both critics;
 - critic_ext / critic_int: Dense(D, 1) on ``relu(extra_fc(x)) + x``;
 - orthogonal init: actor and critics gain 0.01, extra_fc gain 0.1, zero
-  biases.
+  biases;
+- ``UseNoisyNet = True``: the five heads are ``NoisyLinear`` layers, with
+  noise when the forward gets an ``Rng``.
 
 Token routing with explorative attention (policy.py:138-172): the
 exploration token feeds ``critic_int``, the exploitation token feeds
 ``critic_ext``, and their mean feeds the actor. Without it the CLS stream
 feeds everything.
 
-Not ported yet: continuous actions and the NoisyNet heads (ROADMAP.md
-Queue 1, item 5) and the HF backbone ``DualTokenViTHG`` (item 8); building
-one of them raises ``NotImplementedError``.
+Not ported yet: the HF backbone ``DualTokenViTHG`` (ROADMAP.md Queue 1,
+item 8); building it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from eavit_tpu_torch.config import (
     attention_route,
     ffn_route,
 )
-from eavit_tpu_torch.models.layers import Dense, Rng, compute_dtype
+from eavit_tpu_torch.models.layers import Dense, NoisyLinear, Rng, compute_dtype
 from eavit_tpu_torch.models.vit import DualTokenViT
 
 
@@ -43,7 +45,8 @@ class ActionSpaceType(str, Enum):
 
 
 class PolicyOutput(NamedTuple):
-    policy: torch.Tensor  # [B, A] logits
+    policy: torch.Tensor  # [B, A] logits (discrete) or tanh mean (continuous)
+    std: Optional[torch.Tensor]  # [A] (continuous only)
     value_ext: torch.Tensor  # [B, 1]
     value_int: torch.Tensor  # [B, 1]
     features: torch.Tensor  # [B, D] aggregated backbone features
@@ -67,24 +70,20 @@ def build_backbone(cfg: Config) -> DualTokenViT:
 
 
 class ActorCritic(nn.Module):
-    """Backbone + heads (policy.py:86-185), discrete actions."""
+    """Backbone + heads (policy.py:86-185)."""
 
     def __init__(self, cfg: Config, output_size: int,
                  action_space: ActionSpaceType = ActionSpaceType.DISCRETE) -> None:
         super().__init__()
-        if action_space != ActionSpaceType.DISCRETE:
-            raise NotImplementedError(
-                "continuous actions are not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 5)")
-        if cfg.use_noisy_net:
-            raise NotImplementedError(
-                "UseNoisyNet = True is not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 5)")
+        self.action_space = ActionSpaceType(action_space)
+        self.noisy = cfg.use_noisy_net
         dim = cfg.backbone_dim
         dt = compute_dtype(cfg.compute_dtype)
         self.feature = build_backbone(cfg)
 
         def head(n_in, n_out, gain):
+            if self.noisy:
+                return NoisyLinear(n_in, n_out)
             return Dense(n_in, n_out, dtype=dt, init=("orthogonal", gain))
 
         self.actor_fc1 = head(dim, dim, 0.01)
@@ -92,24 +91,39 @@ class ActorCritic(nn.Module):
         self.extra_fc = head(dim, dim, 0.1)
         self.critic_ext = head(dim, 1, 0.01)
         self.critic_int = head(dim, 1, 0.01)
+        if self.action_space == ActionSpaceType.CONTINUOUS:
+            self.log_std = nn.Parameter(torch.full((output_size,), -0.5))
 
-    def _critic(self, layer: Dense, x: torch.Tensor) -> torch.Tensor:
-        resid = torch.relu(self.extra_fc(x)) + x
-        return layer(resid).float()
+    @torch.no_grad()
+    def init_params(self, gen: torch.Generator) -> None:
+        if self.action_space == ActionSpaceType.CONTINUOUS:
+            self.log_std.fill_(-0.5)
+
+    def _head(self, layer, x: torch.Tensor, rng: Optional[Rng]) -> torch.Tensor:
+        return layer(x, rng) if self.noisy else layer(x)
+
+    def _critic(self, layer, x: torch.Tensor, rng: Optional[Rng]) -> torch.Tensor:
+        resid = torch.relu(self._head(self.extra_fc, x, rng)) + x
+        return self._head(layer, resid, rng).float()
 
     def forward(self, state: torch.Tensor, rng: Optional[Rng] = None) -> PolicyOutput:
         feats = self.feature(state, rng)
         if len(feats) == 2:
             x_explore, x_exploit = feats
-            value_int = self._critic(self.critic_int, x_explore)
-            value_ext = self._critic(self.critic_ext, x_exploit)
+            value_int = self._critic(self.critic_int, x_explore, rng)
+            value_ext = self._critic(self.critic_ext, x_exploit, rng)
             x_comb = 0.5 * (x_explore + x_exploit)  # the "mean" aggregation
         else:
             (x_comb,) = feats
-            value_int = self._critic(self.critic_int, x_comb)
-            value_ext = self._critic(self.critic_ext, x_comb)
-        policy = self.actor_fc2(torch.relu(self.actor_fc1(x_comb))).float()
-        return PolicyOutput(policy=policy, value_ext=value_ext,
+            value_int = self._critic(self.critic_int, x_comb, rng)
+            value_ext = self._critic(self.critic_ext, x_comb, rng)
+        policy = self._head(self.actor_fc2,
+                            torch.relu(self._head(self.actor_fc1, x_comb, rng)), rng)
+        std = None
+        if self.action_space == ActionSpaceType.CONTINUOUS:
+            policy = torch.tanh(policy)
+            std = torch.exp(self.log_std)
+        return PolicyOutput(policy=policy.float(), std=std, value_ext=value_ext,
                             value_int=value_int, features=x_comb.float())
 
     def extract_features(self, state: torch.Tensor) -> torch.Tensor:

@@ -3,12 +3,16 @@
 Counterpart of ``eavit_tpu/models/rnd.py`` (lines 1-134; reference
 model.py:357-461):
 
-``original_RND``: a conv trunk over the last raw frame [B, 1, 84, 84] --
-8x8/4, 4x4/2, 3x3/1 convs with LeakyReLU(0.01) -- flattened in NHWC order
-(H*W*C, as ``ConvTrunk`` does at rnd.py:61-65, so the head weights of the
-JAX tree load unpermuted), then a 3-layer 512 MLP predictor against a
-single-linear target. The ``modified_RND`` MLP trunk (rnd.py:68-79) comes
-with its slice (ROADMAP.md Queue 1, item 5).
+Two trunks, chosen by ``pixel_input`` as in rnd.py:82-110:
+
+- ``original_RND``: a conv trunk over the last raw frame [B, 1, 84, 84] --
+  8x8/4, 4x4/2, 3x3/1 convs with LeakyReLU(0.01) -- flattened in NHWC order
+  (H*W*C, as ``ConvTrunk`` does at rnd.py:61-65, so the head weights of the
+  JAX tree load unpermuted);
+- ``modified_RND``: an MLP trunk over the backbone embedding [B, D] --
+  64 -> 128 -> 256 with LeakyReLU(0.01) (rnd.py:68-79).
+
+Then a 3-layer 512 MLP predictor against a single-linear target.
 
 All weights orthogonal(sqrt(2)) with zero biases, all float32. The
 intrinsic reward is the feature-mean squared error (rnd.py:112-116); the
@@ -54,12 +58,35 @@ class ConvTrunk(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
+class MlpTrunk(nn.Module):
+    """[B, D] -> [B, 256]: fc1-fc3 with LeakyReLU(0.01), float32."""
+
+    def __init__(self, in_features: int) -> None:
+        super().__init__()
+        self.fc1 = _dense(in_features, 64)
+        self.fc2 = _dense(64, 128)
+        self.fc3 = _dense(128, 256)
+        self.out_features = 256
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for fc in (self.fc1, self.fc2, self.fc3):
+            x = F.leaky_relu(fc(x), 0.01)
+        return x
+
+
+def _trunk(pixel_input: bool, in_shape) -> nn.Module:
+    """``in_shape`` is ``(H, W)`` of the frame for the conv trunk, ``(D,)``
+    of the embedding for the MLP trunk."""
+    return ConvTrunk(*in_shape) if pixel_input else MlpTrunk(*in_shape)
+
+
 class RNDPredictor(nn.Module):
     """Trainable predictor: trunk -> 3-layer 512 MLP head (rnd.py:82-95)."""
 
-    def __init__(self, in_hw, output_size: int = 512) -> None:
+    def __init__(self, in_shape, pixel_input: bool = True, output_size: int = 512) -> None:
         super().__init__()
-        self.trunk = ConvTrunk(*in_hw)
+        self.trunk = _trunk(pixel_input, in_shape)
         self.head1 = _dense(self.trunk.out_features, output_size)
         self.head2 = _dense(output_size, output_size)
         self.head3 = _dense(output_size, output_size)
@@ -73,9 +100,9 @@ class RNDPredictor(nn.Module):
 class RNDTarget(nn.Module):
     """Frozen random target: trunk -> single linear (rnd.py:98-109)."""
 
-    def __init__(self, in_hw, output_size: int = 512) -> None:
+    def __init__(self, in_shape, pixel_input: bool = True, output_size: int = 512) -> None:
         super().__init__()
-        self.trunk = ConvTrunk(*in_hw)
+        self.trunk = _trunk(pixel_input, in_shape)
         self.head = _dense(self.trunk.out_features, output_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -4,17 +4,25 @@ Counterpart of ``eavit_tpu/rl/agent.py`` (reference agents.py:30-624 and
 train.py:580-870):
 
 - :meth:`RNDAgent.act` -- policy forward and sampling, one call per env
-  step (agent.py:211-260); dropout is live unless ``deterministic_model``.
+  step (agent.py:211-260); dropout and the NoisyNet noise are live unless
+  ``deterministic_model``. Discrete actions sample the softmax; continuous
+  ones the Normal over the tanh mean, and the agent returns their
+  log-probs ``[N, 1]`` in place of logits.
 - :meth:`RNDAgent.compute_intrinsic_reward` and
-  :meth:`RNDAgent.update_obs_rms` (agent.py:267-318), for ``original_RND``
-  and ``PPO``; ``modified_RND`` raises ``NotImplementedError`` until its
-  slice (ROADMAP.md Queue 1, item 5).
+  :meth:`RNDAgent.update_obs_rms` (agent.py:267-318). ``original_RND``
+  normalises the raw last frame; ``modified_RND`` the deterministic
+  backbone embedding of the whole next-obs stack (``extract_features``, run
+  in chunks of ``feature_chunk`` frames), through an ``obs_rms`` of shape
+  ``[1, D]``.
 - :meth:`RNDAgent.prepare_batch` -- steps 1-4 of ``_update_impl``
   (agent.py:341-446) in the same order: reward clip, RND intrinsic rewards
   with the PRE-update ``obs_rms``, the reward filter and reward RMS, dual
   GAE and advantage mixing, then the ``obs_rms`` update and the RND train
   input normalised with the POST-update ``obs_rms`` (reference
-  train.py:662-673 vs 772-779).
+  train.py:662-673 vs 772-779). Under ``modified_RND`` the JAX package runs
+  the backbone over the next-obs three times with the same parameters
+  (agent.py:360, :437, :445); its forward is deterministic, so the port
+  runs it once and uses the embedding for all three.
 
 - :meth:`RNDAgent.update` -- ``prepare_batch`` and then step 5
   (agent.py:448-614): ``Epoch`` passes of ``MiniBatch`` Adam steps over one
@@ -55,8 +63,11 @@ from eavit_tpu_torch.rl.ppo import (
     categorical_log_prob,
     clip_by_global_norm_,
     global_grad_norm,
+    normal_entropy,
+    normal_log_prob,
     ppo_surrogate,
     sample_categorical,
+    sample_normal,
 )
 
 
@@ -86,13 +97,13 @@ class Rollout(NamedTuple):
     """One n-step rollout, time-major [T, N, ...] (uint8 frames)."""
 
     states: torch.Tensor  # [T, N, C, H, W] uint8
-    actions: torch.Tensor  # [T, N] int64
+    actions: torch.Tensor  # [T, N] int64 (discrete) | [T, N, A] f32 (continuous)
     rewards: torch.Tensor  # [T, N] f32 raw env rewards
     dones: torch.Tensor  # [T, N] bool
     next_obs: torch.Tensor  # [T, N, 1|C, H, W] uint8
     value_ext: torch.Tensor  # [T+1, N] f32
     value_int: torch.Tensor  # [T+1, N] f32
-    policy: torch.Tensor  # [T, N, A] logits
+    policy: torch.Tensor  # [T, N, A] logits | [T, N, 1] log-probs (continuous)
 
 
 class TrainBatch(NamedTuple):
@@ -110,6 +121,11 @@ class TrainBatch(NamedTuple):
 class RNDAgent:
     """Owns the policy and RND modules on one device."""
 
+    # frames per backbone call of the modified_RND embedding pass: bounds its
+    # activations (0.42 GB a float32 [2048, 198, 256] tensor at the
+    # flagship width); the embedding of a frame does not depend on it
+    feature_chunk = 2048
+
     def __init__(
         self,
         cfg: Config,
@@ -126,20 +142,26 @@ class RNDAgent:
             raise NotImplementedError(
                 "BYOL / Barlow-Twins are not ported to the torch package yet "
                 "(ROADMAP.md Queue 1, item 7)")
-        if self.train_method == TrainMethod.MODIFIED_RND:
-            raise NotImplementedError(
-                "TrainMethod = modified_RND is not ported to the torch package "
-                "yet (ROADMAP.md Queue 1, item 5)")
         self.network = ActorCritic(cfg, output_size, action_space)
-        self.use_rnd = self.train_method == TrainMethod.ORIGINAL_RND
+        self.discrete = ActionSpaceType(action_space) == ActionSpaceType.DISCRETE
+        self.use_rnd = self.train_method in (TrainMethod.ORIGINAL_RND,
+                                             TrainMethod.MODIFIED_RND)
+        self.pixel_rnd = self.train_method == TrainMethod.ORIGINAL_RND
         self.rnd_pred = self.rnd_target = None
         if self.use_rnd:
-            in_hw = (cfg.pre_proc_height, cfg.pre_proc_width)
-            self.rnd_pred = RNDPredictor(in_hw)
-            self.rnd_target = RNDTarget(in_hw).requires_grad_(False)
+            self.rnd_pred = RNDPredictor(self._rnd_shape(), self.pixel_rnd)
+            self.rnd_target = RNDTarget(self._rnd_shape(),
+                                        self.pixel_rnd).requires_grad_(False)
         for m in self._modules().values():
             m.to(self.device)
         self.optimizer = self._make_optimizer()
+
+    def _rnd_shape(self) -> Tuple[int, ...]:
+        """The RND input of one sample: a frame ``(H, W)`` or an embedding
+        ``(D,)``."""
+        if self.pixel_rnd:
+            return (self.cfg.pre_proc_height, self.cfg.pre_proc_width)
+        return (self.cfg.backbone_dim,)
 
     def _modules(self) -> Dict[str, nn.Module]:
         named = {"policy": self.network, "rnd_pred": self.rnd_pred,
@@ -175,8 +197,7 @@ class RNDAgent:
         self.optimizer = self._make_optimizer()
         obs_rms = None
         if self.use_rnd:
-            obs_rms = norm.rms_init((1, cfg.pre_proc_height, cfg.pre_proc_width),
-                                    device=self.device)
+            obs_rms = norm.rms_init((1,) + self._rnd_shape(), device=self.device)
         return AgentState(
             obs_rms=obs_rms,
             reward_rms=norm.rms_init((), device=self.device),
@@ -234,41 +255,57 @@ class RNDAgent:
     def act(self, obs_u8, rng: Rng, deterministic_model: bool = False,
             greedy: bool = False):
         """Policy forward + sampling (agent.py:211-260). ``obs_u8`` is
-        [N, C, H, W] uint8 (numpy or tensor). Returns ``(actions [N],
-        value_ext [N], value_int [N], logits [N, A])`` on the device."""
+        [N, C, H, W] uint8 (numpy or tensor). Returns ``(actions, value_ext
+        [N], value_int [N], policy)`` on the device: actions [N] and logits
+        [N, A] for discrete actions, actions [N, A] and their log-probs
+        [N, 1] for continuous ones, whose greedy action is the mean."""
         obs = self._obs(obs_u8).float() / 255.0
         out = self.network(obs, None if deterministic_model else rng)
+        v_ext, v_int = out.value_ext[:, 0], out.value_int[:, 0]
+        if self.discrete:
+            if greedy:
+                actions = torch.argmax(out.policy, dim=-1)
+            else:
+                actions = sample_categorical(out.policy, rng.device)
+            return actions, v_ext, v_int, out.policy
         if greedy:
-            actions = torch.argmax(out.policy, dim=-1)
+            actions = out.policy
+            logp = normal_log_prob(out.policy, out.std, actions)
         else:
-            actions = sample_categorical(out.policy, rng.device)
-        return actions, out.value_ext[:, 0], out.value_int[:, 0], out.policy
+            actions, logp = sample_normal(out.policy, out.std, rng.device)
+        return actions, v_ext, v_int, logp[:, None]
 
     # ------------------------------------------------------------------
     # intrinsic reward and obs normalisation
     # ------------------------------------------------------------------
 
-    def _rnd_input(self, obs_rms: norm.RMSState, next_obs_u8: torch.Tensor) -> torch.Tensor:
-        """Normalised RND input: the raw 0..255 pixels of the last frame
-        (agent.py:273-281, reference train.py:662-666)."""
-        return norm.rms_normalize(obs_rms, next_obs_u8.float())
+    def _rnd_source(self, next_obs_u8: torch.Tensor) -> torch.Tensor:
+        """What ``obs_rms`` normalises (agent.py:273-289): the raw 0..255
+        pixels of the last frame (``original_RND``, reference
+        train.py:662-666), or the deterministic backbone embedding of
+        ``next_obs / 255`` (``modified_RND``, train.py:667-673), computed
+        ``feature_chunk`` frames at a time."""
+        if self.pixel_rnd:
+            return next_obs_u8.float()
+        return torch.cat([self.network.extract_features(c.float() / 255.0)
+                          for c in torch.split(next_obs_u8, self.feature_chunk)])
 
-    def _intrinsic(self, obs_rms, next_obs_u8) -> torch.Tensor:
-        x = self._rnd_input(obs_rms, next_obs_u8)
+    def _intrinsic(self, obs_rms, source: torch.Tensor) -> torch.Tensor:
+        x = norm.rms_normalize(obs_rms, source)
         return intrinsic_reward(self.rnd_target(x), self.rnd_pred(x))
 
     @torch.no_grad()
     def compute_intrinsic_reward(self, state: AgentState, next_obs_u8) -> torch.Tensor:
         if not self.use_rnd:
             raise ValueError('RND cannot be used with TrainMethod == "PPO"')
-        return self._intrinsic(state.obs_rms, self._obs(next_obs_u8))
+        return self._intrinsic(state.obs_rms, self._rnd_source(self._obs(next_obs_u8)))
 
     @torch.no_grad()
     def update_obs_rms(self, state: AgentState, next_obs_u8) -> AgentState:
         """Fold a batch of raw next-obs into obs_rms (agent.py:300-318)."""
         if not self.use_rnd:
             return state
-        x = self._obs(next_obs_u8).float()
+        x = self._rnd_source(self._obs(next_obs_u8))
         return state._replace(obs_rms=norm.rms_update(state.obs_rms, x))
 
     # ------------------------------------------------------------------
@@ -299,9 +336,9 @@ class RNDAgent:
         metrics: Dict[str, torch.Tensor] = {}
 
         if self.use_rnd:
-            next_obs_flat = env_major(ro.next_obs)
+            source = self._rnd_source(env_major(ro.next_obs))
             # intrinsic rewards with the PRE-update obs_rms
-            total_int_reward = self._intrinsic(state.obs_rms, next_obs_flat).reshape(N, T)
+            total_int_reward = self._intrinsic(state.obs_rms, source).reshape(N, T)
             new_reward_filter, per_step = norm.reward_filter_scan(
                 state.reward_filter, total_int_reward, cfg.int_gamma)
             flat = per_step.reshape(-1)
@@ -331,8 +368,8 @@ class RNDAgent:
 
         if self.use_rnd:
             # obs_rms update, then the RND train input with the POST-update stats
-            new_obs_rms = norm.rms_update(state.obs_rms, next_obs_flat.float())
-            rnd_train_in = self._rnd_input(new_obs_rms, next_obs_flat)
+            new_obs_rms = norm.rms_update(state.obs_rms, source)
+            rnd_train_in = norm.rms_normalize(new_obs_rms, source)
 
         metrics["data/ext_reward_per_rollout_mean"] = total_reward.mean()
         metrics["data/ext_reward_per_rollout_sum"] = total_reward.sum()
@@ -366,11 +403,18 @@ class RNDAgent:
         obs = batch.states[idx].float() / 255.0
         out = self.network(obs, rng)
         actions = batch.actions[idx]
+        if self.discrete:
+            log_prob = categorical_log_prob(out.policy, actions)
+            log_prob_old = categorical_log_prob(batch.old_policy[idx], actions)
+            entropy = categorical_entropy(out.policy)
+        else:  # the rollout stored log-probs, not logits (agent.py:463-469)
+            log_prob = normal_log_prob(out.policy, out.std, actions)
+            log_prob_old = batch.old_policy[idx][:, 0]
+            entropy = normal_entropy(out.std, obs.shape[0])
         ppo = ppo_surrogate(
-            categorical_log_prob(out.policy, actions),
-            categorical_log_prob(batch.old_policy[idx], actions),
+            log_prob, log_prob_old,
             batch.adv[idx], out.value_ext, batch.ext_target[idx],
-            categorical_entropy(out.policy), cfg.ppo_eps,
+            entropy, cfg.ppo_eps,
             out.value_int if self.use_rnd else None,
             batch.int_target[idx] if self.use_rnd else None,
         )

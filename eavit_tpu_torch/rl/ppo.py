@@ -1,5 +1,5 @@
-"""PPO loss math, the categorical distribution and sampling (counterpart of
-``eavit_tpu/rl/ppo.py`` lines 25-40 and 73-123; reference agents.py:454-493).
+"""PPO loss math, the action distributions and sampling (counterpart of
+``eavit_tpu/rl/ppo.py`` lines 25-123; reference agents.py:454-493).
 
 Combined objective per minibatch (reference agents.py:493)::
 
@@ -7,13 +7,15 @@ Combined objective per minibatch (reference agents.py:493)::
 
 with ``actor_loss = -mean(min(ratio * adv, clip(ratio) * adv))``,
 ``critic_loss = MSE(v_ext, target_ext) + MSE(v_int, target_int)`` and the
-diagnostics ``approx_kl`` / ``max_kl`` / ``clipfrac``. The continuous
-distributions come with continuous actions (ROADMAP.md Queue 1, item 5).
+diagnostics ``approx_kl`` / ``max_kl`` / ``clipfrac``. Continuous actions
+use a diagonal Normal over the tanh mean with a learnt ``std``
+(ppo.py:43-70; reference agents.py:197-203).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple, Optional
+import math
+from typing import Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +43,30 @@ def sample_categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tens
     probs = torch.softmax(logits.float(), dim=-1)
     q = torch.empty_like(probs).exponential_(1.0, generator=gen)
     return torch.argmax(probs / q, dim=-1)
+
+
+def normal_log_prob(mu: torch.Tensor, std: torch.Tensor,
+                    actions: torch.Tensor) -> torch.Tensor:
+    """Sum of the per-dimension Normal log-probs; [B, A], [A], [B, A] -> [B]."""
+    var = torch.square(std)
+    logp = -0.5 * (torch.square(actions - mu) / var + torch.log(2 * math.pi * var))
+    return logp.sum(dim=-1)
+
+
+def normal_entropy(std: torch.Tensor, batch: int) -> torch.Tensor:
+    """The MEAN over action dimensions of the Normal entropies, broadcast to
+    ``[batch]``: the reference's bonus is ``m.entropy().mean()``
+    (agents.py:462), which averages over the batch and the dimensions."""
+    ent = torch.mean(0.5 * torch.log(2 * math.pi * math.e * torch.square(std)))
+    return ent.expand(batch)
+
+
+def sample_normal(mu: torch.Tensor, std: torch.Tensor,
+                  gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mu + std * eps, its log-prob)`` with ``eps ~ N(0, 1)`` drawn from
+    ``gen`` on ``mu``'s device; [B, A] -> [B, A], [B]."""
+    a = mu + std * torch.randn(mu.shape, generator=gen, device=mu.device)
+    return a, normal_log_prob(mu, std, a)
 
 
 class PPOLossOut(NamedTuple):

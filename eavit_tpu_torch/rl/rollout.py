@@ -3,9 +3,10 @@
 Counterpart of ``eavit_tpu/rl/rollout.py`` (lines 1-190; reference
 train.py:604-704): a vectorised env pool stepped on the host and one
 ``act`` call per step. Frames stay uint8 on the host; the per-step values
-and logits stay on the device and only the actions come back. The rollout
-moves to the device once, at the end. ``DeviceRolloutCollector``
-(``eavit_tpu/rl/device_rollout.py``) is a later slice.
+and logits (log-probs for continuous actions) stay on the device and only
+the actions come back. The rollout moves to the device once, at the end.
+``DeviceRolloutCollector`` (``eavit_tpu/rl/device_rollout.py``) is a later
+slice.
 """
 
 from __future__ import annotations
@@ -80,12 +81,15 @@ class EpisodeStats:
 
 class RolloutCollector:
     """Collects rollouts with ``agent`` on its device (CUDA unless the
-    agent was built with ``device="cpu"``)."""
+    agent was built with ``device="cpu"``). A ``renderer``
+    (``utils/renderer.py``) shows the last frame of every env after each
+    step (reference train.py:693-698)."""
 
-    def __init__(self, cfg: Config, agent: RNDAgent, env: Any):
+    def __init__(self, cfg: Config, agent: RNDAgent, env: Any, renderer: Any = None):
         self.cfg = cfg
         self.agent = agent
         self.env = env
+        self.renderer = renderer
         self.stats = EpisodeStats()
         self._pixel_rnd = cfg.train_method == TrainMethod.ORIGINAL_RND
 
@@ -104,15 +108,20 @@ class RolloutCollector:
         cfg = self.cfg
         if not self.agent.use_rnd or cfg.load_model:
             return state, states_u8
-        # random actions from a numpy generator seeded off the host stream
+        # random actions from a numpy generator seeded off the host stream,
+        # the env's own sampler where it has one (continuous Box bounds)
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng.host))
         rng_np = np.random.default_rng(seed)
+
+        def random_actions():
+            if hasattr(self.env, "sample_random_actions"):
+                return self.env.sample_random_actions(rng_np)
+            return rng_np.integers(0, self.env.action_space_n, size=self.env.num_envs)
+
         for _ in range(cfg.obs_norm_step):
             batch = []
             for _ in range(cfg.num_step):
-                actions = rng_np.integers(0, self.env.action_space_n,
-                                          size=self.env.num_envs)
-                states_u8, _, _, _, _ = self.env.step(actions)
+                states_u8, _, _, _, _ = self.env.step(random_actions())
                 batch.append(self._next_obs_of(states_u8))
             state = self.agent.update_obs_rms(state, np.concatenate(batch))
         return state, states_u8
@@ -126,9 +135,13 @@ class RolloutCollector:
         next_obs_buf = np.empty((T, N) + self._next_obs_of(states_u8).shape[1:], np.uint8)
         rewards_buf = np.empty((T, N), np.float32)
         dones_buf = np.empty((T, N), np.bool_)
-        actions_dev = torch.empty((T, N), dtype=torch.int64, device=dev)
-        policy_dev = torch.empty((T, N, self.agent.output_size), dtype=torch.float32,
-                                 device=dev)
+        A = self.agent.output_size
+        if self.agent.discrete:
+            actions_dev = torch.empty((T, N), dtype=torch.int64, device=dev)
+            policy_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
+        else:  # actions [T, N, A] and their log-probs (rollout.py:144-149)
+            actions_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
+            policy_dev = torch.empty((T, N, 1), dtype=torch.float32, device=dev)
         value_ext_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
         value_int_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
 
@@ -145,6 +158,8 @@ class RolloutCollector:
             next_obs_buf[t] = self._next_obs_of(states_u8)
             for info in infos:
                 self.stats.add(info)
+            if self.renderer is not None:
+                self.renderer.render(states_u8[:, -1:])
 
         # bootstrap value (reference train.py:701-704)
         _, v_ext, v_int, _ = self.agent.act(states_u8, rng)

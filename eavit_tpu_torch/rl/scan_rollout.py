@@ -5,7 +5,8 @@ Counterpart of ``eavit_tpu/rl/scan_rollout.py`` (lines 29-216) without its
 package compiles the rollout into one ``lax.scan``; here it is a Python loop
 over ``NumStep`` steps whose every operation is queued on the device: the
 policy forward (``RNDAgent.act``, dropout live, its kernel seed words drawn
-on the host from ``Rng.host``), the sampled actions, the env step of
+on the host from ``Rng.host``; under ``UseNoisyNet`` the heads' noise drawn
+from ``Rng.device``), the sampled actions, the env step of
 ``envs/device_env.py`` and the writes into buffers allocated once per
 rollout. Nothing in the loop reads a device value back, so the host only
 queues work and the card never waits for it.

@@ -14,9 +14,12 @@ named. ``EnvType = synthetic_device`` runs the zero-host path: the env of
 ``envs/device_env.py`` and ``rl/scan_rollout.py``'s collector keep the frames,
 the env state and the rollout on the agent's device, the obs-norm warm-up
 runs policy rollouts through that collector, and a checkpoint carries the
-env's episode bookkeeping. The SSL methods, ``Render = True`` and
-``DataAxisSize > 1`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP items. ``SSL_pretraining =
+env's episode bookkeeping. On the host-env path the action space comes from
+the env fleet (discrete ``action_space_n`` or continuous ``action_dim``,
+``eavit_tpu/train.py:34-39``, ``:341-342``), and ``Render = True`` shows the
+rollout frames in a matplotlib grid (``utils/renderer.py``). The SSL methods
+and ``DataAxisSize > 1`` are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items. ``SSL_pretraining =
 True`` with no representation method trains without SSL, as the reference
 pretrains only when both are set (``eavit_tpu/train.py:258``, ``:392``).
 """
@@ -37,6 +40,7 @@ from eavit_tpu_torch.config import (
 from eavit_tpu_torch.envs.builders import make_vector_env
 from eavit_tpu_torch.envs.device_env import DeviceEnvState, make_device_env
 from eavit_tpu_torch.models.layers import Rng
+from eavit_tpu_torch.models.policy import ActionSpaceType
 from eavit_tpu_torch.rl.agent import RNDAgent
 from eavit_tpu_torch.rl.rollout import RolloutCollector
 from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
@@ -51,14 +55,17 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "SSL pretraining and BYOL / Barlow-Twins are not ported to the torch "
             "package yet (ROADMAP.md Queue 1, item 7)")
-    if cfg.render:
-        raise NotImplementedError(
-            "rendering is not ported to the torch package yet (ROADMAP.md Queue 1, "
-            "item 11: utils/renderer.py)")
     if cfg.data_axis_size > 1:
         raise NotImplementedError(
             "DataAxisSize > 1 (data parallel) is not ported to the torch package "
             "yet (ROADMAP.md Queue 1, item 9)")
+
+
+def _detect_action_space(env) -> ActionSpaceType:
+    """Discrete when the fleet has ``action_space_n``, else continuous."""
+    if getattr(env, "action_space_n", None):
+        return ActionSpaceType.DISCRETE
+    return ActionSpaceType.CONTINUOUS
 
 
 def _device_env_stats_meta(env_state: DeviceEnvState) -> Dict[str, Any]:
@@ -203,7 +210,10 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
     if cfg.env_type == EnvType.SYNTHETIC_DEVICE:
         return _train_device_env(cfg, total_updates, profile_updates, log_dir, device)
     env = make_vector_env(cfg, rank=0, render=cfg.render)
-    agent = RNDAgent(cfg, env.action_space_n, device=device)  # raises without CUDA
+    # the number of discrete actions or the continuous action dimension
+    output_size = env.action_space_n or getattr(env, "action_dim", 1) or 1
+    agent = RNDAgent(cfg, output_size, _detect_action_space(env),
+                     device=device)  # raises without CUDA
     logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
                     verbose=cfg.verbose_logging)
     logger.log(f"device: {agent.device}")
@@ -211,7 +221,12 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
 
     state = agent.init_state(cfg.seed)
     rng = Rng(cfg.seed + 1, agent.device)
-    collector = RolloutCollector(cfg, agent, env)
+    renderer = None
+    if cfg.render:
+        from eavit_tpu_torch.utils.renderer import ParallelizedEnvironmentRenderer
+
+        renderer = ParallelizedEnvironmentRenderer(cfg.num_env_per_process)
+    collector = RolloutCollector(cfg, agent, env, renderer=renderer)
 
     ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every)
     start_update = 0
@@ -265,6 +280,8 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
         if logger.step_profiler():
             break
 
+    if renderer is not None:
+        renderer.close()
     env.close()
     logger.close()
     return last_metrics

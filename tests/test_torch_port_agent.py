@@ -238,9 +238,12 @@ def test_ppo_mode_prepare_batch_is_the_extrinsic_gae():
 
 def test_unported_modes_raise():
     base = dict(vit=port_config.ViTConfig(**TINY), **COMMON)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RNDAgent(port_config.Config(train_method=port_config.TrainMethod.MODIFIED_RND,
-                                    **base), N_ACT, device="cpu")
+    # modified_RND is ported (tests/test_torch_port_continuous.py); the SSL
+    # methods are not
+    with pytest.raises(NotImplementedError, match="item 7"):
+        RNDAgent(port_config.Config(
+            representation_lr_method=port_config.RepresentationMethod.BYOL, **base),
+            N_ACT, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RNDAgent(port_config.Config(vit_implementation_type=1, **base), N_ACT,
                  device="cpu")

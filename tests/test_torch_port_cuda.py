@@ -1095,3 +1095,120 @@ def test_refused_dtypes_and_head_widths_raise_at_any_length(cuda):
     with pytest.raises(ValueError, match="dim_head"):
         fd.flash_dropout_bwd(q, q, q, torch.zeros(1, 2, n, device=cuda), q, (1, 2), 0.1, 0.2)
     assert {**fq.launches, **fl.launches, **fd.launches} == before
+
+
+# ---------------------------------------------------------------------------
+# continuous actions, NoisyNet and modified_RND on the card
+# ---------------------------------------------------------------------------
+
+SMALL_VIT = dict(dim=32, patch_size=21, depth=1, heads=2, dim_head=16, mlp_dim=64,
+                 dropout=0.0, emb_dropout=0.0)
+
+
+def _small_agents(cuda, continuous):
+    """The same small agent on the card and on the CPU, NoisyNet on with one
+    noise given to both (chip_smoke.freeze_noise), dropout 0, ``UpdateProportion
+    = 1``: continuous actions + PPO, or discrete + ``modified_RND``."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, TrainMethod, ViTConfig
+    from eavit_tpu_torch.models.policy import ActionSpaceType
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    cfg = Config(vit=ViTConfig(**SMALL_VIT), num_env_per_process=2, num_step=8, epoch=1,
+                 mini_batch=2, compute_dtype="float32", attention_impl="pallas_qkv",
+                 fused_ffn=True, use_noisy_net=True, update_proportion=1.0,
+                 learning_rate=1e-3, stable_eps=1e-3,
+                 train_method=TrainMethod.PPO if continuous else TrainMethod.MODIFIED_RND)
+    space = ActionSpaceType.CONTINUOUS if continuous else ActionSpaceType.DISCRETE
+    agents = [RNDAgent(cfg, 1 if continuous else 5, space, device=d) for d in (cuda, "cpu")]
+    states = [a.init_state(0) for a in agents]
+    cs.freeze_noise(torch, agents, 7)
+    return agents, states
+
+
+@pytest.mark.parametrize("continuous", [True, False], ids=["continuous_noisy",
+                                                           "modified_rnd_noisy"])
+def test_item5_agent_acts_and_updates_on_cuda_like_its_cpu_copy(cuda, continuous):
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import Rollout
+
+    (gpu, cpu), (sg, sc) = _small_agents(cuda, continuous)
+    rng = np.random.default_rng(3)
+    T, N = 8, 2
+    obs = rng.integers(0, 256, (T, N, 4, 84, 84), dtype=np.uint8)
+    # acting: the noisy forward of the same frames (the samples come from each
+    # device's own generator, so the network's outputs are compared)
+    x = torch.from_numpy(obs[0]).float() / 255.0
+    with torch.no_grad():
+        og, oc = gpu.network(x.to(cuda), Rng(1, cuda)), cpu.network(x, Rng(1, "cpu"))
+    for name in ("policy", "value_ext", "value_int"):
+        assert _max_err(getattr(og, name).cpu(), getattr(oc, name)) <= 1e-4, name
+    acts, _, _, pol = gpu.act(obs[0], Rng(1, cuda))
+    assert acts.device == pol.device == og.policy.device and torch.isfinite(pol).all()
+    if continuous:
+        assert acts.shape == (N, 1) and pol.shape == (N, 1)
+        actions = rng.uniform(-1, 1, (T, N, 1)).astype(np.float32)
+        policy = (rng.standard_normal((T, N, 1)) - 1.0).astype(np.float32)
+        next_obs = np.zeros((T, N, 1, 84, 84), np.uint8)
+    else:
+        actions = rng.integers(0, 5, (T, N))
+        policy = rng.standard_normal((T, N, 5)).astype(np.float32)
+        next_obs = rng.integers(0, 256, (T, N, 4, 84, 84), dtype=np.uint8)
+        sg, sc = gpu.update_obs_rms(sg, next_obs[0]), cpu.update_obs_rms(sc, next_obs[0])
+    ro = dict(states=obs, actions=actions, rewards=rng.standard_normal((T, N)).astype(
+        np.float32), dones=rng.random((T, N)) < 0.2, next_obs=next_obs,
+        value_ext=rng.standard_normal((T + 1, N)).astype(np.float32),
+        value_int=rng.standard_normal((T + 1, N)).astype(np.float32), policy=policy)
+    perm = torch.from_numpy(rng.permutation(T * N))
+    out = []
+    for agent, state, dev in ((gpu, sg, cuda), (cpu, sc, "cpu")):
+        agent._permutation = lambda r, n, d=dev: perm.to(d)
+        rollout = Rollout(**{k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in ro.items()})
+        _, metrics = agent.update(state, rollout, Rng(2, dev))
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    [p.detach().cpu() for p in agent.trainable_parameters()]))
+    (mg, pg), (mc, pc) = out
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-3 * max(1.0, abs(mc[k])), k
+    assert max(_max_err(a, b) for a, b in zip(pg, pc)) <= 1e-4
+
+
+def test_device_env_collect_with_noisy_net_never_syncs(cuda):
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, EnvType, ViTConfig
+    from eavit_tpu_torch.envs.device_env import make_device_env
+    from eavit_tpu_torch.models.layers import NoisyLinear, Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
+
+    cfg = Config(vit=ViTConfig(**{**SMALL_VIT, "dropout": 0.1}), num_env_per_process=4,
+                 num_step=8, env_type=EnvType.SYNTHETIC_DEVICE, use_noisy_net=True,
+                 attention_impl="pallas_qkv", fused_ffn=True)
+    agent = RNDAgent(cfg, 5, device=cuda)
+    agent.init_state(0)
+    assert any(isinstance(m, NoisyLinear) for m in agent.network.modules())
+    params, env_state = make_device_env(4, seed=0, device=cuda)
+    collector = ScanRolloutCollector(cfg, agent, params)
+    rng = Rng(0, cuda)
+    _, env_state, _ = collector.collect(env_state, rng)  # warm
+    assert cs.host_syncs(torch, lambda: collector.collect(env_state, rng)) == []
+
+
+def test_k1f_and_k2f_at_the_next_obs_pass_shape(cuda):
+    """The ``modified_RND`` embedding pass feeds K1f ``feature_chunk`` frames
+    of 198 tokens and K2f 198 rows a frame, both at rate 0."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    b, n = RNDAgent.feature_chunk, 198
+    qkv = _qkv(b, n, 8, 32, cuda, torch.bfloat16)
+    args = (8, 32, 32 ** -0.5, 2, (1, 2), 0.0)
+    o, lse = fq.flash_qkv_fwd(qkv, *args)
+    po, plse = fq.flash_qkv_fwd_plain(qkv, *args)
+    assert _max_err(o, po) <= _bf16_tol(po) and _max_err(lse, plse) <= 1e-4
+    del qkv, o, lse, po, plse
+    params, f = cs._ffn_params(torch, cuda, 256, 1024, 5)
+    x = f(b * n, 256).to(cuda)
+    y = ff.fused_ffn(x, *params, seeds=(1, 2), rate=0.0)
+    p = ff.fused_ffn_fwd_plain(x, *params, seeds=(1, 2), rate=0.0)
+    assert _max_err(y, p) <= 1e-4 * p.abs().max().item()
