@@ -16,9 +16,10 @@ Keys that name TPU choices are still parsed. :func:`attention_route` and
   ``pallas_stream`` the KV-streaming kernels of ``ops/flash_stream.py``.
 - ``FusedFFN = true`` runs the CUDA kernel of ``ops/fused_ffn.py``.
 - ``ComputeDtype`` keeps its meaning (the dtype of the Dense layers).
-- ``PrngImpl`` is parsed and not read. ``EncoderRemat`` other than
-  ``none`` and ``DataAxisSize > 1`` are parsed and raise
-  ``NotImplementedError`` in ``update`` / ``train``.
+- ``PrngImpl`` is parsed and not read. ``EncoderRemat = full | dots``
+  recomputes the encoder's sublayers in the backward (``models/vit.py``).
+  ``DataAxisSize > 1`` is parsed and raises ``NotImplementedError`` in
+  ``train``.
 
 Divergences from the reference (documented, intentional):
 
@@ -167,7 +168,7 @@ class Config:
     # steps): a documented divergence knob, not the parity default
     minibatch_merge: int = 1
     # encoder rematerialization in the update's backward: "none" | "full" |
-    # "dots" (eavit_tpu/config.py:161-168); only "none" is ported
+    # "dots" (eavit_tpu/config.py:161-168), models/vit.py Transformer
     encoder_remat: str = "none"
     learning_rate: float = 1e-4
     ppo_eps: float = 0.1

@@ -11,7 +11,10 @@ the mapping is by path, with these conversions:
 - LayerNorm ``scale`` -> ``weight``;
 - the RND trunks, auto-named ``ConvTrunk_0`` / ``MlpTrunk_0`` by flax, are
   the port's ``trunk``. The conv trunk flattens in NHWC order in both
-  packages, so ``head1`` / ``head`` rows need no permutation.
+  packages, so ``head1`` / ``head`` rows need no permutation;
+- the SSL heads' BatchNorm parameters (``bn_scale``, ``bn{i}_scale``, ...)
+  keep their names: ``params["ssl"]`` goes into ``agent.ssl`` and BYOL's
+  ``ssl_target`` (``feature`` and ``projector``) into ``agent.ssl_target``.
 
 Every parameter of the module must be covered and every shape must match,
 or :func:`load_flax_tree` raises.
@@ -98,16 +101,23 @@ def load_flax_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
 
 
 def load_jax_params(agent, params_np: Mapping[str, Any],
-                    rnd_target_np: Optional[Mapping[str, Any]] = None) -> None:
+                    rnd_target_np: Optional[Mapping[str, Any]] = None,
+                    ssl_target_np: Optional[Mapping[str, Any]] = None) -> None:
     """Load ``AgentState.params`` of an ``eavit_tpu`` agent (``{"policy":
-    ..., "rnd_pred": ...}``) and its ``rnd_target`` into an
-    :class:`~eavit_tpu_torch.rl.agent.RNDAgent`."""
+    ..., "rnd_pred": ..., "ssl": ...}``), its ``rnd_target`` and its
+    ``ssl_target`` into an :class:`~eavit_tpu_torch.rl.agent.RNDAgent`."""
     load_flax_tree(agent.network, params_np["policy"])
     if agent.use_rnd:
         load_flax_tree(agent.rnd_pred, params_np["rnd_pred"])
         if rnd_target_np is None:
             raise ValueError("an RND agent needs the JAX rnd_target tree too")
         load_flax_tree(agent.rnd_target, rnd_target_np)
+    if agent.ssl is not None:
+        load_flax_tree(agent.ssl, params_np["ssl"])
+    if agent.ssl_target is not None:
+        if ssl_target_np is None:
+            raise ValueError("a BYOL agent needs the JAX ssl_target tree too")
+        load_flax_tree(agent.ssl_target, ssl_target_np)
 
 
 def _find_adam_state(opt_state: Any) -> Optional[Any]:
@@ -133,13 +143,15 @@ def load_jax_state(agent, state_np: Any):
     from eavit_tpu_torch.rl import normalizer as norm
     from eavit_tpu_torch.rl.agent import AgentState
 
-    load_jax_params(agent, state_np.params, state_np.rnd_target)
+    load_jax_params(agent, state_np.params, state_np.rnd_target, state_np.ssl_target)
     adam = _find_adam_state(state_np.opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
     trees = [(agent.network, "policy")]
     if agent.use_rnd:
         trees.append((agent.rnd_pred, "rnd_pred"))
+    if agent.ssl is not None:
+        trees.append((agent.ssl, "ssl"))
     agent.optimizer = agent._make_optimizer()
     step = float(np.asarray(adam.count))
     for module, key in trees:

@@ -4,8 +4,9 @@ eval.py:16-302): single-env playback of a checkpoint in eval mode
 ``greedy`` (the argmax, or the mean action for a continuous policy), with
 the per-step intrinsic-reward trace and, with ``render``, the frames in a
 matplotlib window (``utils/renderer.py``). Any host env of
-``envs/builders.py`` plays back, classic control included. Runs on CUDA
-unless ``device="cpu"`` is given.
+``envs/builders.py`` plays back, classic control included. A checkpoint of
+an SSL run loads the same way; its SSL heads and target play no part in
+acting. Runs on CUDA unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations

@@ -15,13 +15,15 @@ Counterpart of ``eavit_tpu/models/layers.py`` (lines 1-131):
 - :class:`Dropout16` (lines 49-66) over ``ops/attention.dropout16``.
 - :class:`NoisyLinear` (lines 89-131): the Gaussian NoisyNet layer with
   its noise-free eval forward.
-- :class:`Rng`: explicit generators in place of JAX keys.
+- :class:`Rng`: explicit generators in place of JAX keys, and
+  :class:`RecordedRng`, the draws of one sublayer kept for a region that
+  ``EncoderRemat`` recomputes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +54,44 @@ class Rng:
 
     def seeds(self) -> Tuple[int, int]:
         return seeds_from_generator(self.host)
+
+    def record(self) -> "RecordedRng":
+        """The draws of one sublayer from here on, kept for a replay."""
+        return RecordedRng(self)
+
+
+class RecordedRng:
+    """The draws of one sublayer, kept for the region that a
+    rematerialising backward runs again. :meth:`rewind` before each run of
+    the sublayer. On the first run :meth:`seeds` draws the kernel seed words
+    from the parent stream and keeps them; after a rewind it hands the kept
+    words out again in order. ``device`` restarts from the parent's
+    generator state at :meth:`Rng.record`, so the recompute draws the first
+    run's masks. ``torch.utils.checkpoint``'s ``preserve_rng_state``
+    restores only the default generators, not these. :meth:`advance` moves
+    the parent's device generator past what the first run drew, so that the
+    stream goes on as without the recompute."""
+
+    def __init__(self, parent: Rng) -> None:
+        self._parent = parent
+        self._seeds: List[Tuple[int, int]] = []
+        self._start = parent.device.get_state()
+        self.device = torch.Generator(parent.device.device)
+        self._next = 0
+
+    def rewind(self) -> None:
+        self._next = 0
+        self.device.set_state(self._start)
+
+    def seeds(self) -> Tuple[int, int]:
+        if self._next == len(self._seeds):
+            self._seeds.append(self._parent.seeds())
+        words = self._seeds[self._next]
+        self._next += 1
+        return words
+
+    def advance(self) -> None:
+        self._parent.device.set_state(self.device.get_state())
 
 
 class Dense(nn.Linear):

@@ -66,6 +66,7 @@ def build_backbone(cfg: Config) -> DualTokenViT:
         ffn_route=ffn_route(cfg),
         shared_patch_stream=cfg.shared_patch_stream,
         dtype=compute_dtype(cfg.compute_dtype),
+        remat=cfg.encoder_remat,
     )
 
 

@@ -30,15 +30,36 @@ modules' parameter names mirror the flax tree (the same on every route), so
 A forward with ``rng=None`` is deterministic (the JAX ``deterministic=True``);
 with an :class:`~eavit_tpu_torch.models.layers.Rng` dropout is live, as at
 act time (``eavit_tpu/rl/agent.py:221-243``).
+
+``EncoderRemat`` (``vit.py:267-300``): under ``full`` each ``attn_i`` and
+``ff_i`` runs under ``torch.utils.checkpoint`` (non-reentrant) and is
+recomputed whole in the backward; under ``dots`` a selective checkpoint
+keeps the outputs of torch's matrix products and recomputes the rest, the
+kernels included (``jax.checkpoint_policies.dots_saveable``: a Pallas call
+is one primitive to JAX, not a dot). A recomputed sublayer takes its seed
+words and device draws from a
+:class:`~eavit_tpu_torch.models.layers.RecordedRng`, which keeps what the
+first run drew and replays it, so the backward sees the first run's masks,
+and the stream goes on as under ``none``: both modes give ``none``'s
+gradients. The parameter names do not
+change, as ``nn.remat`` keeps them. Without autograd (acting, the SSL
+target) nothing is checkpointed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from eavit_tpu_torch.config import ViTConfig
 from eavit_tpu_torch.models.layers import Dense, Dropout16, LayerNorm, Rng
@@ -136,6 +157,20 @@ class FeedForward(nn.Module):
         return self.drop(self.fc2(self.drop(h, rng)), rng)
 
 
+_MATMULS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+             torch.ops.aten.baddbmm}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots`` remat: keep the matrix products' outputs, recompute the rest."""
+    if op.overloadpacket in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_MODES = ("none", "full", "dots")
+
+
 class Transformer(nn.Module):
     """Pre-norm encoder with a final LayerNorm (vit.py:251-310). Layers are
     named ``attn_{i}`` / ``ff_{i}`` as in the flax tree."""
@@ -143,9 +178,11 @@ class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float, attention_route: str,
                  ffn_route: str, num_special: int,
-                 dtype: Optional[torch.dtype]) -> None:
+                 dtype: Optional[torch.dtype], remat: str = "none") -> None:
         super().__init__()
-        self.depth = depth
+        if remat not in REMAT_MODES:
+            raise ValueError(f"EncoderRemat must be one of {REMAT_MODES}, got {remat!r}")
+        self.depth, self.remat = depth, remat
         for i in range(depth):
             self.add_module(f"attn_{i}", MultiHeadAttention(
                 dim, heads, dim_head, dropout, attention_route, num_special, dtype))
@@ -153,10 +190,30 @@ class Transformer(nn.Module):
                 dim, mlp_dim, dropout, ffn_route, dtype))
         self.norm = LayerNorm(dim, eps=1e-5)
 
+    def _rematerialised(self, layer: nn.Module, x: torch.Tensor,
+                        rng: Optional[Rng]) -> torch.Tensor:
+        """``layer(x, rng)`` under a checkpoint whose recompute replays the
+        first run's draws (module doc)."""
+        rec = rng.record() if rng is not None and layer.dropout > 0 else None
+
+        def run(x):
+            if rec is not None:
+                rec.rewind()
+            return layer(x, rec)
+
+        context = (functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+                   if self.remat == "dots" else noop_context_fn)
+        out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                         context_fn=context)
+        if rec is not None:
+            rec.advance()
+        return out
+
     def forward(self, x: torch.Tensor, rng: Optional[Rng] = None) -> torch.Tensor:
+        remat = self.remat != "none" and torch.is_grad_enabled()
         for i in range(self.depth):
-            x = x + getattr(self, f"attn_{i}")(x, rng)
-            x = x + getattr(self, f"ff_{i}")(x, rng)
+            for layer in (getattr(self, f"attn_{i}"), getattr(self, f"ff_{i}")):
+                x = x + (self._rematerialised(layer, x, rng) if remat else layer(x, rng))
         return self.norm(x)
 
 
@@ -166,7 +223,7 @@ class DualTokenViT(nn.Module):
     def __init__(self, cfg: ViTConfig, image_size: int, channels: int,
                  attention_route: str = "plain", ffn_route: str = "plain",
                  shared_patch_stream: bool = False,
-                 dtype: Optional[torch.dtype] = None) -> None:
+                 dtype: Optional[torch.dtype] = None, remat: str = "none") -> None:
         super().__init__()
         if image_size % cfg.patch_size:
             raise ValueError("Image dimensions must be divisible by the patch size.")
@@ -189,7 +246,7 @@ class DualTokenViT(nn.Module):
             self.normal_params = ("pos_embedding", "cls_token")
         self.transformer = Transformer(
             cfg.dim, cfg.depth, cfg.heads, cfg.dim_head, cfg.mlp_dim, cfg.dropout,
-            attention_route, ffn_route, 2 if self.fused else 0, dtype)
+            attention_route, ffn_route, 2 if self.fused else 0, dtype, remat)
         self.emb_drop = Dropout16(cfg.emb_dropout)
 
     def forward(self, img: torch.Tensor,

@@ -27,17 +27,23 @@ train.py:580-870):
 - :meth:`RNDAgent.update` -- ``prepare_batch`` and then step 5
   (agent.py:448-614): ``Epoch`` passes of ``MiniBatch`` Adam steps over one
   permutation each, dropout live, loss ``actor + 0.5 * critic - Entropy *
-  entropy + rnd``, the metrics averaged over minibatches and then epochs
-  under the JAX names.
+  entropy + rnd + coef * representation``, the metrics averaged over
+  minibatches and then epochs under the JAX names.
+- With ``representationLearningMethod`` set, ``self.ssl`` holds the SSL
+  head (``models/ssl.py``) and, under BYOL, ``self.ssl_target`` its EMA
+  target. The representation term (unless ``freeze_shared_backbone``) runs
+  on the minibatch's frames, two views whose augment parameters
+  :meth:`RNDAgent._augment_params` draws; the EMA steps after every
+  optimizer step, under the freeze too (agent.py:492-506, :568-569).
 
 Parameters live in the agent's modules on ``self.device`` and are updated
 in place by the agent's ``torch.optim.Adam`` (the JAX package threads
 params and the optax state through ``AgentState``); the normalisers and
 counters live in an :class:`AgentState`. Gradient clipping follows
-``optax.clip_by_global_norm``. ``EncoderRemat`` other than ``none`` raises
-in ``update``: a recompute would redraw the kernels' dropout seeds. The
-agent runs on CUDA unless the caller passes ``device="cpu"``; with no GPU
-and no device it raises.
+``optax.clip_by_global_norm``. ``EncoderRemat = full | dots`` recomputes
+the encoder's sublayers in the backward (``models/vit.py``). The agent runs
+on CUDA unless the caller passes ``device="cpu"``; with no GPU and no
+device it raises.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from eavit_tpu_torch.config import Config, RepresentationMethod, TrainMethod
+from eavit_tpu_torch.config import Config, TrainMethod
 from eavit_tpu_torch.models.layers import Rng, init_module
 from eavit_tpu_torch.models.policy import ActionSpaceType, ActorCritic
 from eavit_tpu_torch.models.rnd import (
@@ -56,6 +62,7 @@ from eavit_tpu_torch.models.rnd import (
     intrinsic_reward,
     rnd_loss,
 )
+from eavit_tpu_torch.models.ssl import Views, make_ssl
 from eavit_tpu_torch.ops.gae import make_train_data
 from eavit_tpu_torch.rl import normalizer as norm
 from eavit_tpu_torch.rl.ppo import (
@@ -138,10 +145,6 @@ class RNDAgent:
         self.output_size = output_size
         self.action_space = action_space
         self.train_method = cfg.train_method
-        if cfg.representation_lr_method != RepresentationMethod.NONE:
-            raise NotImplementedError(
-                "BYOL / Barlow-Twins are not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 7)")
         self.network = ActorCritic(cfg, output_size, action_space)
         self.discrete = ActionSpaceType(action_space) == ActionSpaceType.DISCRETE
         self.use_rnd = self.train_method in (TrainMethod.ORIGINAL_RND,
@@ -152,6 +155,12 @@ class RNDAgent:
             self.rnd_pred = RNDPredictor(self._rnd_shape(), self.pixel_rnd)
             self.rnd_target = RNDTarget(self._rnd_shape(),
                                         self.pixel_rnd).requires_grad_(False)
+        # the SSL head and, under BYOL, its target: a copy of the backbone
+        # and the projector that init_state overwrites with the online ones
+        self.ssl = make_ssl(cfg)
+        self.ssl_target = None
+        if self.ssl is not None:
+            self.ssl_target = self.ssl.make_target(self.network.feature)
         for m in self._modules().values():
             m.to(self.device)
         self.optimizer = self._make_optimizer()
@@ -165,14 +174,19 @@ class RNDAgent:
 
     def _modules(self) -> Dict[str, nn.Module]:
         named = {"policy": self.network, "rnd_pred": self.rnd_pred,
-                 "rnd_target": self.rnd_target}
+                 "rnd_target": self.rnd_target, "ssl": self.ssl,
+                 "ssl_target": self.ssl_target}
         return {k: m for k, m in named.items() if m is not None}
 
     def trainable_parameters(self) -> List[nn.Parameter]:
-        """Policy then ``rnd_pred`` parameters: what the optimizer steps."""
+        """Policy, ``rnd_pred`` and the online SSL parameters: what the
+        optimizer steps (the optax state covers ``params["ssl"]``,
+        agent.py:183-195)."""
         params = list(self.network.parameters())
         if self.use_rnd:
             params += list(self.rnd_pred.parameters())
+        if self.ssl is not None:
+            params += list(self.ssl.parameters())
         return params
 
     def _make_optimizer(self) -> torch.optim.Adam:
@@ -190,10 +204,14 @@ class RNDAgent:
         cfg = self.cfg
         gen = torch.Generator("cpu")
         gen.manual_seed(seed)
-        for m in self._modules().values():
+        for k, m in self._modules().items():
+            if k == "ssl_target":
+                continue  # a copy of the online modules, below
             m.to("cpu")
             init_module(m, gen)
             m.to(self.device)
+        if self.ssl_target is not None:
+            self.ssl.copy_to_target(self.ssl_target, self.network.feature)
         self.optimizer = self._make_optimizer()
         obs_rms = None
         if self.use_rnd:
@@ -395,6 +413,13 @@ class RNDAgent:
         """One epoch's sample order, drawn on the agent's device."""
         return torch.randperm(n, generator=rng.device, device=self.device)
 
+    def _augment_params(self, rng: Rng, n: int) -> Views:
+        """The augment parameters of the two SSL views of ``n`` frames, drawn
+        on the agent's device."""
+        cfg = self.cfg
+        return self.ssl.draw(rng.device, n, cfg.pre_proc_height, cfg.pre_proc_width,
+                             self.device)
+
     def _loss(self, batch: TrainBatch, idx: torch.Tensor,
               rng: Rng) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Loss of the minibatch ``idx`` with dropout live (``loss_fn``,
@@ -426,7 +451,15 @@ class RNDAgent:
                 target = self.rnd_target(x)
             mask_u = torch.rand(x.shape[0], generator=rng.device, device=self.device)
             rl = rnd_loss(target, self.rnd_pred(x), mask_u, cfg.update_proportion)
-        loss = ppo.actor_loss + 0.5 * critic_loss - cfg.entropy_coef * ppo.entropy + rl
+        repr_term = torch.zeros((), device=self.device)
+        if self.ssl is not None and not cfg.freeze_shared_backbone:
+            # the EMA target as the last optimizer step left it
+            repr_loss = self.ssl.loss(self.network.feature, self.ssl_target,
+                                      batch.states[idx],
+                                      self._augment_params(rng, idx.shape[0]))
+            repr_term = self.ssl.loss_coef * repr_loss
+        loss = (ppo.actor_loss + 0.5 * critic_loss - cfg.entropy_coef * ppo.entropy + rl
+                + repr_term)
         aux = {
             "train/loss": loss,
             "train/actor_loss": ppo.actor_loss,
@@ -439,8 +472,7 @@ class RNDAgent:
             "train/max_kl": ppo.max_kl,
             "train/clipfrac": ppo.clipfrac,
             "train/rnd_loss": rl,
-            # the SSL methods are not ported: the term is always zero
-            "train/representation_loss": torch.zeros((), device=self.device),
+            "train/representation_loss": repr_term,
         }
         return loss, {k: v.detach() for k, v in aux.items()}
 
@@ -465,6 +497,8 @@ class RNDAgent:
         if cfg.use_grad_clipping:
             clip_by_global_norm_(grads, norm_unclipped, cfg.max_grad_norm)
         self.optimizer.step()
+        if self.ssl is not None:
+            self.ssl.update_target(self.ssl_target, self.network.feature)
         return aux
 
     def _named_grads(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -472,6 +506,8 @@ class RNDAgent:
         if self.use_rnd:
             out["rnd_pred"] = {n: p.grad.clone()
                                for n, p in self.rnd_pred.named_parameters()}
+        if self.ssl is not None:
+            out["ssl"] = {n: p.grad.clone() for n, p in self.ssl.named_parameters()}
         return out
 
     def update(self, state: AgentState, rollout: Rollout,
@@ -483,10 +519,6 @@ class RNDAgent:
         tensors on the device; ``_grads`` holds the last minibatch's
         gradients under ``verbose_logging``)."""
         cfg = self.cfg
-        if cfg.encoder_remat != "none":
-            raise NotImplementedError(
-                f"EncoderRemat = {cfg.encoder_remat} is not ported to the torch "
-                "package yet (ROADMAP.md Queue 1, item 10)")
         state, batch, metrics = self.prepare_batch(state, rollout)
         num_samples = batch.adv.shape[0]
         merge = max(1, cfg.minibatch_merge)

@@ -3,7 +3,9 @@ path, lines 313-464, and the device-env path, lines 177-310; reference
 train.py:21-878).
 
 Phases, in reference order: logger; env fleet; agent; checkpoint resume;
-obs-norm warm-up (skipped on resume, reference train.py:503); then the
+SSL pretraining when ``SSL_pretraining`` and a representation method are
+both set (:func:`ssl_pretrain`); obs-norm warm-up (skipped on resume,
+reference train.py:503); then the
 rollout -> update loop with scheduled and best checkpoints, metric logging
 and a profile-N-updates-then-exit mode. The loop runs forever unless
 ``total_updates`` is set (the reference is killed externally).
@@ -17,11 +19,16 @@ runs policy rollouts through that collector, and a checkpoint carries the
 env's episode bookkeeping. On the host-env path the action space comes from
 the env fleet (discrete ``action_space_n`` or continuous ``action_dim``,
 ``eavit_tpu/train.py:34-39``, ``:341-342``), and ``Render = True`` shows the
-rollout frames in a matplotlib grid (``utils/renderer.py``). The SSL methods
-and ``DataAxisSize > 1`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items. ``SSL_pretraining =
-True`` with no representation method trains without SSL, as the reference
-pretrains only when both are set (``eavit_tpu/train.py:258``, ``:392``).
+rollout frames in a matplotlib grid (``utils/renderer.py``). BYOL and Barlow
+Twins train jointly with PPO+RND (``rl/agent.py``) and, with
+``SSL_pretraining = True``, are pretrained on random-action rollouts first:
+on the host-env path before the obs-norm warm-up, on the device-env path
+after the resume and before the warm-up, through
+:class:`_DeviceEnvHostAdapter` (``eavit_tpu/train.py:149-174``, ``:258-267``,
+``:392-400``). ``SSL_pretraining = True`` with no representation method
+trains without SSL, as the reference pretrains only when both are set.
+``DataAxisSize > 1`` is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,7 +45,12 @@ from eavit_tpu_torch.config import (
     config_from_args,
 )
 from eavit_tpu_torch.envs.builders import make_vector_env
-from eavit_tpu_torch.envs.device_env import DeviceEnvState, make_device_env
+from eavit_tpu_torch.envs.device_env import (
+    DeviceEnvState,
+    device_env_reset,
+    device_env_step,
+    make_device_env,
+)
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.models.policy import ActionSpaceType
 from eavit_tpu_torch.rl.agent import RNDAgent
@@ -51,10 +63,6 @@ from eavit_tpu_torch.utils.seed import set_seed
 
 def check_ported(cfg: Config) -> None:
     """Raise for what the torch package cannot train yet."""
-    if cfg.representation_lr_method != RepresentationMethod.NONE:
-        raise NotImplementedError(
-            "SSL pretraining and BYOL / Barlow-Twins are not ported to the torch "
-            "package yet (ROADMAP.md Queue 1, item 7)")
     if cfg.data_axis_size > 1:
         raise NotImplementedError(
             "DataAxisSize > 1 (data parallel) is not ported to the torch package "
@@ -66,6 +74,103 @@ def _detect_action_space(env) -> ActionSpaceType:
     if getattr(env, "action_space_n", None):
         return ActionSpaceType.DISCRETE
     return ActionSpaceType.CONTINUOUS
+
+
+def _pretrains(cfg: Config) -> bool:
+    return (cfg.ssl_pretraining
+            and cfg.representation_lr_method != RepresentationMethod.NONE)
+
+
+def ssl_pretrain(cfg: Config, agent: RNDAgent, state, env, logger: Logger,
+                 ckpt: CheckpointManager, rng: Rng, num_epochs: int):
+    """SSL pretraining (``eavit_tpu/train.py:57-130``; reference
+    train.py:292-499): random-action rollouts from
+    ``np.random.default_rng(cfg.seed)`` become training data; the first
+    rollout is held out for evaluation; ``max(1, Epoch)`` passes of
+    :class:`~eavit_tpu_torch.rl.ssl_pretrain.SSLPretrainer` over each
+    collected rollout; the best evaluation loss is checkpointed under the SSL
+    suffix. The frames go to the agent's device as they come. Returns
+    ``(state, env states)``; the modules are updated in place."""
+    from eavit_tpu_torch.rl.ssl_pretrain import SSLPretrainer
+
+    if num_epochs < 0:
+        # the reference's SSL loop is a while-True killed externally
+        # (train.py:342); make the contract loud so a bounded
+        # --total_updates run isn't mistaken for a hang
+        logger.log(
+            "SSLEpochs < 0: SSL pretraining runs FOREVER (reference "
+            "while-True semantics); PPO never starts. Set SSLEpochs to "
+            "bound it."
+        )
+    pretrainer = SSLPretrainer(cfg, agent)
+    n = env.num_envs
+    rng_np = np.random.default_rng(cfg.seed)
+
+    def random_rollout(states):
+        frames = []
+        for _ in range(cfg.num_step):
+            if hasattr(env, "sample_random_actions"):
+                actions = env.sample_random_actions(rng_np)
+            else:
+                actions = rng_np.integers(0, env.action_space_n, size=n)
+            states, _, _, _, _ = env.step(actions)
+            frames.append(torch.as_tensor(states).to(agent.device, copy=True))
+        return torch.cat(frames), states
+
+    states = env.reset()
+    eval_states, states = random_rollout(states)
+    method = cfg.representation_lr_method.value
+    epoch = 0
+    while num_epochs < 0 or epoch < num_epochs:
+        train_states, states = random_rollout(states)
+        # Epoch passes over each collected rollout (reference train.py:404
+        # runs `for k in range(epoch)` over the dataset before collecting
+        # the next)
+        for _ in range(max(1, cfg.epoch)):
+            train_loss, eval_loss = pretrainer.epoch(train_states, eval_states, rng)
+        train_loss, eval_loss = float(train_loss), float(eval_loss)
+        logger.log_scalars(
+            {
+                f"SSL_pretraining/Representation_loss({method})(training dataset) vs epoch": train_loss,
+                f"SSL_pretraining/Representation_loss({method})(evaluation dataset) vs epoch": eval_loss,
+            }
+        )
+        logger.log(
+            f"SSL_pretraining_epoch: {epoch}, training_representation_loss: "
+            f"{train_loss:.6f}, evaluation_representation_loss: {eval_loss:.6f}"
+        )
+        ckpt.maybe_save(
+            agent, state, epoch + 1, {"phase": "ssl_pretraining", "epoch": epoch},
+            ssl_loss=eval_loss,
+        )
+        epoch += 1
+    return state, states
+
+
+class _DeviceEnvHostAdapter:
+    """The device env behind the vector-env interface ``ssl_pretrain`` steps
+    (reset, step with the 5-tuple, ``sample_random_actions``;
+    ``eavit_tpu/train.py:149-174``): random-action device rollouts feed the
+    pretrainer under ``EnvType = synthetic_device``. The frames stay on the
+    env's device; the actions come from the host's numpy generator."""
+
+    def __init__(self, env_params, num_envs: int):
+        self.params = env_params
+        self.num_envs = num_envs
+        self.action_space_n = 5
+        self._state: Optional[DeviceEnvState] = None
+
+    def reset(self) -> torch.Tensor:
+        self._state = device_env_reset(self.params, self.num_envs)
+        return self._state.stack
+
+    def step(self, actions):
+        acts = torch.as_tensor(actions).to(self.params.frames.device)
+        self._state, r, d, t = device_env_step(self.params, self._state, acts)
+        return self._state.stack, r, d, t, []
+
+    def sample_random_actions(self, rng: np.random.Generator) -> np.ndarray:
+        return rng.integers(0, self.action_space_n, size=self.num_envs)
 
 
 def _device_env_stats_meta(env_state: DeviceEnvState) -> Dict[str, Any]:
@@ -156,6 +261,13 @@ def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates
         env_state = _restore_device_env_stats(env_state, meta)
         logger.log(f"resumed from {cfg.load_model_path} @ update {update}")
 
+    if _pretrains(cfg):
+        # the reference's SSL-pretraining phase is unconditional on env type
+        # (train.py:292-499): random-action device rollouts feed it here
+        state, _ = ssl_pretrain(
+            cfg, agent, state, _DeviceEnvHostAdapter(env_params, cfg.num_env_per_process),
+            logger, ckpt, rng, cfg.ssl_pretrain_epochs)
+
     # warm-up: policy rollouts feed obs_rms (eavit_tpu/train.py:269-275)
     if agent.use_rnd and not cfg.load_model:
         logger.log("obs-norm warm-up...")
@@ -240,6 +352,11 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
         logger.log(f"resumed from {cfg.load_model_path} @ update {start_update}")
 
     states = env.reset()
+    if _pretrains(cfg):
+        # a dedicated SSL epoch budget, independent of the PPO update budget;
+        # -1 runs forever, as documented on SSLEpochs
+        state, states = ssl_pretrain(cfg, agent, state, env, logger, ckpt, rng,
+                                     cfg.ssl_pretrain_epochs)
     if not cfg.load_model:
         logger.log("obs-norm warm-up...")
         state, states = collector.warmup_obs_rms(state, states, rng)

@@ -238,12 +238,17 @@ def test_ppo_mode_prepare_batch_is_the_extrinsic_gae():
 
 def test_unported_modes_raise():
     base = dict(vit=port_config.ViTConfig(**TINY), **COMMON)
-    # modified_RND is ported (tests/test_torch_port_continuous.py); the SSL
-    # methods are not
-    with pytest.raises(NotImplementedError, match="item 7"):
-        RNDAgent(port_config.Config(
-            representation_lr_method=port_config.RepresentationMethod.BYOL, **base),
-            N_ACT, device="cpu")
+    # modified_RND and the SSL methods are ported
+    # (tests/test_torch_port_continuous.py, tests/test_torch_port_ssl.py)
+    for method, target in ((port_config.RepresentationMethod.BYOL, True),
+                           (port_config.RepresentationMethod.BARLOW_TWINS, False)):
+        small = port_config.SSLConfig(byol_projection_hidden_size=32, byol_projection_size=16,
+                                      barlow_twins_projection_sizes=(32, 32))
+        agent = RNDAgent(port_config.Config(representation_lr_method=method, ssl=small,
+                                            **base), N_ACT, device="cpu")
+        agent.init_state(0)
+        assert agent.ssl is not None and (agent.ssl_target is not None) == target
+        assert set(agent.state_dict(agent.init_state(0))) >= {"ssl", "policy"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RNDAgent(port_config.Config(vit_implementation_type=1, **base), N_ACT,
                  device="cpu")

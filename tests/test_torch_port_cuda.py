@@ -1212,3 +1212,66 @@ def test_k1f_and_k2f_at_the_next_obs_pass_shape(cuda):
     y = ff.fused_ffn(x, *params, seeds=(1, 2), rate=0.0)
     p = ff.fused_ffn_fwd_plain(x, *params, seeds=(1, 2), rate=0.0)
     assert _max_err(y, p) <= 1e-4 * p.abs().max().item()
+
+
+@pytest.mark.parametrize("attention", ["pallas_qkv", "pallas"])
+def test_remat_on_the_card_gives_the_gradient_bits_of_none(cuda, attention):
+    """``EncoderRemat = full | dots`` at dropout 0.1: the recompute replays
+    the first run's seed words and device draws, so the network's gradients
+    keep the bits of ``none``; the forward kernels run once more a layer."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, ViTConfig
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.ops import flash_dropout
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    host = cs.host_batch(torch, 6)
+    grads, fwd = {}, {}
+    for mode in ("none", "full", "dots"):
+        cfg = Config(vit=ViTConfig(**{**SMALL_VIT, "depth": 2, "dropout": 0.1}),
+                     attention_impl=attention, fused_ffn=True, encoder_remat=mode)
+        agent = RNDAgent(cfg, 5, device=cuda)
+        agent.init_state(0)
+        loss, g, _ = cs.network_grads(torch, agent, host, (), rng_seed=3)
+        grads[mode] = {k: v for k, v in g.items() if k.startswith("policy.")}
+        mod = fq if attention == "pallas_qkv" else flash_dropout
+        key = "flash_qkv_fwd" if attention == "pallas_qkv" else "flash_dropout_fwd"
+        before = mod.launches[key]
+        x = torch.from_numpy(host["states"].numpy()).to(cuda).float() / 255.0
+        agent.network(x, Rng(3, cuda)).policy.sum().backward()
+        fwd[mode] = mod.launches[key] - before
+    for mode in ("full", "dots"):
+        for k, v in grads[mode].items():
+            assert cs.same_bits(torch, v, grads["none"][k]), (mode, k)
+        assert fwd[mode] == 2 * fwd["none"] == 4, (mode, fwd)
+
+
+def test_ssl_views_and_ema_on_the_card(cuda):
+    """The augmentation on the card within 1e-5 of the CPU on one set of
+    parameters; one BYOL minibatch step on the card moves the target by the
+    EMA with equal bits and leaves it without gradients."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, RepresentationMethod, SSLConfig, ViTConfig
+    from eavit_tpu_torch.ops.augment import AugmentParams, augment
+    from eavit_tpu_torch.rl.agent import RNDAgent, TrainBatch
+    from eavit_tpu_torch.models.layers import Rng
+
+    cfg = Config(vit=ViTConfig(**SMALL_VIT), attention_impl="pallas_qkv", fused_ffn=True,
+                 representation_lr_method=RepresentationMethod.BYOL,
+                 ssl=SSLConfig(byol_projection_hidden_size=64, byol_projection_size=32))
+    agent = RNDAgent(cfg, 5, device=cuda)
+    agent.init_state(0)
+    host = cs.host_batch(torch, 16)
+    params = agent.ssl.draw(torch.Generator().manual_seed(1), 16, 84, 84, "cpu")[0]
+    imgs = host["states"].float() / 255.0
+    on_card = augment(imgs.to(cuda), AugmentParams(*(t.to(cuda) for t in params)))
+    assert _max_err(on_card.cpu(), augment(imgs, params)) <= 1e-5
+    batch = TrainBatch(**{k: v.to(cuda) for k, v in host.items()})
+    t0 = next(agent.ssl_target.parameters()).detach().clone()
+    agent._minibatch_step(batch, torch.arange(16, device=cuda), Rng(0, cuda),
+                          agent.trainable_parameters())
+    online = next(agent.network.feature.parameters()).detach()
+    decay = cfg.ssl.byol_moving_average_decay
+    assert cs.same_bits(torch, next(agent.ssl_target.parameters()).detach(),
+                        t0 * decay + online * (1.0 - decay))
+    assert all(p.grad is None for p in agent.ssl_target.parameters())

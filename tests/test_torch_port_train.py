@@ -177,14 +177,14 @@ def test_cli_trains_on_cpu_and_refuses_a_silent_cpu_run(tmp_path):
 
 def test_unported_run_options_raise(tmp_path):
     byol = dict(ssl_pretraining=True, representation_lr_method=RepresentationMethod.BYOL)
-    # the device env is ported (tests/test_torch_port_device_env.py); with an
-    # SSL method it still raises for the SSL item first
-    check_ported(_cfg(tmp_path, env_type=EnvType.SYNTHETIC_DEVICE))
-    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE, **byol), byol,
-               dict(data_axis_size=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(_cfg(tmp_path, **kw), total_updates=1, log_dir=str(tmp_path),
-                  device="cpu")
+    # the device env and the SSL methods are ported
+    # (tests/test_torch_port_device_env.py, tests/test_torch_port_ssl.py)
+    for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE), byol,
+               dict(env_type=EnvType.SYNTHETIC_DEVICE, **byol)):
+        check_ported(_cfg(tmp_path, **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(_cfg(tmp_path, data_axis_size=2), total_updates=1, log_dir=str(tmp_path),
+              device="cpu")
     # the env stack is ported (tests/test_torch_port_envs.py); a missing
     # emulator raises naming its package, and no other env stands in
     with pytest.raises(ImportError, match="ale_py|gymnasium"):
@@ -198,8 +198,14 @@ def test_ssl_pretraining_without_a_method_trains_without_ssl(tmp_path):
     """eavit_tpu pretrains only when SSL_pretraining and a method are both set
     (eavit_tpu/train.py:258, :392): the flag alone is no reason to refuse."""
     check_ported(_cfg(tmp_path, ssl_pretraining=True))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        check_ported(_cfg(tmp_path, representation_lr_method=RepresentationMethod.BYOL))
+    # with a method too, it pretrains and then trains jointly (Queue 1 item 7)
+    cfg = _cfg(tmp_path, ssl_pretraining=True, ssl_pretrain_epochs=1, epoch=1,
+               representation_lr_method=RepresentationMethod.BYOL, obs_norm_step=1,
+               ssl=port_config.SSLConfig(byol_projection_hidden_size=32,
+                                         byol_projection_size=16))
+    metrics = train(cfg, total_updates=1, log_dir=str(tmp_path / "logs"), device="cpu")
+    assert metrics["train/representation_loss"] > 0.0
+    assert all(np.isfinite(v) for v in metrics.values())
 
 
 def test_render_in_train_raises_until_the_renderer_is_ported(tmp_path):

@@ -330,8 +330,14 @@ def test_minibatch_merge_freeze_and_verbose_grads():
 
 
 def test_unported_update_options_raise():
+    """``EncoderRemat`` is ported (Queue 1 item 10, tests/test_torch_port_remat.py):
+    ``full`` now updates, every trainable parameter moves and the metrics are
+    finite."""
     pag, pst = _port_only(epoch=1, mini_batch=1, encoder_remat="full")
+    before = [p.detach().clone() for p in pag.trainable_parameters()]
     ro = _rollout(6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pag.update(pst, Rollout(**{k: torch.from_numpy(np.asarray(v))
-                                   for k, v in ro.items()}), Rng(0, "cpu"))
+    pnew, metrics = pag.update(pst, Rollout(**{k: torch.from_numpy(np.asarray(v))
+                                               for k, v in ro.items()}), Rng(0, "cpu"))
+    assert pnew.global_update == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(before, pag.trainable_parameters()))
