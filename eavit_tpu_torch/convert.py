@@ -7,8 +7,13 @@ the mapping is by path, with these conversions:
 - Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed), and
   NoisyLinear's ``noisy_kernel`` -> ``noisy_weight`` the same way (its
   ``noisy_bias`` and the continuous head's ``log_std`` keep their names);
-- Conv ``kernel`` HWIO -> ``weight`` OIHW;
+- Conv ``kernel`` HWIO -> ``weight`` OIHW, but the HF flavour's
+  ``patch_proj`` kernel ``[p, p, C, D]``, whose port is a Dense over
+  ``patchify``'d patches, -> ``[D, (p1 p2 c)]`` (HWI flattened is
+  patchify's feature order);
 - LayerNorm ``scale`` -> ``weight``;
+- the HF flavour's ``encoder`` subtree keeps its name, and its ``to_qkv``
+  carries a bias;
 - the RND trunks, auto-named ``ConvTrunk_0`` / ``MlpTrunk_0`` by flax, are
   the port's ``trunk``. The conv trunk flattens in NHWC order in both
   packages, so ``head1`` / ``head`` rows need no permutation;
@@ -58,6 +63,9 @@ def _to_torch(path: str, value: np.ndarray) -> tuple:
         path = path[: -len(leaf)] + _TRANSPOSED[leaf]
         if value.ndim == 2:
             value = value.T
+        elif value.ndim == 4 and path.endswith("patch_proj.weight"):
+            # the HF flavour's conv, a Dense over (p1, p2, c) patch features
+            value = value.reshape(-1, value.shape[-1]).T
         elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
     elif leaf == "scale":

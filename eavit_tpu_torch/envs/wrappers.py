@@ -23,6 +23,7 @@ to nearest-neighbour sampling.
 
 from __future__ import annotations
 
+import threading
 import time
 from types import SimpleNamespace
 from typing import Any, Dict, Set
@@ -237,9 +238,15 @@ class MontezumaInfoWrapper(gym.Wrapper):
         return obs, r, d, t, info
 
 
+# pygame is not thread-safe: two envs rendering at once from the worker
+# threads of ``pool.ThreadVectorEnv`` can draw into each other's frames
+_RENDER_LOCK = threading.Lock()
+
+
 class RGBArrayAsObservationWrapper(gym.Wrapper):
     """Classic-control: use the rendered rgb_array as the observation
-    (reference envs.py:464-486)."""
+    (reference envs.py:464-486). One process-wide lock serialises the
+    renders, so a frame does not depend on thread timing."""
 
     def __init__(self, env):
         super().__init__(env)
@@ -249,8 +256,9 @@ class RGBArrayAsObservationWrapper(gym.Wrapper):
         )
 
     def _render(self) -> np.ndarray:
-        frame = self.env.render()
-        return np.asarray(frame, dtype=np.uint8)
+        with _RENDER_LOCK:
+            frame = self.env.render()
+            return np.asarray(frame, dtype=np.uint8)
 
     def reset(self, **kw):
         self.env.reset(**kw)

@@ -10,8 +10,9 @@ Counterpart of ``eavit_tpu/models/layers.py`` (lines 1-131):
   float32. Parameters are float32 and use torch's ``[out, in]`` layout.
 - Inits: torch ``nn.Linear``'s default U(-1/sqrt(fan_in), 1/sqrt(fan_in))
   (``torch_linear_kernel_init``, lines 20-36), orthogonal with a gain and
-  zero bias for heads (``make_dense``, lines 69-86). Each layer records its
-  init and :func:`init_module` applies them from one ``torch.Generator``.
+  zero bias for heads (``make_dense``, lines 69-86), flax's truncated normal
+  for the HF flavour (:func:`trunc_normal_`). Each layer records its init
+  and :func:`init_module` applies them from one ``torch.Generator``.
 - :class:`Dropout16` (lines 49-66) over ``ops/attention.dropout16``.
 - :class:`NoisyLinear` (lines 89-131): the Gaussian NoisyNet layer with
   its noise-free eval forward.
@@ -94,11 +95,21 @@ class RecordedRng:
         self._parent.device.set_state(self.device.get_state())
 
 
+@torch.no_grad()
+def trunc_normal_(t: torch.Tensor, stddev: float, gen: torch.Generator) -> torch.Tensor:
+    """``flax.linen.initializers.truncated_normal(stddev)``: a standard
+    normal cut at +-2, scaled by ``stddev / 0.8796...`` so that the result
+    has standard deviation ``stddev``."""
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(stddev / 0.87962566103423978)
+
+
 class Dense(nn.Linear):
     """``flax.linen.Dense(features, dtype=...)`` in torch (module doc).
 
-    ``init`` is ``"torch"`` (U(+-1/sqrt(fan_in)) kernel and bias) or
-    ``("orthogonal", gain)`` with a zero bias."""
+    ``init`` is ``"torch"`` (U(+-1/sqrt(fan_in)) kernel and bias),
+    ``("orthogonal", gain)`` or ``("trunc_normal", stddev)``, each of the
+    last two with a zero bias."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  dtype: Optional[torch.dtype] = None, init=("torch",)) -> None:
@@ -113,15 +124,19 @@ class Dense(nn.Linear):
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        if self.init[0] == "orthogonal":
-            nn.init.orthogonal_(self.weight, gain=self.init[1], generator=gen)
+        kind = self.init[0]
+        if kind == "torch":
+            bound = 1.0 / math.sqrt(self.in_features)
+            self.weight.uniform_(-bound, bound, generator=gen)
             if self.bias is not None:
-                self.bias.zero_()
+                self.bias.uniform_(-bound, bound, generator=gen)
             return
-        bound = 1.0 / math.sqrt(self.in_features)
-        self.weight.uniform_(-bound, bound, generator=gen)
+        if kind == "orthogonal":
+            nn.init.orthogonal_(self.weight, gain=self.init[1], generator=gen)
+        else:
+            trunc_normal_(self.weight, self.init[1], gen)
         if self.bias is not None:
-            self.bias.uniform_(-bound, bound, generator=gen)
+            self.bias.zero_()
 
 
 class NoisyLinear(nn.Module):

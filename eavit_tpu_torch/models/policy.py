@@ -17,8 +17,10 @@ exploration token feeds ``critic_int``, the exploitation token feeds
 ``critic_ext``, and their mean feeds the actor. Without it the CLS stream
 feeds everything.
 
-Not ported yet: the HF backbone ``DualTokenViTHG`` (ROADMAP.md Queue 1,
-item 8); building it raises ``NotImplementedError``.
+The backbone is the lucidrains ``DualTokenViT`` (``ViT_implementation_type
+= 0``) or the HF-flavour ``DualTokenViTHG`` (type 1), whose image size and
+channels default to ``PreProcHeight`` and ``StateStackSize`` when
+``ViTHG_PreProcHeight`` / ``ViTHG_StateStackSize`` are not set.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from eavit_tpu_torch.config import (
     ffn_route,
 )
 from eavit_tpu_torch.models.layers import Dense, NoisyLinear, Rng, compute_dtype
-from eavit_tpu_torch.models.vit import DualTokenViT
+from eavit_tpu_torch.models.vit import DualTokenViT, DualTokenViTHG
 
 
 class ActionSpaceType(str, Enum):
@@ -52,22 +54,18 @@ class PolicyOutput(NamedTuple):
     features: torch.Tensor  # [B, D] aggregated backbone features
 
 
-def build_backbone(cfg: Config) -> DualTokenViT:
+def build_backbone(cfg: Config) -> nn.Module:
     """The backbone ``cfg`` names (policy.py:55-83)."""
-    if cfg.vit_implementation_type != ViTImplementation.LUCIDRAINS:
-        raise NotImplementedError(
-            "ViT_implementation_type = 1 (DualTokenViTHG) is not ported to the "
-            "torch package yet (ROADMAP.md Queue 1, item 8)")
-    return DualTokenViT(
-        cfg.vit,
-        image_size=cfg.pre_proc_height,
-        channels=cfg.state_stack_size,
-        attention_route=attention_route(cfg),
-        ffn_route=ffn_route(cfg),
-        shared_patch_stream=cfg.shared_patch_stream,
-        dtype=compute_dtype(cfg.compute_dtype),
-        remat=cfg.encoder_remat,
-    )
+    routes = dict(attention_route=attention_route(cfg), ffn_route=ffn_route(cfg),
+                  shared_patch_stream=cfg.shared_patch_stream,
+                  dtype=compute_dtype(cfg.compute_dtype), remat=cfg.encoder_remat)
+    if cfg.vit_implementation_type == ViTImplementation.LUCIDRAINS:
+        return DualTokenViT(cfg.vit, image_size=cfg.pre_proc_height,
+                            channels=cfg.state_stack_size, **routes)
+    return DualTokenViTHG(cfg.vit_hg,
+                          image_size=cfg.vit_hg.image_size or cfg.pre_proc_height,
+                          channels=cfg.vit_hg.num_channels or cfg.state_stack_size,
+                          **routes)
 
 
 class ActorCritic(nn.Module):

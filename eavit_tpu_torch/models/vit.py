@@ -1,6 +1,6 @@
-"""Dual-token "Explorative Attention" Vision Transformer (lucidrains flavour).
+"""Dual-token "Explorative Attention" Vision Transformer, both flavours.
 
-Counterpart of ``eavit_tpu/models/vit.py`` (lines 54-427): a ViT whose CLS
+Counterpart of ``eavit_tpu/models/vit.py`` (lines 54-536): a ViT whose CLS
 token is replaced by an exploration token and an exploitation token. Two
 modes, with identical parameters:
 
@@ -25,7 +25,19 @@ Implementation routes (``config.attention_route`` / ``ffn_route``):
 JAX package's documented divergence), ``"plain"`` the torch layers. The
 modules' parameter names mirror the flax tree (the same on every route), so
 ``convert.load_jax_params`` maps one onto the other by name.
-``DualTokenViTHG`` (vit.py:430-536) is not ported yet.
+
+:class:`DualTokenViT` is the lucidrains flavour (``ViT_implementation_type =
+0``), :class:`DualTokenViTHG` the HF flavour (type 1, vit.py:430-536): a
+conv patch projection, qkv with a bias, ``layer_norm_eps`` on every
+LayerNorm, truncated-normal tokens, positions and patch kernel, dropout
+``hidden_dropout_prob`` everywhere (attention included, as ``eavit_tpu``
+does; ``attention_probs_dropout_prob`` is not read), and the encoder named
+``encoder``. Its patch projection is the flax ``Conv`` written as
+``patchify`` followed by a Dense over the ``(p1, p2, c)`` features, which is
+the same product (the conv's HWIO kernel flattened) and has a deterministic
+backward, unlike cuDNN's convolution (ROADMAP.md fault 7). Under a compute
+dtype its output, and so its residual stream and the fused FFN's input, is
+in that dtype, as the JAX module's is.
 
 A forward with ``rng=None`` is deterministic (the JAX ``deterministic=True``);
 with an :class:`~eavit_tpu_torch.models.layers.Rng` dropout is live, as at
@@ -61,8 +73,8 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from eavit_tpu_torch.config import ViTConfig
-from eavit_tpu_torch.models.layers import Dense, Dropout16, LayerNorm, Rng
+from eavit_tpu_torch.config import ViTConfig, ViTHGConfig
+from eavit_tpu_torch.models.layers import Dense, Dropout16, LayerNorm, Rng, trunc_normal_
 from eavit_tpu_torch.ops.attention import mha
 from eavit_tpu_torch.ops.flash_qkv import flash_mha_qkv
 from eavit_tpu_torch.ops.fused_ffn import fused_ffn
@@ -78,16 +90,18 @@ def patchify(img: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """Pre-norm MHA (vit.py:68-161)."""
+    """Pre-norm MHA (vit.py:68-161); ``qkv_bias`` and ``norm_eps`` as the
+    JAX module's (the HF flavour sets both)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, dropout: float,
-                 route: str, num_special: int, dtype: Optional[torch.dtype]) -> None:
+                 route: str, num_special: int, dtype: Optional[torch.dtype],
+                 qkv_bias: bool = False, norm_eps: float = 1e-5) -> None:
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.dropout, self.route, self.num_special = dropout, route, num_special
-        self.norm = LayerNorm(dim, eps=1e-5)
-        self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype)
+        self.norm = LayerNorm(dim, eps=norm_eps)
+        self.to_qkv = Dense(dim, inner * 3, bias=qkv_bias, dtype=dtype)
         self.project_out = not (heads == 1 and dim_head == dim)
         if self.project_out:
             self.to_out = Dense(inner, dim, dtype=dtype)
@@ -136,10 +150,10 @@ class FeedForward(nn.Module):
     JAX fused path does (it ignores the compute dtype)."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float, route: str,
-                 dtype: Optional[torch.dtype]) -> None:
+                 dtype: Optional[torch.dtype], norm_eps: float = 1e-5) -> None:
         super().__init__()
         self.dropout, self.route = dropout, route
-        self.norm = LayerNorm(dim, eps=1e-5)
+        self.norm = LayerNorm(dim, eps=norm_eps)
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
         self.drop = Dropout16(dropout)
@@ -173,22 +187,26 @@ REMAT_MODES = ("none", "full", "dots")
 
 class Transformer(nn.Module):
     """Pre-norm encoder with a final LayerNorm (vit.py:251-310). Layers are
-    named ``attn_{i}`` / ``ff_{i}`` as in the flax tree."""
+    named ``attn_{i}`` / ``ff_{i}`` as in the flax tree; ``qkv_bias`` and
+    ``norm_eps`` (every LayerNorm, the final one included) as the JAX
+    module's."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float, attention_route: str,
                  ffn_route: str, num_special: int,
-                 dtype: Optional[torch.dtype], remat: str = "none") -> None:
+                 dtype: Optional[torch.dtype], remat: str = "none",
+                 qkv_bias: bool = False, norm_eps: float = 1e-5) -> None:
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"EncoderRemat must be one of {REMAT_MODES}, got {remat!r}")
         self.depth, self.remat = depth, remat
         for i in range(depth):
             self.add_module(f"attn_{i}", MultiHeadAttention(
-                dim, heads, dim_head, dropout, attention_route, num_special, dtype))
+                dim, heads, dim_head, dropout, attention_route, num_special, dtype,
+                qkv_bias, norm_eps))
             self.add_module(f"ff_{i}", FeedForward(
-                dim, mlp_dim, dropout, ffn_route, dtype))
-        self.norm = LayerNorm(dim, eps=1e-5)
+                dim, mlp_dim, dropout, ffn_route, dtype, norm_eps))
+        self.norm = LayerNorm(dim, eps=norm_eps)
 
     def _rematerialised(self, layer: nn.Module, x: torch.Tensor,
                         rng: Optional[Rng]) -> torch.Tensor:
@@ -277,3 +295,70 @@ class DualTokenViT(nn.Module):
             return out[:b], out[b:]
         seq = self.emb_drop(with_token(self.cls_token), rng)
         return (self.transformer(seq, rng)[:, 0].float(),)
+
+
+class DualTokenViTHG(nn.Module):
+    """HF-flavour dual-token ViT (vit.py:430-536; module doc)."""
+
+    def __init__(self, cfg: ViTHGConfig, image_size: int, channels: int,
+                 attention_route: str = "plain", ffn_route: str = "plain",
+                 shared_patch_stream: bool = False,
+                 dtype: Optional[torch.dtype] = None, remat: str = "none") -> None:
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        hidden, patch = cfg.hidden_size, cfg.patch_size
+        self.grid = image_size // patch  # a VALID conv drops a ragged edge
+        self.fused = shared_patch_stream and cfg.use_explorative_attn
+        self.patch_proj = Dense(channels * patch * patch, hidden, dtype=dtype,
+                                init=("trunc_normal", cfg.initializer_range))
+        self.pos_embedding = nn.Parameter(torch.empty(1, self.grid ** 2 + 1, hidden))
+        if cfg.use_explorative_attn:
+            self.exploration_token = nn.Parameter(torch.empty(1, 1, hidden))
+            self.exploitation_token = nn.Parameter(torch.empty(1, 1, hidden))
+            self.trunc_normal_params = ("pos_embedding", "exploration_token",
+                                        "exploitation_token")
+        else:
+            self.cls_token = nn.Parameter(torch.empty(1, 1, hidden))
+            self.trunc_normal_params = ("pos_embedding", "cls_token")
+        self.encoder = Transformer(
+            hidden, cfg.num_hidden_layers, cfg.num_attention_heads,
+            hidden // cfg.num_attention_heads, cfg.intermediate_size,
+            cfg.hidden_dropout_prob, attention_route, ffn_route,
+            2 if self.fused else 0, dtype, remat,
+            qkv_bias=cfg.qkv_bias, norm_eps=cfg.layer_norm_eps)
+        self.emb_drop = Dropout16(cfg.hidden_dropout_prob)
+
+    @torch.no_grad()
+    def init_params(self, gen: torch.Generator) -> None:
+        for name in self.trunc_normal_params:
+            trunc_normal_(getattr(self, name), self.cfg.initializer_range, gen)
+
+    def forward(self, img: torch.Tensor,
+                rng: Optional[Rng] = None) -> Tuple[torch.Tensor, ...]:
+        """img: [B, C, H, W] float in [0, 1]. Returns ``(x_explore,
+        x_exploit)`` with explorative attention, else ``(x_cls,)``."""
+        edge = self.grid * self.cfg.patch_size
+        x = patchify(img[:, :, :edge, :edge].to(self.dtype or torch.float32),
+                     self.cfg.patch_size)
+        x = self.patch_proj(x)  # [B, n, hidden] in the compute dtype
+        b, n, dim = x.shape
+        pos = self.pos_embedding.to(x.dtype)
+
+        def with_token(token):
+            return torch.cat([token.to(x.dtype).expand(b, 1, dim), x], dim=1) + pos
+
+        if self.cfg.use_explorative_attn:
+            if self.fused:
+                toks = torch.cat([
+                    self.exploration_token.to(x.dtype).expand(b, 1, dim),
+                    self.exploitation_token.to(x.dtype).expand(b, 1, dim),
+                ], dim=1) + pos[:, :1]
+                seq = torch.cat([toks, x + pos[:, 1:]], dim=1)
+                out = self.encoder(self.emb_drop(seq, rng), rng).float()
+                return out[:, 0], out[:, 1]
+            seq = torch.cat([with_token(self.exploration_token),
+                             with_token(self.exploitation_token)], dim=0)
+            out = self.encoder(self.emb_drop(seq, rng), rng)[:, 0].float()
+            return out[:b], out[b:]
+        seq = self.emb_drop(with_token(self.cls_token), rng)
+        return (self.encoder(seq, rng)[:, 0].float(),)

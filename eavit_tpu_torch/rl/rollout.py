@@ -5,8 +5,10 @@ train.py:604-704): a vectorised env pool stepped on the host and one
 ``act`` call per step. Frames stay uint8 on the host; the per-step values
 and logits (log-probs for continuous actions) stay on the device and only
 the actions come back. The rollout moves to the device once, at the end.
-``DeviceRolloutCollector`` (``eavit_tpu/rl/device_rollout.py``) is a later
-slice.
+``train`` runs ``rl/device_rollout.DeviceRolloutCollector``, which keeps the
+frame stack on the device too and builds on this class; this one stays for
+the callers that step frames on the host (``chip_smoke.py``'s comparisons,
+tests).
 """
 
 from __future__ import annotations

@@ -16,7 +16,11 @@ named. ``EnvType = synthetic_device`` runs the zero-host path: the env of
 ``envs/device_env.py`` and ``rl/scan_rollout.py``'s collector keep the frames,
 the env state and the rollout on the agent's device, the obs-norm warm-up
 runs policy rollouts through that collector, and a checkpoint carries the
-env's episode bookkeeping. On the host-env path the action space comes from
+env's episode bookkeeping. On the host-env path ``rl/device_rollout.py``'s
+collector keeps the frame stack and the rollout on the agent's device and,
+under ``AsyncEnvPool = True``, pipelines two half fleets
+(``eavit_tpu/train.py:379``); its ``warmup_obs_rms`` runs the obs-norm
+warm-up, and a resume restores its episode bookkeeping. The action space comes from
 the env fleet (discrete ``action_space_n`` or continuous ``action_dim``,
 ``eavit_tpu/train.py:34-39``, ``:341-342``), and ``Render = True`` shows the
 rollout frames in a matplotlib grid (``utils/renderer.py``). BYOL and Barlow
@@ -54,7 +58,7 @@ from eavit_tpu_torch.envs.device_env import (
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.models.policy import ActionSpaceType
 from eavit_tpu_torch.rl.agent import RNDAgent
-from eavit_tpu_torch.rl.rollout import RolloutCollector
+from eavit_tpu_torch.rl.device_rollout import DeviceRolloutCollector
 from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
 from eavit_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from eavit_tpu_torch.utils.logger import Logger
@@ -338,7 +342,7 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
         from eavit_tpu_torch.utils.renderer import ParallelizedEnvironmentRenderer
 
         renderer = ParallelizedEnvironmentRenderer(cfg.num_env_per_process)
-    collector = RolloutCollector(cfg, agent, env, renderer=renderer)
+    collector = DeviceRolloutCollector(cfg, agent, env, renderer=renderer)
 
     ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every)
     start_update = 0

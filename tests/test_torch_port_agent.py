@@ -249,9 +249,15 @@ def test_unported_modes_raise():
         agent.init_state(0)
         assert agent.ssl is not None and (agent.ssl_target is not None) == target
         assert set(agent.state_dict(agent.init_state(0))) >= {"ssl", "policy"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RNDAgent(port_config.Config(vit_implementation_type=1, **base), N_ACT,
-                 device="cpu")
+    # the HF flavour is ported too (tests/test_torch_port_hg.py): it builds
+    # its own backbone where it raised before
+    from eavit_tpu_torch.models.vit import DualTokenViTHG
+
+    hg = port_config.ViTHGConfig(hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                                 intermediate_size=64)
+    agent = RNDAgent(port_config.Config(vit_implementation_type=1, vit_hg=hg, **base), N_ACT,
+                     device="cpu")
+    assert isinstance(agent.network.feature, DualTokenViTHG)
 
 
 def test_categorical_log_prob_matches_jax():

@@ -1191,7 +1191,7 @@ def test_device_env_collect_with_noisy_net_never_syncs(cuda):
     collector = ScanRolloutCollector(cfg, agent, params)
     rng = Rng(0, cuda)
     _, env_state, _ = collector.collect(env_state, rng)  # warm
-    assert cs.host_syncs(torch, lambda: collector.collect(env_state, rng)) == []
+    assert cs.host_syncs(torch, lambda: collector.collect(env_state, rng))[1] == []
 
 
 def test_k1f_and_k2f_at_the_next_obs_pass_shape(cuda):
@@ -1275,3 +1275,154 @@ def test_ssl_views_and_ema_on_the_card(cuda):
     assert cs.same_bits(torch, next(agent.ssl_target.parameters()).detach(),
                         t0 * decay + online * (1.0 - decay))
     assert all(p.grad is None for p in agent.ssl_target.parameters())
+
+
+SMALL_HG = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                intermediate_size=384, patch_size=12)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_hg_network_on_the_card_matches_its_cpu_copy(cuda, compute_dtype):
+    """The HF-flavour ``DualTokenViTHG`` (2 heads of 64, 51 tokens shared,
+    qkv bias, LayerNorm eps 1e-12) through K1 and K2 on the card, against the
+    same network on the CPU (plain versions): features, values and logits
+    within 1e-4 in float32 and 2e-2 of their scale in bf16, the gradient of
+    every parameter within 1e-3 / 5e-2 of the whole gradient's norm; one K1f,
+    K2f, K1b and K2b launch a layer, K1 on its whole-head kernels at Dh 64."""
+    import copy
+
+    from eavit_tpu_torch.config import Config, ViTHGConfig, ViTImplementation
+    from eavit_tpu_torch.models.layers import init_module
+    from eavit_tpu_torch.models.policy import ActorCritic
+
+    cfg = Config(vit_implementation_type=ViTImplementation.HG, vit_hg=ViTHGConfig(**SMALL_HG),
+                 attention_impl="pallas_qkv", fused_ffn=True, shared_patch_stream=True,
+                 compute_dtype=compute_dtype)
+    cpu_net = ActorCritic(cfg, 5)
+    init_module(cpu_net, torch.Generator().manual_seed(0))
+    gpu_net = copy.deepcopy(cpu_net).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(0).random((3, 4, 84, 84)).astype(np.float32))
+    dt = getattr(torch, compute_dtype)
+    keys = ((fq, fq.fwd_kernel(51, 64, dt)), (fq, fq.bwd_kernel(51, 64, dt)),
+            (ff, "fused_ffn_fwd"), (ff, "fused_ffn_bwd"))
+    before = [m.launches[k] for m, k in keys]
+    outs = []
+    for net, dev in ((gpu_net, cuda), (cpu_net, "cpu")):
+        out = net(x.to(dev))
+        (out.policy.sum() + out.value_ext.sum() + out.value_int.sum()).backward()
+        outs.append((out, torch.cat([p.grad.float().reshape(-1).cpu()
+                                     for p in net.parameters()])))
+    assert [m.launches[k] - n for (m, k), n in zip(keys, before)] == [2, 2, 2, 2]
+    if compute_dtype == "bfloat16":
+        assert keys[0][1] == "flash_qkv_fwd" and keys[1][1] == "flash_qkv_bwd"
+    (og, gg), (oc, gc) = outs
+    tol = 1e-4 if compute_dtype == "float32" else 2e-2
+    for name in ("features", "policy", "value_ext", "value_int"):
+        ref = getattr(oc, name).detach()
+        assert _max_err(getattr(og, name).detach().cpu(), ref) <= tol * max(
+            1.0, ref.abs().max().item()), name
+    rel = ((gg - gc).norm() / gc.norm()).item()
+    assert rel <= (1e-3 if compute_dtype == "float32" else 5e-2), rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_split_path_at_the_hg_widths(cuda, dtype):
+    """K2f and K2b at HG's (1,024, 3,072), eps 1e-12, rate 0.1, on a few
+    rows: the split path of ffn_wide.cuh against the plain versions at the
+    file's tolerances, equal bits twice."""
+    d, hid, r, seeds = 1024, 3072, 170, (5, 6)
+    g = torch.Generator().manual_seed(3)
+    params = tuple(p.to(cuda) for p in (
+        1.0 + 0.1 * torch.randn(d, generator=g), 0.1 * torch.randn(d, generator=g),
+        torch.randn(hid, d, generator=g) / d ** 0.5, 0.1 * torch.randn(hid, generator=g),
+        torch.randn(d, hid, generator=g) / hid ** 0.5, 0.1 * torch.randn(d, generator=g)))
+    x = torch.randn(r, d, generator=g).to(cuda, dtype)
+    dy = torch.randn(r, d, generator=g).to(cuda, dtype)
+    assert not ff.fused_widths(d, hid, True) and not ff.fused_widths(d, hid, False)
+    y = ff.fused_ffn_fwd(x, *params, seeds, 0.1, 1e-12)
+    ref = ff.fused_ffn_fwd_plain(x, *params, seeds, 0.1, 1e-12)
+    scale = ref.float().abs().max().item()
+    assert _max_err(y, ref) <= (1e-4 * scale if dtype == torch.float32 else _bf16_tol(ref))
+    assert torch.equal(y, ff.fused_ffn_fwd(x, *params, seeds, 0.1, 1e-12))
+    grads = ff.fused_ffn_bwd(x, *params[:5], dy, seeds, 0.1, 1e-12)
+    plain = ff.fused_ffn_bwd_plain(x, *params[:5], dy, seeds, 0.1, 1e-12)
+    for i, (a, b) in enumerate(zip(grads, plain)):
+        tol = 1e-4 if dtype == torch.float32 else (1.2e-2 if i == 0 else 2e-3)
+        assert _max_err(a, b) <= tol * b.float().abs().max().item(), i
+    again = ff.fused_ffn_bwd(x, *params[:5], dy, seeds, 0.1, 1e-12)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _serial_rollouts_equal(cfg, agent, make_env, dev):
+    """Two collects by ``RolloutCollector`` and by ``DeviceRolloutCollector``
+    from one Rng seed: the rollouts and final states equal bit for bit."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.device_rollout import DeviceRolloutCollector
+    from eavit_tpu_torch.rl.rollout import RolloutCollector
+
+    rollouts = []
+    for cls in (RolloutCollector, DeviceRolloutCollector):
+        env = make_env()
+        col, rng = cls(cfg, agent, env), Rng(11, dev)
+        first, states = col.collect(env.reset(), rng)
+        second, states = col.collect(states, rng)
+        rollouts.append((first, second, states))
+    for ref, ours in zip(rollouts[0][:2], rollouts[1][:2]):
+        for name in ref._fields:
+            assert cs.same_bits(torch, getattr(ref, name), getattr(ours, name)), name
+    np.testing.assert_array_equal(rollouts[0][2], rollouts[1][2])
+    return rollouts[1][0]
+
+
+def test_device_collector_continuous_on_the_card(cuda):
+    """The serial ``DeviceRolloutCollector`` with continuous actions under
+    PPO and NoisyNet (``pendulum_continuous.conf``'s kind) on
+    ``chip_smoke.ContinuousSmokeEnv``: float ``[T, N, 1]`` actions and log-probs
+    equal to ``RolloutCollector``'s bit for bit."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, TrainMethod, ViTConfig
+    from eavit_tpu_torch.models.policy import ActionSpaceType
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    cfg = Config(vit=ViTConfig(**{**SMALL_VIT, "dropout": 0.1}), num_env_per_process=4,
+                 num_step=8, attention_impl="pallas_qkv", fused_ffn=True,
+                 train_method=TrainMethod.PPO, use_noisy_net=True)
+    agent = RNDAgent(cfg, 1, ActionSpaceType.CONTINUOUS, device=cuda)
+    agent.init_state(0)
+    ro = _serial_rollouts_equal(cfg, agent, lambda: cs.ContinuousSmokeEnv(4, seed=5, max_steps=4),
+                                cuda)
+    assert ro.actions.dtype == torch.float32
+    assert tuple(ro.actions.shape) == tuple(ro.policy.shape) == (8, 4, 1)
+
+
+def test_device_collector_on_the_card(cuda):
+    """``DeviceRolloutCollector``: its serial rollout equals
+    ``RolloutCollector``'s bit for bit on one Rng seed (dropout live, resets
+    inside the rollout, two collects); the pipelined one keeps each half's
+    stacks in lockstep with the env and acts twice a step."""
+    import chip_smoke as cs
+    from eavit_tpu_torch.config import Config, ViTConfig
+    from eavit_tpu_torch.envs.synthetic import SyntheticVectorEnv
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.device_rollout import DeviceRolloutCollector
+
+    cfg = Config(vit=ViTConfig(**{**SMALL_VIT, "dropout": 0.1}), num_env_per_process=4,
+                 num_step=8, attention_impl="pallas_qkv", fused_ffn=True)
+    agent = RNDAgent(cfg, 5, device=cuda)
+    agent.init_state(0)
+    _serial_rollouts_equal(cfg, agent,
+                           lambda: SyntheticVectorEnv(4, seed=5, max_episode_steps=4), cuda)
+
+    env = cs.HalfRecorder(SyntheticVectorEnv(4, seed=7, max_episode_steps=4))
+    col = DeviceRolloutCollector(cfg.replace(async_env_pool=True), agent, env)
+    assert col.pipelined
+    before = fq.launches["flash_qkv_fwd"]
+    ro, _ = col.collect(env.reset(), Rng(1, cuda))
+    assert fq.launches["flash_qkv_fwd"] - before == 2 * (8 + 1)
+    states, nxt = ro.states.cpu().numpy(), ro.next_obs.cpu().numpy()
+    for lo in (0, 2):
+        for t in range(8):
+            np.testing.assert_array_equal(states[t, lo:lo + 2], env.rec[lo][t])
+            np.testing.assert_array_equal(nxt[t, lo:lo + 2, 0], env.rec[lo][t + 1][:, -1])

@@ -11,7 +11,7 @@ JAX package.
   rewards, dones, truncations and infos bit for bit over 40 steps that cross
   an auto-reset (the wall-clock ``t`` of an episode's info aside).
 - ``ThreadVectorEnv`` equals ``SyncVectorEnv`` on an env whose reset is
-  deterministic, and the JAX package's ``ThreadVectorEnv`` on Pendulum;
+  deterministic, and the JAX package's ``SyncVectorEnv`` on Pendulum;
   ``sample_random_actions`` draws the JAX package's values under one numpy
   seed.
 - The renderer under matplotlib's Agg backend, as ``test_renderer_headless``
@@ -209,11 +209,14 @@ def test_sample_random_actions_match_jax(env_id):
 
 def test_thread_pool_matches_sync_pool():
     """On envs whose reset is deterministic the two pools give the same
-    stream; on Pendulum the thread pool equals the JAX package's, whose
-    workers reset each env once more than ``SyncVectorEnv`` does before the
-    first ``reset`` (``eavit_tpu/envs/pool.py:117``)."""
+    stream; on Pendulum the thread pool equals the JAX package's
+    ``SyncVectorEnv`` reset once more first, as the thread workers reset
+    each env once before the first ``reset`` (``eavit_tpu/envs/pool.py:117``).
+    The reference is a synchronous pool: pygame renders from several threads
+    at once are not deterministic, which is why the port's renders hold one
+    lock (``envs/wrappers.py``)."""
     gym = _gym()
-    from eavit_tpu.envs.pool import ThreadVectorEnv as JaxThreads
+    from eavit_tpu.envs.pool import SyncVectorEnv as JaxSync
     from eavit_tpu_torch.envs.pool import SyncVectorEnv, ThreadVectorEnv
 
     build, _ = WRAPPERS["step_cap_monitor"]
@@ -221,11 +224,12 @@ def test_thread_pool_matches_sync_pool():
     sync, threads = SyncVectorEnv(fns), ThreadVectorEnv(fns)
     jcfg, pcfg = _cc_cfgs("Pendulum-v1", async_env_pool=True)
     ours = builders.make_vector_env(pcfg)
-    ref = JaxThreads([jax_builders.make_classic_control_env(jcfg, s)
-                      for s in (jcfg.seed, jcfg.seed + 1)])
+    ref = JaxSync([jax_builders.make_classic_control_env(jcfg, s)
+                   for s in (jcfg.seed, jcfg.seed + 1)])
     assert type(ours) is ThreadVectorEnv
     try:
         np.testing.assert_array_equal(sync.reset(), threads.reset())
+        ref.reset()  # the thread workers' own first reset
         np.testing.assert_array_equal(ours.reset(), ref.reset())
         rng = np.random.default_rng(2)
         for _ in range(12):
