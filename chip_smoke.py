@@ -184,6 +184,16 @@ non-zero on failure:
     ``pallas`` (K4) and ``pallas_stream`` (K5); the gradient on 8 frames
     against the CPU copy at ``HG_GRAD_CRITERIA``, and the bf16 one against
     a float32 CPU copy at ``HG_BF16_REFERENCE``.
+25. ``dp`` (item 9, ``eavit_tpu_torch/parallel/dp.py``): an NCCL group of
+    one; the flagship on ``pallas_qkv`` through ``train.train`` for two
+    iterations without the group and with it, in turns, in cuDNN's
+    deterministic mode: parameters, optimizer state, normalisers and
+    metrics equal bit for bit, K1f, K1b, K2f and K2b launched as in the
+    ``train`` line, both arms' frames/s; then two gloo ranks spawned on this
+    card (``cuda:0``, 32 envs each, ``Epoch = 1``) for two iterations: equal
+    replicas, equal pooled metrics, and ``obs_rms`` pooled over the two
+    ranks' next-obs equal to one ``rms_update`` over both. ``python3
+    chip_smoke.py --only dp`` runs the build and this phase alone.
 
 K1f, K1b, K3b and K4b have two bf16 kernels each: the whole-head forms
 (``csrc/attn_fwd_head.cuh``, ``csrc/attn_bwd_head.cuh``), which the wrappers
@@ -3461,6 +3471,267 @@ def device_rollout_phase(torch, mods, dev):
     return out
 
 
+DP_RANKS, DP_RANK_ENVS = 2, 32  # the gloo ranks on one card, and each one's envs
+
+
+def _dp_cfg(workdir: str, tag: str, **kw):
+    """The flagship (shared stream, ``pallas_qkv``, bf16, dropout 0.1) as
+    ``train.train`` runs it in the ``dp`` phase."""
+    return flagship_cfg(True).replace(obs_norm_step=1, save_ckpt_every=2, log_name=f"dp_{tag}",
+                                      save_model_path=os.path.join(workdir, tag), **kw)
+
+
+def _tree_leaves(tree):
+    """The leaves of a checkpoint payload in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _dp_rank(rank: int, workdir: str) -> None:
+    """One of ``DP_RANKS`` gloo ranks on ``cuda:0`` (a spawned process): two
+    flagship iterations (``Epoch = 1``: every all-reduce goes through the
+    host) through ``train.train`` with ``DP_RANK_ENVS`` envs;
+    then, from rank 0's checkpoint, ``obs_rms`` pooled over the ranks'
+    next-obs of eight random steps of each rank's own fleet. Writes
+    ``rank<r>.pt`` in ``workdir``; its ``train`` log holds the replica's
+    parameter digest."""
+    import numpy as np
+    import torch
+
+    from eavit_tpu_torch import train as port_train
+    from eavit_tpu_torch.envs.builders import make_vector_env
+    from eavit_tpu_torch.parallel import dp
+    from eavit_tpu_torch.utils.checkpoint import load_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.stdout = open(os.path.join(workdir, f"rank{rank}.out"), "w")  # the train logs
+    dp.init_distributed(f"file://{os.path.join(workdir, 'gloo_store')}", DP_RANKS, rank,
+                        backend="gloo", timeout=600)
+    try:
+        cfg = _dp_cfg(workdir, "two_ranks", num_env_per_process=DP_RANK_ENVS,
+                      data_axis_size=DP_RANKS, epoch=1)
+        t0 = time.perf_counter()
+        metrics = port_train.train(cfg, total_updates=2, log_dir=os.path.join(workdir, "logs"),
+                                   device="cuda:0")  # the named device: both ranks on it
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        torch.distributed.barrier()  # rank 0's checkpoint is on disk
+        agent = dp.build_agent(cfg, 5, device="cuda:0")
+        state = agent.init_state(cfg.seed)
+        state, _ = load_checkpoint(os.path.join(cfg.save_model_path, cfg.log_name), agent)
+        env = make_vector_env(cfg, rank=rank)
+        env.reset()
+        rng = np.random.default_rng(rank)
+        frames = np.concatenate([env.step(rng.integers(0, 5, DP_RANK_ENVS))[0][:, -1:]
+                                 for _ in range(8)])
+        after = agent.update_obs_rms(state, frames).obs_rms
+        torch.save({"metrics": metrics, "train_s": train_s, "frames": torch.from_numpy(frames),
+                    "before": [t.cpu() for t in state.obs_rms],
+                    "after": [t.cpu() for t in after],
+                    "device": str(agent.device), "backend": torch.distributed.get_backend()},
+                   os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _all_reduce_cost(torch, cfg):
+    """``dp.all_reduce_mean_`` of gradients shaped as the trainable
+    parameters of ``cfg``'s agent, over the initialised group: host time of
+    a call that ends in a synchronise, and device time (CUDA events) of a
+    call among back-to-back calls."""
+    from eavit_tpu_torch.parallel import dp
+    from eavit_tpu_torch.rl.agent import RNDAgent
+
+    grads = [torch.randn_like(p) for p in RNDAgent(cfg, 5).trainable_parameters()]
+    group, iters = dp.default_group(), 50
+
+    def call():
+        dp.all_reduce_mean_(grads, group)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    device_ms = time_ms(torch, call, iters)
+    return dict(tensors=len(grads), elements=sum(g.numel() for g in grads), host_ms=host_ms,
+                device_ms=device_ms, host_s_per_update=host_ms * EPOCH * MINI_BATCH / 1e3)
+
+
+def dp_phase(torch, mods, dev, workdir: str, train_launches=None):
+    """``dp`` (Queue 1 item 9): data parallelism on the card. (1) An NCCL
+    group of one: the flagship through ``train.train`` for two iterations
+    without a process group and again with it, in cuDNN's deterministic mode
+    (its convolution backward has other bits run to run otherwise, fault 7),
+    in turns (without, with, with, without): parameters, optimizer state,
+    normalisers (the checkpoints) and metrics equal bit for bit in all four,
+    K1f, K1b, K2f and K2b launched as in the ``train`` line, the gradient
+    all-reduce run once a minibatch; each arm's frames/s, and one gradient
+    all-reduce timed alone. (2)
+    ``DP_RANKS`` gloo ranks on this card (spawned, ``cuda:0``,
+    ``DP_RANK_ENVS`` envs each, ``Epoch = 1``) for two iterations: equal
+    parameter digests, equal pooled metrics, and ``obs_rms`` pooled over the
+    ranks' next-obs equal to one ``rms_update`` over both on the card (the
+    mean within 1e-6
+    of itself, the variance within 1e-6 of the frames' second moment, where
+    ``sumsq / n - mean^2`` rounds; the count exactly)."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from eavit_tpu_torch import train as port_train
+    from eavit_tpu_torch.parallel import dp
+    from eavit_tpu_torch.rl import normalizer as norm
+
+    os.makedirs(workdir, exist_ok=True)
+    updates, frames = 2, NUM_STEP * NUM_ENVS
+    per_update, per_rollout = DEPTH * EPOCH * MINI_BATCH, DEPTH * (NUM_STEP + 1)
+    expect = {**{k: updates * (per_rollout + per_update) for k in ("flash_qkv_fwd",
+                                                                     "fused_ffn_fwd")},
+              **{k: updates * per_update for k in ("flash_qkv_bwd", "fused_ffn_bwd")}}
+    calls = {"all_reduce": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls["all_reduce"] += 1
+        return all_reduce(*a, **kw)
+
+    runs, reduce_cost = [], {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.all_reduce = counted
+    try:
+        for i, tag in enumerate(("plain", "group_of_one", "group_of_one", "plain")):
+            if tag == "group_of_one":
+                dp.init_distributed(f"file://{os.path.join(workdir, 'nccl_store')}", 1, 0,
+                                    backend="nccl", timeout=600)
+            cfg = _dp_cfg(workdir, f"{tag}_{i}")
+            calls["all_reduce"] = 0
+            torch.cuda.synchronize()
+            _reset(mods)
+            t0 = time.perf_counter()
+            metrics = port_train.train(cfg, total_updates=updates,
+                                       log_dir=os.path.join(workdir, "logs"))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = _counts(mods)  # the main path ends here
+            reduces = calls["all_reduce"]
+            backend = dist.get_backend() if dist.is_initialized() else None
+            if dist.is_initialized():
+                if not reduce_cost:  # one gradient all-reduce alone, on the flagship's shapes
+                    reduce_cost = _all_reduce_cost(torch, cfg)
+                dist.destroy_process_group()
+            payload = torch.load(os.path.join(cfg.save_model_path, cfg.log_name + ".pt"),
+                                 map_location="cpu", weights_only=True)
+            runs.append(dict(tag=tag, metrics=metrics, train_s=train_s, counts=counts,
+                             all_reduce_calls=reduces, backend=backend,
+                             leaves=_tree_leaves(payload)))
+    finally:
+        dist.all_reduce = all_reduce
+        torch.backends.cudnn.deterministic = deterministic
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    plain, one = runs[0], runs[1]
+    same_state = all(len(plain["leaves"]) == len(r["leaves"]) and all(
+        same_bits(torch, a, b) if isinstance(a, torch.Tensor) else a == b
+        for a, b in zip(plain["leaves"], r["leaves"])) for r in runs[1:])
+    same_metrics = all(plain["metrics"] == r["metrics"] for r in runs[1:])
+    grad_reduces = updates * EPOCH * MINI_BATCH
+    fps = {tag: [updates * frames / r["train_s"] for r in runs if r["tag"] == tag]
+           for tag in ("plain", "group_of_one")}
+
+    # two gloo ranks on this card
+    two = os.path.join(workdir, "two_ranks_run")
+    os.makedirs(two)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, two)) for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+    two_s = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        for r in range(DP_RANKS):
+            out = os.path.join(two, f"rank{r}.out")
+            if os.path.exists(out):
+                print(open(out).read()[-3000:], flush=True)
+    check(not any(codes), f"dp: two gloo ranks exited with {codes}")
+    outs = [torch.load(os.path.join(two, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_RANKS)]
+    digests = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(two, "logs", f"dp_two_ranks_rank{r}.log")) as fh:
+            digests.append(fh.read().split("parameter digest ")[1].split()[0])
+    train_metrics = [{k: v for k, v in o["metrics"].items() if k.startswith("train/")}
+                     for o in outs]
+    x = torch.cat([o["frames"] for o in outs]).to(dev)
+    ref = norm.rms_update(norm.RMSState(*(t.to(dev) for t in outs[0]["before"])), x)
+    second = float(x.double().square().mean())
+    mean_scale = float(x.double().abs().mean())
+    pooled = []
+    for o in outs:
+        mean, var, count = (t.to(dev) for t in o["after"])
+        pooled.append(dict(
+            mean_err=float((mean - ref.mean).abs().max()),
+            mean_tol=1e-6 * (float(ref.mean.abs().max()) + mean_scale),
+            var_err=float((var - ref.var).abs().max()), var_tol=1e-6 * second,
+            count=float(count), ref_count=float(ref.count)))
+    pooled_ok = all(p["mean_err"] <= p["mean_tol"] and p["var_err"] <= p["var_tol"]
+                    and p["count"] == p["ref_count"] for p in pooled)
+    replicas_equal = len(set(digests)) == 1
+    log("dp", nvidia_smi=gpu_name_power(), envs=NUM_ENVS, steps=NUM_STEP, epochs=EPOCH,
+        mini_batch=MINI_BATCH, updates=updates,
+        turns=[r["tag"] for r in runs], same_state_bits=same_state,
+        same_metrics=same_metrics,
+        group_of_one=dict(backend=one["backend"],
+                          all_reduce_calls=[r["all_reduce_calls"] for r in runs
+                                            if r["tag"] == "group_of_one"],
+                          gradient_all_reduces=grad_reduces, gradient_all_reduce=reduce_cost,
+                          launches=one["counts"],
+                          expected_launches=expect,
+                          train_s=[r["train_s"] for r in runs if r["tag"] == "group_of_one"],
+                          frames_per_s=fps["group_of_one"]),
+        without_group=dict(train_s=[r["train_s"] for r in runs if r["tag"] == "plain"],
+                           frames_per_s=fps["plain"],
+                           all_reduce_calls=[r["all_reduce_calls"] for r in runs
+                                             if r["tag"] == "plain"]),
+        two_gloo_ranks=dict(ranks=DP_RANKS, envs_per_rank=DP_RANK_ENVS,
+                            devices=[o["device"] for o in outs],
+                            backends=[o["backend"] for o in outs],
+                            train_s=[o["train_s"] for o in outs], wall_s=two_s,
+                            digests=digests, replicas_equal=replicas_equal,
+                            train_metrics_equal=train_metrics[0] == train_metrics[1],
+                            obs_rms_pooled=pooled))
+    for r in runs:
+        check_counts(r["counts"], expect, f"dp {r['tag']}: train")
+        grouped = r["tag"] == "group_of_one"
+        check(r["backend"] == ("nccl" if grouped else None),
+              f"dp {r['tag']}: backend {r['backend']}")
+        check(r["all_reduce_calls"] >= grad_reduces if grouped else r["all_reduce_calls"] == 0,
+              f"dp {r['tag']}: {r['all_reduce_calls']} all-reduce calls")
+    if train_launches is not None:
+        check(all(one["counts"][k] == train_launches[k] for k in expect),
+              f"dp: launches {one['counts']} against the train line's {train_launches}")
+    check(same_state, "dp: a group of one changed the parameters, optimizer or normalisers")
+    check(same_metrics, "dp: a group of one changed the metrics")
+    check(replicas_equal, f"dp: the gloo ranks' parameters differ {digests}")
+    check(train_metrics[0] == train_metrics[1], "dp: the ranks' pooled metrics differ")
+    check(pooled_ok, f"dp: pooled obs_rms against one process's {pooled}")
+    return one["counts"]
+
+
 SOURCES = {  # kernel -> (csrc source, the TPU kernel's pallas_call)
     "flash_qkv_fwd": ("flash_qkv", "eavit_tpu/ops/flash_qkv.py:531"),
     "flash_qkv_bwd": ("flash_qkv_bwd", "eavit_tpu/ops/flash_qkv.py:580"),
@@ -3524,6 +3795,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    check(only in (None, "dp"), f"--only {only}: the phases it takes are: dp")
     card = gpu_name_power()
     log("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
@@ -3553,6 +3826,12 @@ def main() -> int:
                       or int(re.match(r"Dh(\d+)", v).group(1)) <= 32)
                   and (i.get("spill_stores") or i.get("spill_loads"))}
         check(not spills, f"tensor-core kernels spill: {spills}")
+    if only == "dp":
+        with tempfile.TemporaryDirectory() as workdir:
+            dp_phase(torch, mods, dev, os.path.join(workdir, "dp"))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "only": only}), flush=True)
+        return 0
 
     rows = kernel_phase(torch, fq, ff, kernel_prng, dev)
     rows.update(train_kernel_phase(torch, fq, ff, dev))
@@ -3602,6 +3881,7 @@ def main() -> int:
                                                item5_rows)
         ssl_launches = {m: ssl_phase(torch, mods, dev, os.path.join(workdir, f"ssl_{m}"), m,
                                      timing) for m in SSL_METHODS}
+        dp_launches = dp_phase(torch, mods, dev, os.path.join(workdir, "dp"), train_launches)
     remat_rows = remat_phase(torch, mods, dev)
     route_launches = patch4_other_routes(torch, mods, dev)
     collectors = device_rollout_phase(torch, mods, dev)
@@ -3760,8 +4040,10 @@ def main() -> int:
         if (key, LONG_N[0], "bfloat16") in long_rows:
             entry["long_n_ms"] = {f"{d} N={n}": long_rows[(key, n, d)]["ms"]
                                   for n in LONG_N for d in ("bfloat16", "float32")}
-    for entry in kernels:  # the SSL runs' and the remat steps' launches
+    for entry in kernels:  # the SSL runs', the remat steps' and the dp run's launches
         key = entry["name"]
+        if key in ("flash_qkv_fwd", "flash_qkv_bwd", "fused_ffn_fwd", "fused_ffn_bwd"):
+            entry["dp_group_of_one_launches"] = dp_launches[key]
         if key in ssl_launches["byol"]:
             entry.update({f"ssl_{m}_train_launches": ssl_launches[m][key] for m in SSL_METHODS})
         route = "pallas_qkv" if key.startswith(("flash_qkv", "fused_ffn")) else "pallas"

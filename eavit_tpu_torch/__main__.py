@@ -1,7 +1,9 @@
 """CLI entry (counterpart of ``eavit_tpu/__main__.py``; reference
 main.py:26-35): ``python -m eavit_tpu_torch --train|--eval --config_path ...
 [--device cpu] [--config_options]``. Without ``--device`` the run needs a
-CUDA GPU and fails without one."""
+CUDA GPU and fails without one. Launched by ``torchrun --nproc_per_node W``,
+each process trains as one of W data-parallel ranks (``parallel/dp.py``);
+launched alone, it is world size 1."""
 
 from __future__ import annotations
 

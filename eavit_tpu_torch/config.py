@@ -18,8 +18,9 @@ Keys that name TPU choices are still parsed. :func:`attention_route` and
 - ``ComputeDtype`` keeps its meaning (the dtype of the Dense layers).
 - ``PrngImpl`` is parsed and not read. ``EncoderRemat = full | dots``
   recomputes the encoder's sublayers in the backward (``models/vit.py``).
-  ``DataAxisSize > 1`` is parsed and raises ``NotImplementedError`` in
-  ``train``.
+  ``DataAxisSize`` is the number of data-parallel ranks, one process per
+  device as ``torchrun`` launches them: 0 means every launched rank, any
+  other value must equal their number (``parallel/dp.py``).
 
 Divergences from the reference (documented, intentional):
 
@@ -226,7 +227,7 @@ class Config:
     shared_patch_stream: bool = False
     compute_dtype: str = "bfloat16"  # dtype of the Dense layers
     prng_impl: str = "rbg"  # JAX generator name; parsed, not read by the port
-    data_axis_size: int = 1  # data-parallel mesh size (devices)
+    data_axis_size: int = 1  # data-parallel ranks (0: every launched rank)
     # threaded env pool with half-fleet double-buffered rollouts in the JAX
     # package (eavit_tpu/rl/device_rollout.py); parsed, not read by the port
     async_env_pool: bool = False

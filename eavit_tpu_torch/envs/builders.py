@@ -17,7 +17,7 @@ where ``ale_py`` or ``gym_super_mario_bros`` / ``nes_py`` are missing.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, List
 
 from eavit_tpu_torch.config import Config, EnvType
 from eavit_tpu_torch.envs.pool import SyncVectorEnv, ThreadVectorEnv
@@ -127,6 +127,13 @@ def make_classic_control_env(cfg: Config, seed: int,
     return thunk
 
 
+def fleet_seeds(cfg: Config, rank: int = 0) -> List[int]:
+    """The env seeds of rank ``rank``'s fleet: ``seed + rank * num_env +
+    idx`` (reference dist_utils.py:108-109), disjoint between ranks."""
+    n = cfg.num_env_per_process
+    return [cfg.seed + rank * n + i for i in range(n)]
+
+
 def make_vector_env(cfg: Config, rank: int = 0, render: bool = False):
     """Build the per-process env fleet (reference
     create_parallel_env_processes, dist_utils.py:84-117)."""
@@ -151,7 +158,6 @@ def make_vector_env(cfg: Config, rank: int = 0, render: bool = False):
     if cfg.env_type not in makers:
         raise ValueError(f"EnvType = {cfg.env_type.value} has no host env fleet "
                          "(synthetic_device runs on the device, envs/device_env.py)")
-    seeds = [cfg.seed + rank * n + i for i in range(n)]
-    fns = [makers[cfg.env_type](cfg, s, render) for s in seeds]
+    fns = [makers[cfg.env_type](cfg, s, render) for s in fleet_seeds(cfg, rank)]
     pool_cls = ThreadVectorEnv if cfg.async_env_pool else SyncVectorEnv
     return pool_cls(fns)

@@ -44,6 +44,17 @@ counters live in an :class:`AgentState`. Gradient clipping follows
 the encoder's sublayers in the backward (``models/vit.py``). The agent runs
 on CUDA unless the caller passes ``device="cpu"``; with no GPU and no
 device it raises.
+
+Data parallelism (``eavit_tpu``'s ``axis_name``, agent.py:106-111): with a
+``process_group`` (``parallel/dp.py``) each rank updates from its own envs'
+rollout and the agent calls the collectives where the JAX agent has
+``pmean`` / ``psum``: ``obs_rms`` and the reward RMS pool their moments
+(agent.py:317, :373-385, :434, :444), the gradients are averaged after the
+freeze zeroing and before the norm, the clip and Adam (:563-564), and every
+metric is averaged at the end of :meth:`RNDAgent.update` (:599-601).
+``global_step`` adds the rank's own ``T * N`` (:332, :611). ``init_state``
+broadcasts rank 0's modules, so the replicas start and stay equal; a
+checkpoint holds every rank's ``reward_filter.rewems`` in rank order.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from eavit_tpu_torch.models.rnd import (
 )
 from eavit_tpu_torch.models.ssl import Views, make_ssl
 from eavit_tpu_torch.ops.gae import make_train_data
+from eavit_tpu_torch.parallel import dp
 from eavit_tpu_torch.rl import normalizer as norm
 from eavit_tpu_torch.rl.ppo import (
     categorical_entropy,
@@ -139,9 +151,15 @@ class RNDAgent:
         output_size: int,
         action_space: ActionSpaceType = ActionSpaceType.DISCRETE,
         device=None,
+        process_group=None,
+        num_envs: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the ranks that average with this one (None: no data parallelism),
+        # and the envs of this rank's rollouts
+        self.process_group = process_group
+        self.num_envs = cfg.num_env_per_process if num_envs is None else num_envs
         self.output_size = output_size
         self.action_space = action_space
         self.train_method = cfg.train_method
@@ -200,7 +218,8 @@ class RNDAgent:
 
     def init_state(self, seed: int) -> AgentState:
         """Initialise every module from ``seed``, reset the optimizer and
-        return fresh normalisers (agent.py:165-205)."""
+        return fresh normalisers (agent.py:165-205). With a process group the
+        modules then take rank 0's values."""
         cfg = self.cfg
         gen = torch.Generator("cpu")
         gen.manual_seed(seed)
@@ -212,6 +231,8 @@ class RNDAgent:
             m.to(self.device)
         if self.ssl_target is not None:
             self.ssl.copy_to_target(self.ssl_target, self.network.feature)
+        for m in self._modules().values():
+            dp.broadcast_(m, self.process_group)
         self.optimizer = self._make_optimizer()
         obs_rms = None
         if self.use_rnd:
@@ -219,7 +240,7 @@ class RNDAgent:
         return AgentState(
             obs_rms=obs_rms,
             reward_rms=norm.rms_init((), device=self.device),
-            reward_filter=norm.reward_filter_init(cfg.num_env_per_process, self.device),
+            reward_filter=norm.reward_filter_init(self.num_envs, self.device),
             global_update=0,
             global_step=0,
         )
@@ -230,13 +251,15 @@ class RNDAgent:
 
     def state_dict(self, state: AgentState) -> Dict[str, Any]:
         """Modules, optimizer and ``state`` as one dict of tensors and plain
-        Python numbers (what ``utils/checkpoint.py`` saves)."""
+        Python numbers (what ``utils/checkpoint.py`` saves). With a process
+        group every rank calls it: ``rewems`` is gathered in rank order."""
         out: Dict[str, Any] = {k: m.state_dict() for k, m in self._modules().items()}
         out["optimizer"] = self.optimizer.state_dict()
         out["agent_state"] = {
             "obs_rms": None if state.obs_rms is None else tuple(state.obs_rms),
             "reward_rms": tuple(state.reward_rms),
-            "reward_filter": tuple(state.reward_filter),
+            "reward_filter": (dp.gather_envs(state.reward_filter.rewems,
+                                             self.process_group),),
             "global_update": int(state.global_update),
             "global_step": int(state.global_step),
         }
@@ -244,7 +267,8 @@ class RNDAgent:
 
     def load_state_dict(self, payload: Dict[str, Any]) -> AgentState:
         """Inverse of :meth:`state_dict`: loads modules and optimizer in
-        place and returns the ``AgentState`` on the agent's device."""
+        place and returns the ``AgentState`` on the agent's device, with
+        this rank's part of ``rewems``."""
         for k, m in self._modules().items():
             m.load_state_dict(payload[k])
         self.optimizer.load_state_dict(payload["optimizer"])
@@ -257,7 +281,8 @@ class RNDAgent:
         return AgentState(
             obs_rms=None if obs_rms is None else norm.RMSState(*on_device(obs_rms)),
             reward_rms=norm.RMSState(*on_device(st["reward_rms"])),
-            reward_filter=norm.RewardFilterState(*on_device(st["reward_filter"])),
+            reward_filter=norm.RewardFilterState(dp.rank_slice(
+                *on_device(st["reward_filter"]), self.num_envs, self.process_group)),
             global_update=int(st["global_update"]),
             global_step=int(st["global_step"]),
         )
@@ -324,7 +349,7 @@ class RNDAgent:
         if not self.use_rnd:
             return state
         x = self._rnd_source(self._obs(next_obs_u8))
-        return state._replace(obs_rms=norm.rms_update(state.obs_rms, x))
+        return state._replace(obs_rms=norm.rms_update(state.obs_rms, x, self.process_group))
 
     # ------------------------------------------------------------------
     # steps 1-4 of the update
@@ -360,9 +385,14 @@ class RNDAgent:
             new_reward_filter, per_step = norm.reward_filter_scan(
                 state.reward_filter, total_int_reward, cfg.int_gamma)
             flat = per_step.reshape(-1)
+            if dp.group_size(self.process_group) > 1:
+                # every rank's filtered returns together (agent.py:373-382)
+                mean, var, _ = dp.pooled_moments(flat.sum(), torch.square(flat).sum(),
+                                                  flat.numel(), self.process_group)
+            else:
+                mean, var = flat.mean(), flat.var(unbiased=False)
             new_reward_rms = norm.rms_update_from_moments(
-                state.reward_rms, flat.mean(), flat.var(unbiased=False),
-                per_step.shape[0])
+                state.reward_rms, mean, var, per_step.shape[0])
             total_int_reward = total_int_reward / torch.sqrt(new_reward_rms.var)
             metrics["data/int_reward_per_epi"] = total_int_reward.sum(dim=1).mean()
             metrics["data/int_reward_per_rollout"] = total_int_reward.mean()
@@ -386,7 +416,7 @@ class RNDAgent:
 
         if self.use_rnd:
             # obs_rms update, then the RND train input with the POST-update stats
-            new_obs_rms = norm.rms_update(state.obs_rms, source)
+            new_obs_rms = norm.rms_update(state.obs_rms, source, self.process_group)
             rnd_train_in = norm.rms_normalize(new_obs_rms, source)
 
         metrics["data/ext_reward_per_rollout_mean"] = total_reward.mean()
@@ -479,7 +509,8 @@ class RNDAgent:
     def _minibatch_step(self, batch: TrainBatch, idx: torch.Tensor, rng: Rng,
                         params: List[nn.Parameter]) -> Dict[str, torch.Tensor]:
         """One Adam step on the minibatch ``idx`` (``minibatch_step``,
-        agent.py:553-571)."""
+        agent.py:553-571); with a process group on the gradients averaged
+        over the ranks."""
         cfg = self.cfg
         for p in params:
             p.grad = None
@@ -492,6 +523,7 @@ class RNDAgent:
             for p in self.network.feature.parameters():
                 p.grad.zero_()
         grads = [p.grad for p in params]
+        dp.all_reduce_mean_(grads, self.process_group)
         norm_unclipped = global_grad_norm(grads)
         aux["train/grad_norm_unclipped"] = norm_unclipped
         if cfg.use_grad_clipping:
@@ -517,7 +549,8 @@ class RNDAgent:
         ``MiniBatch`` Adam steps. The modules and the optimizer are updated
         in place; returns the new ``AgentState`` and the metrics (0-dim
         tensors on the device; ``_grads`` holds the last minibatch's
-        gradients under ``verbose_logging``)."""
+        gradients under ``verbose_logging``), averaged over the ranks of the
+        process group."""
         cfg = self.cfg
         state, batch, metrics = self.prepare_batch(state, rollout)
         num_samples = batch.adv.shape[0]
@@ -541,6 +574,8 @@ class RNDAgent:
                             for k in epoch_means[0]})
             if cfg.verbose_logging:
                 metrics["_grads"] = self._named_grads()
+        # every rank's metrics averaged (agent.py:599-601)
+        dp.all_reduce_mean_(dp.flatten_tensors(metrics), self.process_group)
         new_state = state._replace(
             global_step=state.global_step + num_samples,
             global_update=state.global_update + 1)

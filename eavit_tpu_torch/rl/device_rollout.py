@@ -29,6 +29,11 @@ the synthetic env a collect takes 1.8-2.6x the serial one on an H100
 (``PERF.md``), since a half act costs the host as many launches as a full
 one. ``AsyncEnvPool`` also selects the thread env pool, so a fleet built for
 env parallelism collects this way too.
+
+Under data parallelism each rank collects from its own fleet, seeded by its
+rank, with its own ``Rng`` (``train`` seeds rank 0's as a run of one
+process does, the others by ``parallel/dp.rank_seed``; JAX's
+``fold_in(rng, axis_index)``, ``eavit_tpu/rl/device_rollout.py:252-254``).
 """
 
 from __future__ import annotations

@@ -12,6 +12,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from eavit_tpu_torch.parallel import dp
+
 
 class RMSState(NamedTuple):
     mean: torch.Tensor
@@ -41,9 +43,12 @@ def rms_update_from_moments(state: RMSState, batch_mean, batch_var,
     return RMSState(mean=new_mean, var=m2 / tot_count, count=tot_count)
 
 
-def rms_update(state: RMSState, x: torch.Tensor) -> RMSState:
+def rms_update(state: RMSState, x: torch.Tensor, group=None) -> RMSState:
     """Fold a batch (moments over axis 0) into the statistics; the state's
-    shape decides the reduction, as in normalizer.py:54-94."""
+    shape decides the reduction, as in normalizer.py:54-94. With a process
+    ``group`` the batch is every rank's together: ``sum``, ``sumsq`` and
+    ``count`` are summed over the ranks (``parallel/dp.pooled_moments``;
+    normalizer.py:87-90), so every rank folds in the same moments."""
     x = x.float()
     if x.dim() == state.mean.dim() + 1:
         batch_sum = x.sum(dim=0)
@@ -56,6 +61,9 @@ def rms_update(state: RMSState, x: torch.Tensor) -> RMSState:
             f"cannot reduce batch of shape {tuple(x.shape)} into RMS of shape "
             f"{tuple(state.mean.shape)}")
     n = float(x.shape[0])
+    if group is not None:
+        return rms_update_from_moments(state, *dp.pooled_moments(batch_sum, batch_sumsq, n,
+                                                                 group))
     batch_mean = batch_sum / n
     batch_var = batch_sumsq / n - torch.square(batch_mean)
     return rms_update_from_moments(state, batch_mean, batch_var, n)

@@ -15,7 +15,10 @@ agent's, whose state it leaves untouched (the reference builds a dedicated
 
 The permutation comes from :meth:`SSLPretrainer._permutation` and each
 minibatch's augment parameters from the agent's ``_augment_params``, so a
-test can hand in the JAX draws.
+test can hand in the JAX draws. Under the agent's process group the
+gradients are averaged over the ranks before each step, as the update's
+are, so the replicas stay equal; ``eavit_tpu`` pretrains on its unsharded
+agent (``eavit_tpu/train.py:258-270``) and has no such step.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from eavit_tpu_torch.config import Config
 from eavit_tpu_torch.models.layers import Rng
+from eavit_tpu_torch.parallel import dp
 from eavit_tpu_torch.rl.agent import RNDAgent
 
 
@@ -66,6 +70,7 @@ class SSLPretrainer:
             for p in self.params:  # as optax: a parameter not reached gets zeros
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            dp.all_reduce_mean_([p.grad for p in self.params], agent.process_group)
             self.optimizer.step()
             agent.ssl.update_target(agent.ssl_target, agent.network.feature)
             losses.append(loss.detach())

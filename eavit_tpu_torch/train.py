@@ -10,9 +10,20 @@ rollout -> update loop with scheduled and best checkpoints, metric logging
 and a profile-N-updates-then-exit mode. The loop runs forever unless
 ``total_updates`` is set (the reference is killed externally).
 
-Single device: the agent runs on CUDA unless ``device="cpu"`` (CLI
-``--device cpu``) is given, and raises when there is no GPU and no device was
-named. ``EnvType = synthetic_device`` runs the zero-host path: the env of
+The agent runs on CUDA unless ``device="cpu"`` (CLI ``--device cpu``) is
+given, and raises when there is no GPU and no device was named. Data
+parallelism (``parallel/dp.py``): one process per device, as ``torchrun
+--nproc_per_node W`` launches it. :func:`train` first joins the ranks'
+process group (``nccl`` on CUDA, ``gloo`` on the CPU; a process launched
+alone is world size 1), then runs on ``cuda:{LOCAL_RANK}`` unless the caller
+names a device. ``DataAxisSize`` 0 means every rank, any other value must
+equal the number of ranks (``dp.data_axis_size``). Each rank's host fleet is
+seeded by its rank; on the device-env path every rank builds the one fleet
+and steps its slice. Each rank acts and draws from its own stream (rank 0
+from the stream of a run of one process), the agent averages over the ranks,
+rank 0 alone writes checkpoints and scalars, and a checkpoint holds every
+rank's per-env state in rank order. ``EnvType = synthetic_device`` runs the
+zero-host path: the env of
 ``envs/device_env.py`` and ``rl/scan_rollout.py``'s collector keep the frames,
 the env state and the rollout on the agent's device, the obs-norm warm-up
 runs policy rollouts through that collector, and a checkpoint carries the
@@ -31,12 +42,11 @@ after the resume and before the warm-up, through
 :class:`_DeviceEnvHostAdapter` (``eavit_tpu/train.py:149-174``, ``:258-267``,
 ``:392-400``). ``SSL_pretraining = True`` with no representation method
 trains without SSL, as the reference pretrains only when both are set.
-``DataAxisSize > 1`` is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -48,7 +58,7 @@ from eavit_tpu_torch.config import (
     RepresentationMethod,
     config_from_args,
 )
-from eavit_tpu_torch.envs.builders import make_vector_env
+from eavit_tpu_torch.envs.builders import fleet_seeds, make_vector_env
 from eavit_tpu_torch.envs.device_env import (
     DeviceEnvState,
     device_env_reset,
@@ -57,20 +67,13 @@ from eavit_tpu_torch.envs.device_env import (
 )
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.models.policy import ActionSpaceType
+from eavit_tpu_torch.parallel import dp
 from eavit_tpu_torch.rl.agent import RNDAgent
 from eavit_tpu_torch.rl.device_rollout import DeviceRolloutCollector
 from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
 from eavit_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from eavit_tpu_torch.utils.logger import Logger
 from eavit_tpu_torch.utils.seed import set_seed
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise for what the torch package cannot train yet."""
-    if cfg.data_axis_size > 1:
-        raise NotImplementedError(
-            "DataAxisSize > 1 (data parallel) is not ported to the torch package "
-            "yet (ROADMAP.md Queue 1, item 9)")
 
 
 def _detect_action_space(env) -> ActionSpaceType:
@@ -177,15 +180,19 @@ class _DeviceEnvHostAdapter:
         return rng.integers(0, self.action_space_n, size=self.num_envs)
 
 
-def _device_env_stats_meta(env_state: DeviceEnvState) -> Dict[str, Any]:
+def _device_env_stats_meta(env_state: DeviceEnvState, group=None) -> Dict[str, Any]:
     """The device env's episode bookkeeping as a JSON-able dict, in
     ``eavit_tpu``'s sidecar format (``eavit_tpu/train.py:177-188``: the
-    cumulative ever-visited bits packed and hex-encoded)."""
-    ev = env_state.ever_visited.cpu().numpy().astype(bool)
+    cumulative ever-visited bits packed and hex-encoded); every rank's envs
+    in rank order under a process ``group``."""
+    def whole(t):
+        return dp.gather_envs(t, group).cpu()
+
+    ev = whole(env_state.ever_visited).numpy().astype(bool)
     return {
-        "finished_episodes": env_state.finished_episodes.cpu().tolist(),
-        "last_episode_return": env_state.last_episode_return.cpu().tolist(),
-        "last_episode_rooms": env_state.last_episode_rooms.cpu().tolist(),
+        "finished_episodes": whole(env_state.finished_episodes).tolist(),
+        "last_episode_return": whole(env_state.last_episode_return).tolist(),
+        "last_episode_rooms": whole(env_state.last_episode_rooms).tolist(),
         "ever_visited_hex": np.packbits(ev, axis=None).tobytes().hex(),
         "ever_visited_shape": list(ev.shape),
     }
@@ -193,9 +200,10 @@ def _device_env_stats_meta(env_state: DeviceEnvState) -> Dict[str, Any]:
 
 def _restore_device_env_stats(env_state: DeviceEnvState,
                               metadata: Dict[str, Any]) -> DeviceEnvState:
-    """Resume the ever-visited frontier and the last-episode aggregates from
-    a checkpoint sidecar (``eavit_tpu/train.py:191-210``); positions and
-    stacks start fresh, like the reference's env workers on resume."""
+    """Resume the ever-visited frontier and the last-episode aggregates of
+    the whole fleet from a checkpoint sidecar (``eavit_tpu/train.py:191-210``);
+    positions and stacks start fresh, like the reference's env workers on
+    resume."""
     d = metadata.get("device_env_stats")
     if not d:
         return env_state
@@ -226,16 +234,41 @@ def _log_histograms(cfg: Config, logger: Logger, agent: RNDAgent, grads) -> None
             logger.log_params_histograms(grads["rnd_pred"], "RND_grads")
 
 
+def _param_digest(agent: RNDAgent) -> str:
+    """SHA-256 of every module's parameters and buffers, in order: equal on
+    every rank while the replicas agree bit for bit."""
+    h = hashlib.sha256()
+    for m in agent._modules().values():
+        for t in m.state_dict().values():
+            h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _start(cfg: Config, log_dir: str, agent: RNDAgent, rank: int, world: int) -> Logger:
+    """The rank's logger, with the device and the config in its log."""
+    logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
+                    verbose=cfg.verbose_logging, rank=rank)
+    logger.log(f"device: {agent.device} (rank {rank} of {world})")
+    logger.log(f"config: {cfg}")
+    return logger
+
+
+def _finish(logger: Logger, agent: RNDAgent, world: int) -> None:
+    if world > 1:  # the replicas' digests, rank by rank in their logs
+        logger.log(f"parameter digest {_param_digest(agent)}")
+    logger.close()
+
+
 def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates: int,
-                      log_dir: str, device) -> Dict[str, Any]:
+                      log_dir: str, device, rank: int, world: int) -> Dict[str, Any]:
     """The zero-host training loop over the device env
     (``eavit_tpu/train.py:212-310``): rollouts from ``ScanRolloutCollector``
-    on the agent's device, then ``RNDAgent.update`` as on the host path."""
-    agent = RNDAgent(cfg, 5, device=device)  # the device env's action set is 5
-    logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
-                    verbose=cfg.verbose_logging)
-    logger.log(f"device: {agent.device}")
-    logger.log(f"config: {cfg}")
+    on the agent's device, then ``RNDAgent.update`` as on the host path.
+    Under data parallelism each rank steps its slice of the one fleet."""
+    lo, hi = dp.env_slice(cfg.num_env_per_process, dp.default_group())
+    # the device env's action set is 5
+    agent = dp.build_agent(cfg, 5, device=device, num_envs=hi - lo)
+    logger = _start(cfg, log_dir, agent, rank, world)
     env_params, env_state = make_device_env(
         cfg.num_env_per_process,
         seed=cfg.seed,
@@ -253,9 +286,10 @@ def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates
         device=agent.device,
     )
     state = agent.init_state(cfg.seed)
-    rng = Rng(cfg.seed + 1, agent.device)
+    rng = Rng(dp.rank_seed(cfg.seed + 1, rank), agent.device)
     collector = ScanRolloutCollector(cfg, agent, env_params)
-    ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every)
+    ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every,
+                             agent.process_group)
 
     update = 0
     if cfg.load_model and cfg.load_model_path:
@@ -264,6 +298,8 @@ def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates
         ckpt.restore_best(meta)
         env_state = _restore_device_env_stats(env_state, meta)
         logger.log(f"resumed from {cfg.load_model_path} @ update {update}")
+    env_state = collector.shard_env_state(env_state)
+    logger.log(f"device env: envs {lo}..{hi - 1} of {cfg.num_env_per_process}")
 
     if _pretrains(cfg):
         # the reference's SSL-pretraining phase is unconditional on env type
@@ -305,13 +341,27 @@ def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates
             # checkpoint is written
             lambda u=update, st=state, es=env_state: {
                 "global_update": u, "global_step": st.global_step,
-                "device_env_stats": _device_env_stats_meta(es), "config": cfg},
+                "device_env_stats": _device_env_stats_meta(es, agent.process_group),
+                "config": cfg},
             mean_episode_return=metrics["data/mean_undiscounted_episode_return"],
         )
         if logger.step_profiler():
             break
-    logger.close()
+    _finish(logger, agent, world)
     return last_metrics
+
+
+def _rank_device(device, world: int, local_rank: int):
+    """The named device, else ``cuda:{local_rank}`` under data parallelism
+    on a machine with CUDA (else None: ``resolve_device``'s rule). A CUDA
+    device becomes the current one, where NCCL runs this rank's
+    collectives."""
+    if device is None and world > 1 and torch.cuda.is_available():
+        device = f"cuda:{local_rank}"
+    if device is not None and torch.device(device).type == "cuda" \
+            and torch.device(device).index is not None:
+        torch.cuda.set_device(torch.device(device))
+    return device
 
 
 def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int = 0,
@@ -320,23 +370,29 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
     if total_updates is None and cfg.total_updates >= 0:
         # direct train(cfg) callers get cfg.total_updates, same as the CLI
         total_updates = cfg.total_updates
-    check_ported(cfg)
+    # join the ranks before the first device query (eavit_tpu/train.py:321-324);
+    # a no-op in a process launched alone
+    dp.init_distributed(backend=dp.backend_for(device))
+    world, rank, _, local_rank = dp.get_dist_info()
+    dp.data_axis_size(cfg, world)  # before any env is built
+    device = _rank_device(device, world, local_rank)
 
     set_seed(cfg.seed)
     if cfg.env_type == EnvType.SYNTHETIC_DEVICE:
-        return _train_device_env(cfg, total_updates, profile_updates, log_dir, device)
-    env = make_vector_env(cfg, rank=0, render=cfg.render)
+        return _train_device_env(cfg, total_updates, profile_updates, log_dir, device,
+                                 rank, world)
+    # the rank's own fleet, seeded by the rank (eavit_tpu/train.py:338-340)
+    env = make_vector_env(cfg, rank=rank, render=cfg.render)
     # the number of discrete actions or the continuous action dimension
     output_size = env.action_space_n or getattr(env, "action_dim", 1) or 1
-    agent = RNDAgent(cfg, output_size, _detect_action_space(env),
-                     device=device)  # raises without CUDA
-    logger = Logger(cfg.log_name, log_dir=log_dir, use_wandb=cfg.use_wandb,
-                    verbose=cfg.verbose_logging)
-    logger.log(f"device: {agent.device}")
-    logger.log(f"config: {cfg}")
+    agent = dp.build_agent(cfg, output_size, _detect_action_space(env),
+                           device=device)  # raises without CUDA
+    logger = _start(cfg, log_dir, agent, rank, world)
+    seeds = fleet_seeds(cfg, rank)
+    logger.log(f"env fleet: {len(seeds)} envs, seeds {seeds[0]}..{seeds[-1]}")
 
     state = agent.init_state(cfg.seed)
-    rng = Rng(cfg.seed + 1, agent.device)
+    rng = Rng(dp.rank_seed(cfg.seed + 1, rank), agent.device)
     renderer = None
     if cfg.render:
         from eavit_tpu_torch.utils.renderer import ParallelizedEnvironmentRenderer
@@ -344,15 +400,19 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
         renderer = ParallelizedEnvironmentRenderer(cfg.num_env_per_process)
     collector = DeviceRolloutCollector(cfg, agent, env, renderer=renderer)
 
-    ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every)
+    ckpt = CheckpointManager(cfg.save_model_path, cfg.log_name, cfg.save_ckpt_every,
+                             agent.process_group)
     start_update = 0
     resumed = bool(cfg.load_model and cfg.load_model_path)
     if resumed:
         state, meta = load_checkpoint(cfg.load_model_path, agent)
         start_update = int(meta.get("global_update", state.global_update))
         ckpt.restore_best(meta)
-        if "episode_stats" in meta:  # episode bookkeeping (reference train.py:926-956)
-            collector.stats.load_state(meta["episode_stats"])
+        # episode bookkeeping (reference train.py:926-956), this rank's where
+        # the checkpoint holds every rank's
+        by_rank = meta.get("episode_stats_by_rank") or [meta.get("episode_stats")]
+        if by_rank[0] is not None:
+            collector.stats.load_state(by_rank[rank if rank < len(by_rank) else 0])
         logger.log(f"resumed from {cfg.load_model_path} @ update {start_update}")
 
     states = env.reset()
@@ -392,9 +452,13 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
 
         ckpt.maybe_save(
             agent, state, update,
-            {"global_update": update, "global_step": state.global_step,
-             "stats": collector.stats.summary(),
-             "episode_stats": collector.stats.to_state(), "config": cfg},
+            lambda u=update, st=state: {
+                "global_update": u, "global_step": st.global_step,
+                "stats": collector.stats.summary(),
+                "episode_stats": collector.stats.to_state(),
+                **({"episode_stats_by_rank": dp.gather_objects(
+                    collector.stats.to_state(), agent.process_group)} if world > 1 else {}),
+                "config": cfg},
             mean_rollout_reward=metrics.get("data/ext_reward_per_rollout_mean"),
             mean_episode_return=metrics.get("data/mean_undiscounted_episode_return"),
         )
@@ -404,7 +468,7 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
     if renderer is not None:
         renderer.close()
     env.close()
-    logger.close()
+    _finish(logger, agent, world)
     return last_metrics
 
 

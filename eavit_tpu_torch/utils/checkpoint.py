@@ -11,6 +11,11 @@ The device state -- the modules' parameters, the Adam state, the normalisers
 and counters, as ``RNDAgent.state_dict`` lays them out -- goes through
 ``torch.save`` into ``<path>.pt``; it holds tensors and plain numbers only,
 so it is read back with ``weights_only=True``.
+
+Under data parallelism (``parallel/dp.py``) every rank calls
+:meth:`CheckpointManager.maybe_save` on every update: the ranks take rank
+0's metrics to decide what to write, build the payload together (the
+per-env state is gathered in rank order) and rank 0 alone writes it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from eavit_tpu_torch.parallel import dp
 
 BEST_SUFFIXES = {
     "rollout_reward": "__BestModelForMeanExtrinsicRolloutRewards",
@@ -50,17 +57,21 @@ def _to_jsonable(obj: Any) -> Any:
     return obj
 
 
-def save_checkpoint(path: str, agent, state,
-                    metadata: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``<path>.pt`` (``agent.state_dict(state)``) and ``<path>.json``
-    (``metadata``). ``path`` is a file prefix."""
+def _write(path: str, payload: Dict[str, Any], metadata: Optional[Dict[str, Any]]) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     tmp = path + _EXT + ".tmp"
-    torch.save(agent.state_dict(state), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path + _EXT)  # a reader never sees half a file
     with open(path + ".json", "w") as f:
         json.dump(_to_jsonable(metadata or {}), f, indent=2, default=str)
     return path
+
+
+def save_checkpoint(path: str, agent, state,
+                    metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``<path>.pt`` (``agent.state_dict(state)``) and ``<path>.json``
+    (``metadata``). ``path`` is a file prefix."""
+    return _write(path, agent.state_dict(state), metadata)
 
 
 def load_checkpoint(path: str, agent) -> Tuple[Any, Dict[str, Any]]:
@@ -78,10 +89,12 @@ def load_checkpoint(path: str, agent) -> Tuple[Any, Dict[str, Any]]:
 
 
 class CheckpointManager:
-    """Scheduled + best-metric checkpointing (reference train.py:883-961)."""
+    """Scheduled + best-metric checkpointing (reference train.py:883-961);
+    with a process ``group`` rank 0 writes for every rank (module doc)."""
 
-    def __init__(self, directory: str, run_name: str, save_every: int):
+    def __init__(self, directory: str, run_name: str, save_every: int, group=None):
         self.directory = directory
+        self.group = group
         self.run_name = run_name
         self.save_every = max(1, save_every)
         self.best: Dict[str, float] = {
@@ -114,6 +127,9 @@ class CheckpointManager:
         """Returns ``{kind: path}`` for every checkpoint written by this
         call. ``metadata`` may be a zero-argument callable, evaluated only
         when something is written."""
+        if dp.group_size(self.group) > 1:  # every rank decides on rank 0's metrics
+            mean_rollout_reward, mean_episode_return, ssl_loss = dp.broadcast_object(
+                (mean_rollout_reward, mean_episode_return, ssl_loss), self.group)
         written: Dict[str, str] = {}
         # watermarks first, so every sidecar written now carries the new ones
         new_best = []
@@ -135,9 +151,11 @@ class CheckpointManager:
         metadata = dict(metadata() if callable(metadata) else metadata)
         metadata["best_metrics"] = {
             k: (v if math.isfinite(v) else None) for k, v in self.best.items()}
+        payload = agent.state_dict(state)
+        if dp.group_rank(self.group) != 0:
+            return written
         if scheduled:
-            written["scheduled"] = save_checkpoint(self.path(), agent, state, metadata)
+            written["scheduled"] = _write(self.path(), payload, metadata)
         for kind in new_best:
-            written[kind] = save_checkpoint(
-                self.path(BEST_SUFFIXES[kind]), agent, state, metadata)
+            written[kind] = _write(self.path(BEST_SUFFIXES[kind]), payload, metadata)
         return written

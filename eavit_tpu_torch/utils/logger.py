@@ -151,7 +151,8 @@ class Logger:
         if self._profiler is None:
             return
         self._profiler.stop()
-        trace = os.path.join(self._profile_dir, "trace.json")
+        trace = os.path.join(self._profile_dir,
+                             "trace.json" if self.rank == 0 else f"trace_rank{self.rank}.json")
         self._profiler.export_chrome_trace(trace)
         self._profiler = None
         self.log(f"profiling finished; trace at {trace}")

@@ -1426,3 +1426,130 @@ def test_device_collector_on_the_card(cuda):
         for t in range(8):
             np.testing.assert_array_equal(states[t, lo:lo + 2], env.rec[lo][t])
             np.testing.assert_array_equal(nxt[t, lo:lo + 2, 0], env.rec[lo][t + 1][:, -1])
+
+
+# ---------------------------------------------------------------------------
+# the GPU kernel battery: the cases of scripts/tpu_kernel_check.py
+# ---------------------------------------------------------------------------
+
+# Every case of scripts/tpu_kernel_check.py:280-377 (impl x shape x dtype x
+# num_special x rate; the forward and every input gradient; the dropout
+# kernels under their replayed mask), as (kernel, shape, dtype, num_special,
+# rate): K4 ("pallas", rate 0) and K5 ("pallas_stream") at [B, H, N, Dh], K3
+# ("pallas_drop", rate 0.1) at [B, H, N, Dh], K2 ("fused_ffn") at (rows, dim,
+# hidden), K1 ("pallas_qkv") at (B, heads, N, Dh).
+_BHND = {"K4": [(512, 8, 197, 32), (7, 8, 197, 32), (16, 4, 130, 64)],
+         "K5": [(7, 8, 197, 32), (16, 4, 130, 64), (4, 4, 640, 64)],
+         "K3": [(64, 8, 197, 32), (7, 8, 197, 32), (16, 4, 130, 64)],
+         "K1": [(256, 8, 199, 32), (512, 8, 197, 32), (7, 4, 130, 64)]}
+_DTYPES = (torch.float32, torch.bfloat16)
+TPU_CHECK_CASES = (
+    [(k, s, d, ns, 0.0) for k in ("K4", "K5") for s in _BHND[k] for d in _DTYPES
+     for ns in (0, 2)]
+    + [("K3", s, d, ns, 0.1) for s in _BHND["K3"] for d in _DTYPES for ns in (0, 2)]
+    + [("K2", s, d, 0, r) for s in [(2048, 256, 1024), (777, 256, 1024), (512, 128, 512)]
+       for d in _DTYPES for r in (0.0, 0.1)]
+    + [("K1", s, d, ns, r) for s in _BHND["K1"] for d in _DTYPES for ns in (0, 2)
+       for r in (0.0, 0.1)])
+# The cases another check already holds at the same shape, dtype,
+# num_special and rate, forward and every input gradient against the plain
+# versions; every other case runs in test_tpu_kernel_check_cases. The card
+# tests above hold the same functions at other batches and head counts.
+TPU_CHECK_COVERED = {
+    ("K4", (512, 8, 197, 32), torch.bfloat16, 0, 0.0):
+        "chip_smoke.py flash_kernel_phase (FLASH_SHAPES, stacked training shape)",
+    **{("K5", s, torch.bfloat16, 2, 0.0):
+       "chip_smoke.py stream_kernel_phase (STREAM_SHAPES, jax_check)" for s in _BHND["K5"]},
+}
+
+
+def _case_id(case):
+    kernel, shape, dtype, ns, rate = case
+    return f"{kernel}-{'x'.join(map(str, shape))}-{str(dtype)[6:]}-ns{ns}-rate{rate}"
+
+
+def _weights(shape, modulus, device, dtype):
+    """The script's cotangent: the output's flat index modulo ``modulus``."""
+    return (torch.arange(math.prod(shape), device=device) % modulus).reshape(shape).to(dtype)
+
+
+@pytest.mark.parametrize("case", [c for c in TPU_CHECK_CASES if c not in TPU_CHECK_COVERED],
+                         ids=_case_id)
+def test_tpu_kernel_check_cases(cuda, case):
+    """One case of ``scripts/tpu_kernel_check.py`` at the script's own shape:
+    the kernel's forward and backward against their plain versions on the
+    same inputs, with the script's weighted-sum cotangent (the index modulo
+    7, modulo 5 for K2), at the criteria of the tests above (bf16 one
+    rounding of each output, float32 1e-4 of its scale; K1's forward 1e-4,
+    K2b each output against its own maximum; lse 1e-4). The plain K1, K2 and
+    K3 draw the kernels' Philox mask, so the dropout cases replay it. Each
+    wrapper call launches its kernel once."""
+    kernel, shape, dtype, ns, rate = case
+    seeds = (0x5EED, 0x1234)
+    mod = {"K1": fq, "K2": ff, "K3": fd, "K4": fl, "K5": fs}[kernel]
+    before = sum(mod.launches.values())
+    if kernel == "K2":
+        rows, dim, hidden = shape
+        x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)
+        dy = _weights((rows, dim), 5, cuda, dtype)
+        y = ff.fused_ffn_fwd(x, *params, seeds=seeds, rate=rate)
+        p = ff.fused_ffn_fwd_plain(x, *params, seeds=seeds, rate=rate)
+        grads = ff.fused_ffn_bwd(x, *params[:5], dy, seeds, rate)
+        plain = ff.fused_ffn_bwd_plain(x, *params[:5], dy, seeds, rate)
+        torch.cuda.synchronize()
+        assert sum(mod.launches.values()) == before + 2
+        assert _max_err(y, p) <= (_bf16_tol(p) if dtype == torch.bfloat16
+                                  else 1e-4 * p.abs().max().item())
+        for name, a, b in zip(K2B_NAMES, grads, plain):
+            if dtype == torch.float32:
+                tol = 1e-4
+            else:
+                tol = 1.2e-2 if name == "dx" else 2e-3
+            assert _max_err(a, b) <= tol * b.float().abs().max().item(), name
+        return
+    b, h, n, dh = shape
+    scale = dh ** -0.5
+    if kernel == "K1":
+        x = _qkv(b, n, h, dh, cuda, dtype)
+        do = _weights((b, n, h * dh), 7, cuda, dtype)
+        args = (h, dh, scale, ns, seeds, rate)
+        o, lse = fq.flash_qkv_fwd(x, *args)
+        po, plse = fq.flash_qkv_fwd_plain(x, *args)
+        grads = (fq.flash_qkv_bwd(x, lse, do, *args),)
+        plain = (fq.flash_qkv_bwd_plain(x, lse, do, *args),)
+        fwd_tol = _bf16_tol(po) if dtype == torch.bfloat16 else 1e-4
+        calls = 2
+    else:
+        q, k, v = _heads(b, h, n, dh, cuda, dtype, count=3, seed=b)
+        do = _weights(q.shape, 7, cuda, dtype)
+        if kernel == "K3":
+            o, lse = fd.flash_dropout_fwd(q, k, v, seeds, rate, scale, ns)
+            po, plse = fd.flash_dropout_fwd_plain(q, k, v, seeds, rate, scale, ns)
+            grads = fd.flash_dropout_bwd(q, k, v, lse, do, seeds, rate, scale, ns)
+            plain = fd.flash_dropout_bwd_plain(q, k, v, lse, do, seeds, rate, scale, ns)
+            calls = 2
+        elif kernel == "K4":
+            o, lse = fl.flash_fwd(q, k, v, scale, ns)
+            po, plse = fl.flash_fwd_plain(q, k, v, scale, ns)
+            grads = fl.flash_bwd(q, k, v, o, lse, do, scale, ns)
+            plain = fl.flash_bwd_plain(q, k, v, o, lse, do, scale, ns)
+            calls = 2
+        else:
+            o, lse = fs.flash_stream_fwd(q, k, v, scale, ns)
+            po, plse = fs.flash_stream_fwd_plain(q, k, v, scale, ns)
+            args = (q, k, v, lse, fs.stream_delta(o, do), do, scale, ns)
+            grads = fs.flash_stream_bwd(*args)
+            plain = fs.flash_stream_bwd_plain(*args)
+            calls = 3  # K5f, K5q, K5kv
+        fwd_tol = _tol(po, dtype)
+    torch.cuda.synchronize()
+    assert sum(mod.launches.values()) == before + calls
+    assert o.dtype == dtype and o.shape == po.shape
+    assert _max_err(o, po) <= fwd_tol
+    assert _max_err(lse, plse) <= 1e-4
+    assert len(grads) == len(plain)
+    for a, p in zip(grads, plain):
+        assert a.dtype == dtype and a.shape == p.shape
+        assert _max_err(a, p) <= (_tol(p, dtype) if kernel != "K1" else
+                                  _bf16_tol(p) if dtype == torch.bfloat16
+                                  else 1e-4 * p.abs().max().item())

@@ -37,7 +37,8 @@ from eavit_tpu_torch.envs.builders import make_vector_env
 from eavit_tpu_torch.eval import evaluate
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
-from eavit_tpu_torch.train import check_ported, train
+from eavit_tpu_torch.parallel.dp import build_agent
+from eavit_tpu_torch.train import train
 from eavit_tpu_torch.utils.checkpoint import (
     BEST_SUFFIXES,
     CheckpointManager,
@@ -178,11 +179,14 @@ def test_cli_trains_on_cpu_and_refuses_a_silent_cpu_run(tmp_path):
 def test_unported_run_options_raise(tmp_path):
     byol = dict(ssl_pretraining=True, representation_lr_method=RepresentationMethod.BYOL)
     # the device env and the SSL methods are ported
-    # (tests/test_torch_port_device_env.py, tests/test_torch_port_ssl.py)
+    # (tests/test_torch_port_device_env.py, tests/test_torch_port_ssl.py): the
+    # agent builds for them
     for kw in (dict(env_type=EnvType.SYNTHETIC_DEVICE), byol,
                dict(env_type=EnvType.SYNTHETIC_DEVICE, **byol)):
-        check_ported(_cfg(tmp_path, **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_agent(_cfg(tmp_path, **kw), 5, device="cpu")
+    # data parallelism is ported (tests/test_torch_port_dp.py): DataAxisSize
+    # must be the number of ranks launched, and this process is one rank
+    with pytest.raises(ValueError, match="DataAxisSize = 2 but 1 rank"):
         train(_cfg(tmp_path, data_axis_size=2), total_updates=1, log_dir=str(tmp_path),
               device="cpu")
     # the env stack is ported (tests/test_torch_port_envs.py); a missing
@@ -197,7 +201,7 @@ def test_unported_run_options_raise(tmp_path):
 def test_ssl_pretraining_without_a_method_trains_without_ssl(tmp_path):
     """eavit_tpu pretrains only when SSL_pretraining and a method are both set
     (eavit_tpu/train.py:258, :392): the flag alone is no reason to refuse."""
-    check_ported(_cfg(tmp_path, ssl_pretraining=True))
+    assert build_agent(_cfg(tmp_path, ssl_pretraining=True), 5, device="cpu").ssl is None
     # with a method too, it pretrains and then trains jointly (Queue 1 item 7)
     cfg = _cfg(tmp_path, ssl_pretraining=True, ssl_pretrain_epochs=1, epoch=1,
                representation_lr_method=RepresentationMethod.BYOL, obs_norm_step=1,
@@ -212,8 +216,8 @@ def test_render_in_train_raises_until_the_renderer_is_ported(tmp_path):
     """eavit_tpu renders rollout frames (eavit_tpu/train.py:372-376). The
     renderer is ported now (utils/renderer.py, Queue 1 item 11), so ``Render
     = True`` no longer raises; train renders each step's frames."""
-    check_ported(_cfg(tmp_path, render=True))
-    check_ported(_cfg(tmp_path))
+    for cfg in (_cfg(tmp_path, render=True), _cfg(tmp_path)):
+        assert build_agent(cfg, 5, device="cpu").process_group is None
 
 
 def test_checkpoint_manager_schedule_and_best(tmp_path):
