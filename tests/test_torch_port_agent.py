@@ -37,6 +37,8 @@ from eavit_tpu_torch.rl import normalizer as norm
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
 from eavit_tpu_torch.rl.rollout import RolloutCollector
 
+from _torch_port_jax_state import agent_state
+
 # One intra-op thread: the suite runs several test processes on one host, and
 # torch's thread pools spinning against each other (and against XLA's) make
 # these many small ops an order of magnitude slower than one thread does.
@@ -62,7 +64,7 @@ def pair():
     pcfg = port_config.Config(vit=port_config.ViTConfig(**TINY),
                               attention_impl="pallas_qkv", fused_ffn=True, **COMMON)
     jag = JaxAgent(jcfg, N_ACT)
-    jst = jax.jit(jag.init_state)(jax.random.PRNGKey(0))  # one compile, not op by op
+    jst = agent_state(jag, 0)  # drawn with numpy: no init_state to compile
     pag = RNDAgent(pcfg, N_ACT, device="cpu")
     pst = pag.init_state(0)
     load_jax_params(pag, jax.tree_util.tree_map(_np, jst.params),

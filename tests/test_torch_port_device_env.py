@@ -37,6 +37,8 @@ from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import RNDAgent
 from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
 
+from _torch_port_jax_state import agent_state
+
 # One intra-op thread: the suite runs several test processes on one host.
 torch.set_num_threads(1)
 
@@ -137,7 +139,7 @@ def test_collector_replays_through_jax():
                               attention_impl="pallas_qkv", fused_ffn=True,
                               **dict(COMMON, env_type=port_config.EnvType.SYNTHETIC_DEVICE))
     jag = JaxAgent(jcfg, N_ACT)
-    jst = jax.jit(jag.init_state)(jax.random.PRNGKey(0))
+    jst = agent_state(jag, 0)  # drawn with numpy: no init_state to compile
     pag = RNDAgent(pcfg, N_ACT, device="cpu")
     pag.init_state(0)
     load_jax_params(pag, jax.tree_util.tree_map(_np, jst.params),

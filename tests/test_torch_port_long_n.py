@@ -32,6 +32,8 @@ from eavit_tpu_torch.models.vit import DualTokenViT
 from eavit_tpu_torch.ops import flash, flash_dropout, flash_qkv
 from eavit_tpu_torch.ops.kernel_prng import inv_keep_scale, keep_threshold
 
+from _torch_port_jax_state import random_tree
+
 # One intra-op thread: the suite runs several test processes on one host.
 torch.set_num_threads(1)
 
@@ -139,7 +141,9 @@ def test_dual_token_vit_past_576_tokens_matches_jax(attention):
                       shared_patch_stream=True, dtype=jnp.float32, **impl)
 
     img = np.random.default_rng(7).random((1, 4, 84, 84)).astype(np.float32)
-    variables = jax_vit().init(jax.random.PRNGKey(5), jnp.asarray(img))
+    # the parameter tree in init's shapes, drawn with numpy (no init to run)
+    variables = {"params": random_tree(jax.eval_shape(jax_vit().init, jax.random.PRNGKey(5),
+                                                      jnp.asarray(img))["params"], 5)}
     ref = jax_vit(attention_impl=attention, ffn_impl="pallas").apply(variables,
                                                                      jnp.asarray(img))
     route = port_config.attention_route(port_config.Config(attention_impl=attention))

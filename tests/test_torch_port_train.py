@@ -47,6 +47,8 @@ from eavit_tpu_torch.utils.checkpoint import (
 )
 from eavit_tpu_torch.utils.logger import Logger
 
+from _torch_port_jax_state import agent_state
+
 # One intra-op thread: the suite runs several test processes on one host, and
 # torch's thread pools spinning against each other (and against XLA's) make
 # these many small ops an order of magnitude slower than one thread does.
@@ -280,7 +282,7 @@ def test_load_jax_state_continues_a_jax_run():
               mini_batch=1, use_grad_clipping=True, max_grad_norm=0.5)
     tiny = dict(TINY, depth=1, dropout=0.0, emb_dropout=0.0)
     jag = JaxAgent(jax_config.Config(vit=jax_config.ViTConfig(**tiny), **kw), a)
-    jst = jax.jit(jag.init_state)(jax.random.PRNGKey(1))
+    jst = agent_state(jag, 1)  # drawn with numpy: no init_state to compile
     ros = [_rollout(s, t, n, a) for s in (10, 11)]
     jro = [JaxRollout(**{k: jnp.asarray(v) for k, v in ro.items()}) for ro in ros]
     jst1, _ = jag.update(jst, jro[0], jax.random.PRNGKey(2))

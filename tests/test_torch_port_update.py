@@ -42,6 +42,8 @@ from eavit_tpu_torch.models.rnd import rnd_loss
 from eavit_tpu_torch.rl import ppo
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
 
+from _torch_port_jax_state import agent_state
+
 # One intra-op thread: the suite runs several test processes on one host, and
 # torch's thread pools spinning against each other (and against XLA's) make
 # these many small ops an order of magnitude slower than one thread does.
@@ -173,7 +175,7 @@ def _rollout(seed):
 def _pair(**overrides):
     kw = {**COMMON, **overrides}
     jag = JaxAgent(jax_config.Config(vit=jax_config.ViTConfig(**TINY), **kw), N_ACT)
-    jst = jax.jit(jag.init_state)(jax.random.PRNGKey(0))
+    jst = agent_state(jag, 0)  # drawn with numpy: no init_state to compile
     pag = RNDAgent(port_config.Config(vit=port_config.ViTConfig(**TINY), **kw), N_ACT,
                    device="cpu")
     pst = pag.init_state(0)

@@ -32,6 +32,8 @@ from eavit_tpu_torch.convert import load_flax_tree
 from eavit_tpu_torch.models.policy import ActorCritic
 from eavit_tpu_torch.models.vit import DualTokenViT, patchify
 
+from _torch_port_jax_state import random_tree
+
 # One intra-op thread: the suite runs several test processes on one host, and
 # torch's thread pools spinning against each other (and against XLA's) make
 # these many small ops an order of magnitude slower than one thread does.
@@ -46,6 +48,14 @@ DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.
 
 def _img(seed, b=3):
     return np.random.default_rng(seed).random((b, CH, IMG, IMG)).astype(np.float32)
+
+
+def _variables(module, img, seed):
+    """``module.init``'s variables without running it: the parameter tree in
+    the shapes ``jax.eval_shape`` gives, drawn with numpy (``random_tree``)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(seed), jnp.asarray(img))
+    assert set(shapes) == {"params"}
+    return {"params": random_tree(shapes["params"], seed)}
 
 
 def test_patchify_matches():
@@ -63,9 +73,8 @@ def test_dual_token_vit_matches_jax(shared, dtype):
                       shared_patch_stream=shared, dtype=jdt, **impl)
 
     img = _img(1)
-    # the XLA twin has the same parameter tree and initialises without
-    # tracing the interpret-mode kernels
-    variables = jax_vit().init(jax.random.PRNGKey(0), jnp.asarray(img))
+    # the XLA twin has the same parameter tree
+    variables = _variables(jax_vit(), img, 0)
     ref = jax_vit(attention_impl="pallas_qkv", ffn_impl="pallas").apply(
         variables, jnp.asarray(img))
 
@@ -113,8 +122,7 @@ def test_dual_token_vit_pallas_route_matches_jax(shared):
                       shared_patch_stream=shared, dtype=jnp.float32, **impl)
 
     img = _img(4)
-    variables = jax_vit(attention_impl="pallas").init(jax.random.PRNGKey(3),
-                                                      jnp.asarray(img))
+    variables = _variables(jax_vit(attention_impl="pallas"), img, 3)
     ref = jax_vit(attention_impl="pallas", ffn_impl="pallas").apply(
         variables, jnp.asarray(img))
     vit = DualTokenViT(port_config.ViTConfig(**TINY), IMG, CH, attention_route="flash",
@@ -140,7 +148,7 @@ def test_dual_token_vit_pallas_stream_route_matches_jax(shared):
                       attention_impl="pallas_stream")
 
     img = _img(5)
-    variables = jax_vit().init(jax.random.PRNGKey(4), jnp.asarray(img))
+    variables = _variables(jax_vit(), img, 4)
     ref = jax_vit().apply(variables, jnp.asarray(img))
     vit = DualTokenViT(port_config.ViTConfig(**cfg), IMG, CH, attention_route="stream",
                        shared_patch_stream=shared, dtype=torch.float32)
@@ -157,7 +165,7 @@ def test_cls_token_vit_matches_jax():
     jvit = JaxViT(cfg=jax_config.ViTConfig(**cfg), image_size=IMG, channels=CH,
                   dtype=jnp.float32)
     img = _img(3, 2)
-    variables = jvit.init(jax.random.PRNGKey(2), jnp.asarray(img))
+    variables = _variables(jvit, img, 2)
     (ref,) = jvit.apply(variables, jnp.asarray(img))
     vit = DualTokenViT(port_config.ViTConfig(**cfg), IMG, CH, dtype=torch.float32)
     load_flax_tree(vit, variables["params"])
