@@ -341,7 +341,10 @@ def mma_ptxas(report, source: str, kind: str):
     head ..."`` and ``"Dh32 bwd head ..."``, K2f's as ``"fused_ffn_fwd
     float32 dropout"``, K2b's as
     ``"fused_ffn_bwd_dx float32"`` (and ``_dw``, ``split_planes``,
-    ``stage_planes``, the split path's ``wide_gemm``). The dq kernel's last
+    ``stage_planes``), the split path's products as ``"wg_gemm EpiHidden
+    bfloat16 n128 x2"`` (epilogue, dtype, tile columns, blocks an SM, `` mn``
+    for MN-major operands) and its row kernels as ``"wide_rows bfloat16
+    bwd"``, ``"wide_ln_bwd float32"``, ``"split_planes_t bfloat16"``. The dq kernel's last
     template argument is its row term (``common.cuh`` ``RowTerm``: 0 given, as
     K5q takes it, 1 delta from O, 2 rowsum), named " given", " delta" or
     nothing."""
@@ -363,9 +366,17 @@ def mma_ptxas(report, source: str, kind: str):
                 r"I(f|13__nv_bfloat16|Lb[01])E", entry)):
             rows[f"{m.group(1)} " + {"f": "float32", "13__nv_bfloat16": "bfloat16",
                                      "Lb1": "float32", "Lb0": "bfloat16"}[m.group(2)]] = info
-        elif kind == "ffn" and (m := re.search(r"wide_gemm_kernelILb([01])ELb([01])E", entry)):
-            rows["wide_gemm" + (" b_t" if m.group(1) == "1" else "") + (
-                " float32" if m.group(2) == "1" else " bfloat16")] = info
+        elif kind == "ffn" and (m := re.search(
+                r"wg_gemm_kernelILi([12])ELi(\d+)ELi([12])ELb([01])ELb([01])ELb[01]E"
+                r"NS_\d+(Epi[A-Za-z0-9]+?)(?:I(f|13__nv_bfloat16)E)?E", entry)):
+            rows[f"wg_gemm {m.group(6)} {'float32' if m.group(1) == '2' else 'bfloat16'} "
+                 f"n{m.group(2)} x{m.group(3)}" + (" mn" if m.group(4) == "1" else "")] = info
+        elif kind == "ffn" and (m := re.search(
+                r"(wide_rows|wide_ln_bwd|split_planes_t)_kernelI(f|13__nv_bfloat16|Lb[01])"
+                r"(?:Lb([01])E)?", entry)):
+            rows[f"{m.group(1)} " + {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                                     "Lb1": "float32", "Lb0": "bfloat16"}[m.group(2)] +
+                 (" bwd" if m.group(3) == "1" else "")] = info
         elif kind == "fwd" and (m := re.search(r"attn_fwd_head_kernelILi(\d+)ELb([01])E", entry)):
             rows[f"Dh{m.group(1)} fwd head rounded" + (
                 " dropout" if m.group(2) == "1" else "")] = info
@@ -443,6 +454,32 @@ def k1f_rows(torch, fq, dev, use: str, b: int, n: int, ns: int, rates,
     return rows
 
 
+def ffn_chain_ms(torch, x32, dy32, params, eps: float, dtype, backward: bool = True):
+    """Device times of the chain of four PyTorch calls that computes K2f's
+    function at rate 0 (``F.layer_norm``, ``F.linear``, exact ``F.gelu``,
+    ``F.linear``) with input, parameters and products in ``dtype``, and of its
+    autograd backward (one ``torch.autograd.grad`` over the seven inputs
+    given ``dy``, the graph kept): yardsticks for K2f and K2b that the port
+    never calls. ``(forward ms, backward ms or None)``."""
+    import torch.nn.functional as F
+
+    d = x32.shape[-1]
+    leaves = [t.detach().to(dtype).requires_grad_() for t in (x32, *params)]
+
+    def chain():
+        x, lw, lb, w1, b1, w2, b2 = leaves
+        return F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), lw, lb, eps), w1, b1)), w2, b2)
+
+    with torch.no_grad():
+        fwd = time_ms(torch, chain, 20)
+    if not backward:
+        return fwd, None
+    y, dy = chain(), dy32.to(dtype)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 10)
+    del y
+    return fwd, bwd
+
+
 def k2f_rows(torch, ff, kp, dev, r: int, dtypes, rates, d: int = 256, hid: int = 1024,
              eps: float = 1e-5):
     """K2f on ``r`` rows at dim ``d``, hidden ``hid`` for each dtype and rate
@@ -450,17 +487,14 @@ def k2f_rows(torch, ff, kp, dev, r: int, dtypes, rates, d: int = 256, hid: int =
     in bf16, equal bits twice, zeros exactly where K2r's mask2 drops), timed
     beside the plain version and the bound. Beside the float32 rows the
     float32 rate-0 chain of four PyTorch calls (LayerNorm, Linear, exact
-    GELU, Linear; "highest" precision), a yardstick the port never calls: no
-    one PyTorch call computes K2f. ``{("fused_ffn_fwd", r, dtype, rate):
-    row}``."""
-    import torch.nn.functional as F
-
+    GELU, Linear; "highest" precision), and beside every row the same chain
+    in bf16 (``ffn_chain_ms``), yardsticks the port never calls: no one
+    PyTorch call computes K2f. ``{("fused_ffn_fwd", r, dtype, rate): row}``."""
     seeds, rows = KERNEL_SEEDS, {}
     params, f = _ffn_params(torch, dev, d, hid, r)
     x32 = f(r, d).to(dev)
-    chain_ms = time_ms(torch, lambda: F.linear(F.gelu(F.linear(F.layer_norm(
-        x32, (d,), params[0], params[1], eps), params[2], params[3])), params[4],
-        params[5]), 20)
+    chain_ms, chain_bf16_ms = (ffn_chain_ms(torch, x32, x32, params, eps, dt, False)[0]
+                               for dt in (torch.float32, torch.bfloat16))
     for dtype in dtypes:
         x = x32.to(dtype)
         for rate in rates:
@@ -492,8 +526,9 @@ def k2f_rows(torch, ff, kp, dev, r: int, dtypes, rates, d: int = 256, hid: int =
                        max_abs_err=err, tol=tol, deterministic=same, masks_equal_k2r=masks,
                        ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
                        cuda_core_bound_ms=bound_ms(nbytes, 4.0 * r * d * hid, name)[0],
+                       chain_bf16_ms=chain_bf16_ms,
                        **({"chain_ms": chain_ms, "chain": "F.layer_norm, F.linear, "
-                           "F.gelu, F.linear; float32 rate 0"}
+                           "F.gelu, F.linear; float32 rate 0 (chain_bf16_ms: bf16)"}
                           if dtype == torch.float32 else {}))
             log("kernel", **row)
             check(err <= tol and same and masks, f"fused_ffn_fwd {row}")
@@ -613,13 +648,16 @@ def k2b_rows(torch, ff, dev, r: int, dtypes, d: int = 256, hid: int = 1024,
              eps: float = 1e-5):
     """K2b on ``r`` rows at dim ``d``, hidden ``hid`` for each dtype at rates 0
     and 0.1 against its plain version, timed beside the plain version, K2f at
-    the same shape and the bound: ``{("fused_ffn_bwd", r, dtype, rate):
-    row}``. Weight gradients sum tens of thousands of rows, so each output is
-    judged against its own maximum."""
+    the same shape, the bound and the bf16 chain's autograd backward
+    (``ffn_chain_ms``; float32 rows also the float32 chain's): ``{("fused_ffn_bwd",
+    r, dtype, rate): row}``. Weight gradients sum tens of thousands of rows,
+    so each output is judged against its own maximum."""
     seeds, rows = KERNEL_SEEDS, {}
     names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
     params, f = _ffn_params(torch, dev, d, hid, r + 1)
     x32, dy32 = f(r, d).to(dev), f(r, d).to(dev)
+    chain = {dt: ffn_chain_ms(torch, x32, dy32, params, eps, dt)
+             for dt in {torch.bfloat16, *dtypes}}
     for dtype in dtypes:
         x, dy = x32.to(dtype), dy32.to(dtype)
         name = str(dtype).split(".")[-1]
@@ -658,7 +696,10 @@ def k2b_rows(torch, ff, dev, r: int, dtypes, d: int = 256, hid: int = 1024,
                        deterministic=same, ms=ms, plain_ms=plain_ms,
                        library_ms=None, bound_ms=bms, bound_by=by,
                        cuda_core_bound_ms=bound_ms(nbytes, 10.0 * r * d * hid, name)[0],
-                       fwd_ms_at_this_shape=fwd_ms)
+                       fwd_ms_at_this_shape=fwd_ms, chain_bwd_bf16_ms=chain[torch.bfloat16][1],
+                       chain_bwd_ms=chain[dtype][1],
+                       chain="autograd backward of F.layer_norm, F.linear, F.gelu, "
+                             "F.linear in the row's dtype (chain_bwd_ms) and in bf16; rate 0")
             log("kernel", **row)
             check(all(rel[k] <= tol[k] for k in names) and same, f"fused_ffn_bwd {row}")
             rows[("fused_ffn_bwd", r, name, rate)] = row
@@ -1602,9 +1643,14 @@ def determinism_phase(torch, mods, dev, repeats: int = 2):
 
 def _kernel_name(key: str) -> str:
     """A device kernel's function name without return type, namespaces of
-    this file's kind, template arguments and parameters."""
+    this file's kind, template arguments and parameters; K2's split-path
+    product (``wg_gemm_kernel``) keeps its epilogue's name, which says which
+    of its products it is."""
     name = key.replace("void ", "").replace("(anonymous namespace)::", "")
-    return name.split("<")[0].split("(")[0]
+    base = name.split("<")[0].split("(")[0]
+    if base == "wg_gemm_kernel" and (m := re.search(r"\b(Epi[A-Za-z0-9]+)", name)):
+        return f"{base} {m.group(1)}"
+    return base
 
 
 def device_activity(prof, per: int):
@@ -3251,8 +3297,9 @@ def hg_kernel_shapes(torch, fq, ff, kp, dev):
     """K1f and K1b whole-head at ``Dh`` 64 on ``[64 | 256, 51, 3,072]`` bf16,
     K2f and K2b on the split path at (1,024, 3,072) on 3,264 and 13,056 rows
     in both dtypes, rates 0 and 0.1, each against its plain version and
-    timed beside its bound and, where one exists, one PyTorch call (SDPA, the
-    float32 ``F.layer_norm`` to ``F.linear`` chain)."""
+    timed beside its bound and, where one exists, one PyTorch call (SDPA), or
+    the ``F.layer_norm`` to ``F.linear`` chain (``ffn_chain_ms``: float32 and
+    bf16, and the bf16 chain's autograd backward beside K2b)."""
     heads, dh, hid, inner, n = hg_widths(hg_cfg())
     eps = hg_cfg().vit_hg.layer_norm_eps
     rows = {}
@@ -3940,13 +3987,14 @@ def main() -> int:
                                  for d in ("float32", "bfloat16")},
                      act_launches_per_rollout=act_launches["fused_ffn_fwd"],
                      cuda_core_bound_ms=k2f_act["cuda_core_bound_ms"],
-                     chain_ms=k2f_act["chain_ms"],
+                     chain_ms=k2f_act["chain_ms"], chain_bf16_ms=k2f_act["chain_bf16_ms"],
                      stacked_act_shape_ms=rows[("fused_ffn_fwd", 2 * NUM_ENVS * 197,
                                                 "float32", 0.1)]["ms"],
                      bfloat16_act_shape_ms=rows[("fused_ffn_fwd", NUM_ENVS * 198, "bfloat16",
                                                  0.1)]["ms"],
                      **{f"train_shape_{key}": k2f_train[key] for key in (
-                         "ms", "plain_ms", "bound_ms", "cuda_core_bound_ms", "chain_ms")},
+                         "ms", "plain_ms", "bound_ms", "cuda_core_bound_ms", "chain_ms",
+                         "chain_bf16_ms")},
                      bfloat16_train_shape_ms=rows[("fused_ffn_fwd", MB_FRAMES * 198,
                                                    "bfloat16", 0.1)]["ms"],
                      **item5_fields("fused_ffn_fwd")),
@@ -3957,6 +4005,8 @@ def main() -> int:
                                               0.1)]["cuda_core_bound_ms"],
                      stacked_train_shape_ms=rows[("fused_ffn_bwd", 2 * MB_FRAMES * 197,
                                                   "float32", 0.1)]["ms"],
+                     **{k: rows[("fused_ffn_bwd", MB_FRAMES * 198, "float32", 0.1)][k]
+                        for k in ("chain_bwd_ms", "chain_bwd_bf16_ms")},
                      bfloat16_train_shape_ms=rows[("fused_ffn_bwd", MB_FRAMES * 198,
                                                    "bfloat16", 0.1)]["ms"],
                      **item5_fields("fused_ffn_bwd")),
@@ -4056,7 +4106,8 @@ def main() -> int:
     def shape_fields(row):
         return {k: row[k] for k in ("b", "rows", "n", "dim", "hidden", "heads", "dim_head",
                                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "chain_ms", "max_abs_err", "tol", "max_rel_err",
+                                    "chain_ms", "chain_bf16_ms", "chain_bwd_ms",
+                                    "chain_bwd_bf16_ms", "max_abs_err", "tol", "max_rel_err",
                                     "fused", "launched") if k in row}
 
     # the HF flavour's shapes, launches and steps, and the pipelined

@@ -49,3 +49,33 @@ __device__ __forceinline__ float gelu_grad(float h) {
   const float cdf = 0.5f * (1.f + erf_as(h * 0.70710678118654752f));
   return cdf + h * phi;
 }
+
+// gelu(h) and d gelu / dh from one erf, each as gelu and gelu_grad compute it
+template <bool FAST = false>
+__device__ __forceinline__ void gelu_and_grad(float h, float& g, float& dg) {
+  const float e = erf_as<FAST>(h * 0.70710678118654752f);
+  const float phi = expf(-0.5f * h * h) * 0.3989422804014327f;
+  g = 0.5f * h * (1.f + e);
+  dg = 0.5f * (1.f + e) + h * phi;
+}
+
+// The keep bits of an accumulator pair's elements (columns 2 t4, 2 t4 + 1 of an
+// n8 tile) in rows a and a + 8 of a 16-row tile: the four elements of a
+// Philox group (4 columns) belong to the lanes t4 and t4 ^ 1, so the lane
+// with t4 even draws row a's group, the odd one row a + 8's, and they swap.
+// e0: the mask element of (row a, the group's first column); row a + 8 is
+// 8 * width elements on. Returns bits 0-1 row a, 2-3 row a + 8, for the
+// lane's two columns.
+// Rows past R draw bits that nobody reads: no branch.
+__device__ __forceinline__ uint32_t pair_keep(uint64_t e0, int width, int t4, uint32_t stream,
+                                              uint32_t thresh, uint32_t s0, uint32_t s1) {
+  const int odd = t4 & 1;
+  uint32_t mine = 0u;
+  const Philox4 p = philox_group((e0 + (odd ? 8ull * width : 0ull)) >> 2, stream, s0, s1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) mine |= static_cast<uint32_t>((p.w[k] >> 8) < thresh) << k;
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  const uint32_t ra = odd ? other : mine, rb = odd ? mine : other;
+  const int off = 2 * odd;  // the lane's columns in the group
+  return ((ra >> off) & 3u) | (((rb >> off) & 3u) << 2);
+}

@@ -43,8 +43,8 @@
 // phases of a chunk do not overlap across warps, so the chunks run in a
 // software pipeline: the mmas of chunk i + 1's fc1 are issued before chunk
 // i's GELU, which is branch-free for that (clock64 probes and the times are
-// in PERF.md). Other widths take the split path of ffn_wide.cuh.
-#include <algorithm>
+// in PERF.md). Other widths take the split path of ffn_wide.cuh (wgmma
+// products fed by TMA).
 #include <cstdint>
 #include <type_traits>
 
@@ -53,6 +53,7 @@
 #include "ffn_mma.cuh"
 #include "ffn_wide.cuh"
 #include "philox.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -112,60 +113,6 @@ __global__ void __launch_bounds__(kThreads)
   const bf16 h = __float2bfloat16_rn(v);
   reinterpret_cast<bf16*>(out + c * bytes)[i - c * per] =
       lo ? __float2bfloat16_rn(v - __bfloat162float(h)) : h;
-}
-
-// ---- Hopper's bulk copy engine: one thread moves a stage, an mbarrier
-// counts its bytes in ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
-// shared memory; the mbarrier's phase completes when they have landed
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The keep bits of an accumulator pair's elements (columns 2 t4, 2 t4 + 1 of an
-// n8 tile) in rows a and a + 8 of a 16-row tile: the four elements of a
-// Philox group (4 columns) belong to the lanes t4 and t4 ^ 1, so the lane
-// with t4 even draws row a's group, the odd one row a + 8's, and they swap.
-// e0: the mask element of (row a, the group's first column); row a + 8 is
-// 8 * width elements on. Returns bits 0-1 row a, 2-3 row a + 8, for the
-// lane's two columns.
-// Rows past R draw bits that nobody reads: no branch.
-__device__ __forceinline__ uint32_t pair_keep(uint64_t e0, int width, int t4, uint32_t stream,
-                                              uint32_t thresh, uint32_t s0, uint32_t s1) {
-  const int odd = t4 & 1;
-  uint32_t mine = 0u;
-  const Philox4 p = philox_group((e0 + (odd ? 8ull * width : 0ull)) >> 2, stream, s0, s1);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) mine |= static_cast<uint32_t>((p.w[k] >> 8) < thresh) << k;
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  const uint32_t ra = odd ? other : mine, rb = odd ? mine : other;
-  const int off = 2 * odd;  // the lane's columns in the group
-  return ((ra >> off) & 3u) | (((rb >> off) & 3u) << 2);
 }
 
 // fc1 of a warp's 16 x 16 tile (rows fm of u, units fn of the chunk) over the
@@ -398,48 +345,49 @@ cudaError_t launch_fwd(const void* x, const void* ln_w, const void* ln_b, const 
   return cudaGetLastError();
 }
 
-// The split path (ffn_wide.cuh) at any width
+// The split path (ffn_wide.cuh) at any width: the weights as planes, u by
+// the row kernel, then the two products with their epilogues
 template <typename T>
 cudaError_t launch_fwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* y,
-                            bf16* wplanes, bf16* up, float* fbuf, bf16* hp, int64_t R, int D,
-                            int Hd, float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                            bf16* wplanes, bf16* up, bf16* hp, int64_t R, int D, int Hd,
+                            float eps, uint32_t thresh, float inv_keep, uint32_t s0,
                             uint32_t s1, int use_dropout, cudaStream_t stream) {
   constexpr bool SPLIT = std::is_same_v<T, float>;
+  constexpr int P = planes(SPLIT);
   const int Dp = round_up(D, 32), Hdp = round_up(Hd, 32);
-  bf16* w1p = wplanes;                                                   // [P][Hdp][Dp]
-  bf16* w2p = wplanes + planes(SPLIT) * static_cast<size_t>(Hdp) * Dp;  // [P][Dp][Hdp]
+  bf16* w1p = wplanes;                                      // [P][Hdp][Dp]
+  bf16* w2p = wplanes + P * static_cast<size_t>(Hdp) * Dp;  // [P][Dp][Hdp]
   cudaError_t err =
       split_planes<SPLIT>(static_cast<const float*>(w1), Hd, D, w1p, Hdp, Dp, stream);
   if (err != cudaSuccess) return err;
   if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, Dp, Hdp, stream)) !=
       cudaSuccess)
     return err;
-  wide_rows_kernel<T, false><<<row_tiles(R), kThreads, 0, stream>>>(
+  wide_rows_kernel<T, false><<<row_tiles(R), kRowThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), nullptr, up, nullptr, nullptr, nullptr, R, D, Dp, Hdp,
       eps, thresh, inv_keep, s0, s1, use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t rdp = static_cast<size_t>(R) * Dp, rhp = static_cast<size_t>(R) * Hdp;
-  // H = u W1^T [R][Hdp]
-  if ((err = wide_gemm<false, SPLIT>(up, Dp, rdp, w1p, Dp, static_cast<size_t>(Hdp) * Dp, fbuf,
-                                     R, Hdp, Dp, stream)) != cudaSuccess)
+  constexpr int kH = gemm_min_blocks(P, kHiddenMinBlocks), kO = gemm_min_blocks(P, kOutMinBlocks);
+  constexpr int kHN = gemm_cols(P, kHiddenCols), kON = gemm_cols(P, kOutCols);
+  CUtensorMap mu, mw1, mg, mw2;  // boxes of 64 columns x the tile's rows
+  if ((err = plane_map(&mu, up, R, Dp, P, kTM)) != cudaSuccess ||
+      (err = plane_map(&mw1, w1p, Hdp, Dp, P, kHN)) != cudaSuccess ||
+      (err = plane_map(&mg, hp, R, Hdp, P, kTM)) != cudaSuccess ||
+      (err = plane_map(&mw2, w2p, Dp, Hdp, P, kON)) != cudaSuccess)
     return err;
-  wide_hidden_kernel<T, false><<<dim3(row_tiles(R), Hdp / 32), kThreads, 0, stream>>>(
-      fbuf, nullptr, static_cast<const float*>(b1), hp, nullptr, R, Hd, Hdp, Dp, thresh,
-      inv_keep, s0, s1, use_dropout);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // Y = gd W2^T [R][Dp], over H, which is consumed
-  if ((err = wide_gemm<false, SPLIT>(hp, Hdp, rhp, w2p, Hdp, static_cast<size_t>(Dp) * Hdp,
-                                     fbuf, R, Dp, Hdp, stream)) != cudaSuccess)
+  // gd = mask1(gelu(u W1^T + b1)) as planes [P][R][Hdp]
+  const EpiHidden<T> hidden{static_cast<const float*>(b1), hp, R, Hd, Hdp, thresh, inv_keep,
+                            s0, s1, use_dropout};
+  if ((err = wg_gemm<P, kHN, kH, false, false, false>(
+           mu, mw1, mu, mw1, GemmShape{{R, 0}, {Hdp, 0}, Dp, 0}, hidden, stream)) != cudaSuccess)
     return err;
-  const int64_t n = R * D;
-  const unsigned blocks = static_cast<unsigned>(
-      std::min<int64_t>((n + kThreads - 1) / kThreads, 65535));
-  wide_out_kernel<T><<<blocks, kThreads, 0, stream>>>(fbuf, static_cast<const float*>(b2),
-                                                      static_cast<T*>(y), R, D, Dp, thresh,
-                                                      inv_keep, s0, s1, use_dropout);
-  return cudaGetLastError();
+  // y = mask2(gd W2^T + b2)
+  const EpiOut<T> out{static_cast<const float*>(b2), static_cast<T*>(y), R, D, thresh,
+                      inv_keep, s0, s1, use_dropout};
+  return wg_gemm<P, kON, kO, false, false, false>(mg, mw2, mg, mw2,
+                                                  GemmShape{{R, 0}, {Dp, 0}, Hdp, 0}, out, stream);
 }
 
 }  // namespace
@@ -477,26 +425,25 @@ int eavit_fused_ffn_fwd(const void* x, const void* ln_w, const void* ln_b, const
 }
 
 // The split path at any D and Hd, with Dp = round_up(D, 32), Hdp =
-// round_up(Hd, 32) and scratch from the caller: wplanes bf16 [2][P][Hdp*Dp],
-// up bf16 [P][R][Dp] (u), fbuf float32 [R][max(Hdp, Dp)] (H, then Y) and hp
-// bf16 [P][R][Hdp] (gd).
+// round_up(Hd, 32) and scratch from the caller (16-byte aligned): wplanes
+// bf16 [2][P][Hdp*Dp] (W1, W2), up bf16 [P][R][Dp] (u) and hp bf16
+// [P][R][Hdp] (gd).
 int eavit_fused_ffn_fwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                              const void* b1, const void* w2, const void* b2, void* y,
-                             void* wplanes, void* up, void* fbuf, void* hp, long long R, int D,
-                             int Hd, int dtype, float eps, uint32_t thresh, float inv_keep,
-                             uint32_t s0, uint32_t s1, int use_dropout, void* stream) {
+                             void* wplanes, void* up, void* hp, long long R, int D, int Hd,
+                             int dtype, float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                             uint32_t s1, int use_dropout, void* stream) {
   if (D < 1 || Hd < 1 || R < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* wp = static_cast<bf16*>(wplanes);
   bf16* u = static_cast<bf16*>(up);
-  float* f = static_cast<float*>(fbuf);
   bf16* h = static_cast<bf16*>(hp);
   if (dtype == kBF16) {
-    return launch_fwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, f, h, R, D, Hd, eps,
+    return launch_fwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, h, R, D, Hd, eps,
                                  thresh, inv_keep, s0, s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return launch_fwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, f, h, R, D, Hd, eps,
+    return launch_fwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, wp, u, h, R, D, Hd, eps,
                                   thresh, inv_keep, s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;

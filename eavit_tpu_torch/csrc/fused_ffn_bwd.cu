@@ -578,57 +578,83 @@ cudaError_t launch_bwd(const void* x, const void* ln_w, const void* ln_b, const 
 }
 
 // The split path (ffn_wide.cuh) at any width, on planes padded to Dp =
-// round_up(D, 32) and Hdp = round_up(Hd, 32): every scratch and grads at
-// the padded widths; fbuf float32 [2][R][max(Hdp, Dp)] (H, then DU; G) and
-// stats float32 [2][R] (mu, rstd)
+// round_up(D, 32) and Hdp = round_up(Hd, 32): wplanes [3][P][Hdp*Dp] (W1
+// [Hdp][Dp], W2^T [Hdp][Dp], W1^T [Dp][Hdp]), du float32 [R][Dp], stats
+// float32 [2][R] (mu, rstd), grads at the padded widths
 template <typename T>
 cudaError_t launch_bwd_wide(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                             const void* b1, const void* w2, const void* dy, void* dx,
-                            float* grads, float* part_dx, float* part_dw, bf16* wplanes,
-                            bf16* rowp, bf16* hp, float* fbuf, float* stats, int64_t R, int D,
-                            int Hd, int slices, float eps, uint32_t thresh, float inv_keep,
-                            uint32_t s0, uint32_t s1, int use_dropout, cudaStream_t stream) {
+                            float* grads, float* part_dx, bf16* wplanes, bf16* rowp, bf16* hp,
+                            float* du, float* stats, int64_t R, int D, int Hd, float eps,
+                            uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
+                            int use_dropout, cudaStream_t stream) {
   constexpr bool SPLIT = std::is_same_v<T, float>;
   constexpr int P = planes(SPLIT);
   const int Dp = round_up(D, 32), Hdp = round_up(Hd, 32);
   const size_t rdp = static_cast<size_t>(R) * Dp, rhp = static_cast<size_t>(R) * Hdp;
   const size_t wsz = static_cast<size_t>(Hdp) * Dp;
-  bf16* w1p = wplanes;           // [P][Hdp][Dp]
-  bf16* w2p = wplanes + P * wsz;  // [P][Dp][Hdp]
-  float* H = fbuf;
-  float* G = fbuf + static_cast<size_t>(R) * (Hdp > Dp ? Hdp : Dp);
-  cudaError_t err =
-      split_planes<SPLIT>(static_cast<const float*>(w1), Hd, D, w1p, Hdp, Dp, stream);
+  const float* W1 = static_cast<const float*>(w1);
+  bf16* w1p = wplanes;             // [P][Hdp][Dp]
+  bf16* w2t = wplanes + P * wsz;   // [P][Hdp][Dp]
+  bf16* w1t = w2t + P * wsz;       // [P][Dp][Hdp]
+  bf16* up = rowp;                 // u [P][R][Dp]
+  bf16* dp = rowp + P * rdp;       // dy0
+  bf16* dhp = hp;                  // dh [P][R][Hdp]
+  bf16* gdp = hp + P * rhp;        // gd
+  cudaError_t err = split_planes<SPLIT>(W1, Hd, D, w1p, Hdp, Dp, stream);
   if (err != cudaSuccess) return err;
-  if ((err = split_planes<SPLIT>(static_cast<const float*>(w2), D, Hd, w2p, Dp, Hdp, stream)) !=
-      cudaSuccess)
+  if ((err = split_planes_t<SPLIT>(static_cast<const float*>(w2), D, Hd, w2t, Dp, Hdp,
+                                   stream)) != cudaSuccess ||
+      (err = split_planes_t<SPLIT>(W1, Hd, D, w1t, Hdp, Dp, stream)) != cudaSuccess)
     return err;
-  wide_rows_kernel<T, true><<<row_tiles(R), kThreads, 0, stream>>>(
+  wide_rows_kernel<T, true><<<row_tiles(R), kRowThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const T*>(dy), rowp, rowp + P * rdp, stats,
-      part_dx, R, D, Dp, Hdp, eps, thresh, inv_keep, s0, s1, use_dropout);
+      static_cast<const float*>(ln_b), static_cast<const T*>(dy), up, dp, stats, part_dx, R, D,
+      Dp, Hdp, eps, thresh, inv_keep, s0, s1, use_dropout);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // H = u W1^T and G = dy0 W2, [R][Hdp]
-  if ((err = wide_gemm<false, SPLIT>(rowp, Dp, rdp, w1p, Dp, wsz, H, R, Hdp, Dp, stream)) !=
+  // K-major reads (boxes of the tile's rows) by the row products, MN-major
+  // ones (64 rows of depth) by the weight gradients
+  constexpr int kDual = gemm_min_blocks(P, kDualMinBlocks), kDualCols = gemm_dual_cols(kDual);
+  constexpr int kDU = gemm_min_blocks(P, kDuMinBlocks), kDW = gemm_min_blocks(P, kDwMinBlocks);
+  constexpr int kDUN = gemm_cols(P, kDuCols), kDWN = gemm_cols(P, kDwCols);
+  CUtensorMap mu, mdy, mw1, mw2t, mdh, mw1t, mdh_k, mu_k, mdy_k, mgd_k;
+  if ((err = plane_map(&mu, up, R, Dp, P, kTM)) != cudaSuccess ||
+      (err = plane_map(&mdy, dp, R, Dp, P, kTM)) != cudaSuccess ||
+      (err = plane_map(&mw1, w1p, Hdp, Dp, P, kDualCols)) != cudaSuccess ||
+      (err = plane_map(&mw2t, w2t, Hdp, Dp, P, kDualCols)) != cudaSuccess ||
+      (err = plane_map(&mdh, dhp, R, Hdp, P, kTM)) != cudaSuccess ||
+      (err = plane_map(&mw1t, w1t, Dp, Hdp, P, kDUN)) != cudaSuccess ||
+      (err = plane_map(&mdh_k, dhp, R, Hdp, P, kTK)) != cudaSuccess ||
+      (err = plane_map(&mu_k, up, R, Dp, P, kTK)) != cudaSuccess ||
+      (err = plane_map(&mdy_k, dp, R, Dp, P, kTK)) != cudaSuccess ||
+      (err = plane_map(&mgd_k, gdp, R, Hdp, P, kTK)) != cudaSuccess)
+    return err;
+  // H = u W1^T and G = dy0 W2 per tile -> dh, gd planes and db1 partials
+  const EpiDh<T> hid{static_cast<const float*>(b1), dhp, gdp, part_dx, R, Hd, Hdp, Dp,
+                     thresh, inv_keep, s0, s1, use_dropout};
+  if ((err = wg_gemm<P, kDualCols, kDual, false, false, true>(
+           mu, mw1, mdy, mw2t, GemmShape{{R, 0}, {Hdp, 0}, Dp, 0}, hid, stream)) != cudaSuccess)
+    return err;
+  // DU = dh W1 [R][Dp], then dx and the dln_w, dln_b partials
+  if ((err = wg_gemm<P, kDUN, kDU, false, false, false>(mdh, mw1t, mdh, mw1t,
+                                                      GemmShape{{R, 0}, {Dp, 0}, Hdp, 0},
+                                                      EpiF32{du, du, R, R, Dp, Dp}, stream)) !=
       cudaSuccess)
     return err;
-  if ((err = wide_gemm<true, SPLIT>(rowp + P * rdp, Dp, rdp, w2p, Hdp, wsz, G, R, Hdp, Dp,
-                                    stream)) != cudaSuccess)
-    return err;
-  wide_hidden_kernel<T, true><<<dim3(row_tiles(R), Hdp / 32), kThreads, 0, stream>>>(
-      H, G, static_cast<const float*>(b1), hp, part_dx, R, Hd, Hdp, Dp, thresh, inv_keep, s0,
-      s1, use_dropout);
+  wide_ln_bwd_kernel<T><<<row_tiles(R), kRowThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_w), stats, du,
+      static_cast<T*>(dx), part_dx, R, D, Dp, Hdp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // DU = dh W1 [R][Dp], over H, which is consumed
-  if ((err = wide_gemm<true, SPLIT>(hp, Hdp, rhp, w1p, Dp, wsz, H, R, Dp, Hdp, stream)) !=
-      cudaSuccess)
+  // dW1 = dh^T u [Hdp][Dp] and dW2 = dy0^T gd [Dp][Hdp] into grads: one block
+  // a 128 x 128 tile of either, over every row
+  float* dw2 = grads + wsz;
+  if ((err = wg_gemm<P, kDWN, kDW, true, true, false>(
+           mdh_k, mu_k, mdy_k, mgd_k, GemmShape{{Hdp, Dp}, {Dp, Hdp}, static_cast<int>(R), 0},
+           EpiF32{grads, dw2, Hdp, Dp, Dp, Hdp}, stream)) != cudaSuccess)
     return err;
-  wide_ln_bwd_kernel<T><<<row_tiles(R), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_w), stats, H, static_cast<T*>(dx),
-      part_dx, R, D, Dp, Hdp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return weight_grads<SPLIT>(rowp, hp, part_dx, row_tiles(R), part_dw, slices, grads, R, Dp,
-                             Hdp, stream);
+  // db1, dln_w, dln_b, db2 from the row tiles' partials, in order
+  return reduce_parts(part_dx, row_tiles(R), Hdp + 3 * static_cast<size_t>(Dp), grads + 2 * wsz,
+                      stream);
 }
 
 }  // namespace
@@ -669,38 +695,33 @@ int eavit_fused_ffn_bwd(const void* x, const void* ln_w, const void* ln_b,
   return cudaErrorInvalidValue;
 }
 
-// The split path at any D and Hd (ffn_wide.cuh), with Dp =
-// round_up(D, 32) and Hdp = round_up(Hd, 32): part_dx float32 [ceil(R / 64)]
-// [Hdp + 3*Dp], part_dw float32 [slices][2*Hdp*Dp], wplanes [2][P][Hdp*Dp],
-// rowp [2][P][R][Dp], hplanes [2][P][R][Hdp], fbuf float32 [2][R][max(Hdp,
-// Dp)] and stats float32 [2][R]; grads at the padded widths, dW1 [Hdp][Dp] |
-// dW2 [Dp][Hdp] | db1 [Hdp] | dln_w [Dp] | dln_b [Dp] | db2 [Dp].
+// The split path at any D and Hd (ffn_wide.cuh), with Dp = round_up(D, 32)
+// and Hdp = round_up(Hd, 32): part_dx float32 [ceil(R / 64)][Hdp + 3*Dp],
+// wplanes bf16 [3][P][Hdp*Dp], rowp [2][P][R][Dp], hplanes [2][P][R][Hdp],
+// du float32 [R][Dp] and stats float32 [2][R]; grads at the padded widths,
+// dW1 [Hdp][Dp] | dW2 [Dp][Hdp] | db1 [Hdp] | dln_w [Dp] | dln_b [Dp] | db2 [Dp].
 int eavit_fused_ffn_bwd_wide(const void* x, const void* ln_w, const void* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* dy,
-                             void* dx, void* grads, void* part_dx, void* part_dw,
-                             void* wplanes, void* rowp, void* hplanes, void* fbuf, void* stats,
-                             long long R, int D, int Hd, int slices, int dtype, float eps,
-                             uint32_t thresh, float inv_keep, uint32_t s0, uint32_t s1,
-                             int use_dropout, void* stream) {
-  if (D < 1 || Hd < 1 || slices < 1 || slices > 65535 || R < 1) return cudaErrorInvalidValue;
+                             void* dx, void* grads, void* part_dx, void* wplanes, void* rowp,
+                             void* hplanes, void* du, void* stats, long long R, int D, int Hd,
+                             int dtype, float eps, uint32_t thresh, float inv_keep, uint32_t s0,
+                             uint32_t s1, int use_dropout, void* stream) {
+  if (D < 1 || Hd < 1 || R < 1 || R > 0x7fffffffLL) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(grads);
   float* pdx = static_cast<float*>(part_dx);
-  float* pdw = static_cast<float*>(part_dw);
   bf16* wp = static_cast<bf16*>(wplanes);
   bf16* rp = static_cast<bf16*>(rowp);
   bf16* hp = static_cast<bf16*>(hplanes);
-  float* fb = static_cast<float*>(fbuf);
+  float* u = static_cast<float*>(du);
   float* sb = static_cast<float*>(stats);
   if (dtype == kBF16) {
-    return launch_bwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp, fb,
-                                 sb, R, D, Hd, slices, eps, thresh, inv_keep, s0, s1,
-                                 use_dropout, st);
+    return launch_bwd_wide<bf16>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, wp, rp, hp, u, sb,
+                                 R, D, Hd, eps, thresh, inv_keep, s0, s1, use_dropout, st);
   }
   if (dtype == kF32) {
-    return launch_bwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, pdw, wp, rp, hp,
-                                  fb, sb, R, D, Hd, slices, eps, thresh, inv_keep, s0, s1,
-                                  use_dropout, st);
+    return launch_bwd_wide<float>(x, ln_w, ln_b, w1, b1, w2, dy, dx, g, pdx, wp, rp, hp, u, sb,
+                                  R, D, Hd, eps, thresh, inv_keep, s0, s1, use_dropout, st);
   }
   return cudaErrorInvalidValue;
 }

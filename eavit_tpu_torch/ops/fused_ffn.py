@@ -35,10 +35,12 @@ any width (fused_ffn.py:287-301). Where :func:`fused_widths`
 says so (K2f at ``dim == 256``, K2b at ``dim % 32 == 0`` up to 256, both at
 ``hidden % 32 == 0``; every shipped config) they run their fused kernels,
 which keep the hidden activations out of device memory; every other width
-runs the split path of
-``csrc/ffn_wide.cuh`` (row kernels and tensor-core products through
-scratch, at widths padded to multiples of 32 with zeros), which computes the
-same function with the same masks.
+(the HF flavour's (1,024, 3,072) among them) runs the split path of
+``csrc/ffn_wide.cuh``: row kernels and products on Hopper's ``wgmma`` fed by
+TMA, whose epilogues apply the bias, GELU and the masks, so that the hidden
+activations reach device memory only as the bf16 planes the next product
+reads (:func:`split_scratch`), at widths padded to multiples of 32 with
+zeros. It computes the same function with the same masks.
 
 :func:`fused_ffn_fwd`, :func:`fused_ffn_bwd` and :func:`fused_ffn_bits` take
 the plain version for a tensor on the CPU and launch the kernel for a CUDA
@@ -85,7 +87,7 @@ def _lib():
         tail = [ctypes.c_longlong, i, i, i, f, u, f, u, u, i, vp]
         lib.eavit_fused_ffn_fwd.argtypes = [vp] * 9 + tail
         lib.eavit_fused_ffn_fwd.restype = i
-        lib.eavit_fused_ffn_fwd_wide.argtypes = [vp] * 12 + tail
+        lib.eavit_fused_ffn_fwd_wide.argtypes = [vp] * 11 + tail
         lib.eavit_fused_ffn_fwd_wide.restype = i
         lib.eavit_fused_ffn_fwd_smem.argtypes = [i, i]  # dim, dtype
         lib.eavit_fused_ffn_fwd_smem.restype = ctypes.c_size_t
@@ -105,7 +107,8 @@ def _bwd_lib():
         tail = [ctypes.c_longlong, i, i, i, i, f, u, f, u, u, i, vp]
         lib.eavit_fused_ffn_bwd.argtypes = [vp] * 14 + tail
         lib.eavit_fused_ffn_bwd.restype = i
-        lib.eavit_fused_ffn_bwd_wide.argtypes = [vp] * 16 + tail
+        # the split path takes no row slices
+        lib.eavit_fused_ffn_bwd_wide.argtypes = [vp] * 15 + tail[:3] + tail[4:]
         lib.eavit_fused_ffn_bwd_wide.restype = i
         lib._eavit_typed = True
     return lib
@@ -172,6 +175,32 @@ def _pad32(n: int) -> int:
     return (n + 31) // 32 * 32
 
 
+def split_scratch(rows: int, dim: int, hidden: int, dtype: torch.dtype, forward: bool):
+    """The scratch the split path's wrapper allocates, in the order its C entry
+    takes it: ``[(name, shape, dtype)]``, at the widths padded to multiples
+    of 32 (``Dp``, ``Hdp``) with ``P`` bf16 planes per operand (hi + lo for
+    float32, one for bf16). The products keep their float32 sums in
+    registers, so the hidden activations pass through device memory only as
+    the bf16 planes the next product reads (gd, and dh in the backward): no
+    float32 ``[rows, Hdp]`` buffer. The backward's float32 ``du [rows, Dp]``
+    feeds the LayerNorm backward, which needs whole-row sums of it."""
+    dp, hp = _pad32(dim), _pad32(hidden)
+    planes = 2 if dtype == torch.float32 else 1
+    bf, f32 = torch.bfloat16, torch.float32
+    if forward:
+        return [("wplanes", (2, planes, hp * dp), bf),  # W1 [Hdp][Dp], W2 [Dp][Hdp]
+                ("u", (planes, rows, dp), bf),
+                ("gd", (planes, rows, hp), bf)]
+    tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
+    return [("grads", (2 * hp * dp + hp + 3 * dp,), f32),
+            ("part_dx", (tiles, hp + 3 * dp), f32),  # db1, dln_w, dln_b, db2 by row tile
+            ("wplanes", (3, planes, hp * dp), bf),  # W1, W2^T [Hdp][Dp]; W1^T [Dp][Hdp]
+            ("rows", (2, planes, rows, dp), bf),  # u, dy0
+            ("hidden", (2, planes, rows, hp), bf),  # dh, gd
+            ("du", (rows, dp), f32),
+            ("stats", (2, rows), f32)]  # mu, rstd
+
+
 def fwd_smem_bytes(dim: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory of one block of the fused K2f (``dim`` 256)."""
     return _lib().eavit_fused_ffn_fwd_smem(dim, _build.DTYPE_CODES[dtype])
@@ -212,8 +241,6 @@ def fused_ffn_fwd(
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
     rows, dim = x2.shape
     hidden = w1.shape[0]
-    planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
-    bf16 = dict(dtype=torch.bfloat16, device=x2.device)
     y = torch.empty_like(x2)
     tail = (rows, dim, hidden, _build.DTYPE_CODES[x2.dtype], float(eps), thresh or 0,
             float(inv_keep), s0, s1, int(thresh is not None), _build.stream_ptr(x2))
@@ -227,12 +254,8 @@ def fused_ffn_fwd(
             _build.ptr(x2), *(_build.ptr(p) for p in params), _build.ptr(y),
             _build.ptr(wplanes), *tail)
     else:
-        dp, hp = _pad32(dim), _pad32(hidden)
-        scratch = (torch.empty((2, planes, hp * dp), **bf16),  # W1, W2
-                   torch.empty((planes, rows, dp), **bf16),  # u
-                   torch.empty((rows, max(hp, dp)), dtype=torch.float32,
-                               device=x2.device),  # fc1, then fc2 sums
-                   torch.empty((planes, rows, hp), **bf16))  # gd
+        scratch = [torch.empty(shape, dtype=dt, device=x2.device)
+                   for _, shape, dt in split_scratch(rows, dim, hidden, x2.dtype, True)]
         err = lib.eavit_fused_ffn_fwd_wide(
             _build.ptr(x2), *(_build.ptr(p) for p in params), _build.ptr(y),
             *(_build.ptr(t) for t in scratch), *tail)
@@ -295,7 +318,7 @@ def fused_ffn_bwd(
     kernel's products run on the tensor cores from bf16 planes of their
     operands, two planes each (hi + lo) for float32 ``x``, one for bf16, in
     scratch the wrapper allocates (with dh and gd, 8 bytes per row and hidden
-    unit in float32)."""
+    unit in float32; the split path's is :func:`split_scratch`)."""
     if x2.device.type == "cpu":
         return fused_ffn_bwd_plain(x2, ln_w, ln_b, w1, b1, w2, dy, seeds, rate, eps)
     if x2.device.type != "cuda":
@@ -311,30 +334,31 @@ def fused_ffn_bwd(
     # the split path computes at widths padded to multiples of 32
     dp, hp = (dim, hidden) if fused else (_pad32(dim), _pad32(hidden))
     thresh, inv_keep, (s0, s1) = dropout_args(seeds, rate)
-    tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
-    slices = min(_BWD_SLICES, (rows + 31) // 32)  # no more slices than 32-row steps
-    f32 = dict(dtype=torch.float32, device=x2.device)
-    bf16 = dict(dtype=torch.bfloat16, device=x2.device)
-    planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
     dx = torch.empty_like(x2)
-    grads = torch.empty(2 * hp * dp + hp + 3 * dp, **f32)
-    part_dx = torch.empty((tiles, hp + 3 * dp), **f32)  # db1, dln_w, dln_b, db2
-    part_dw = torch.empty((slices, 2 * hp * dp), **f32)  # dW1, dW2
-    wplanes = torch.empty((2, planes, hp * dp), **bf16)  # W1, W2
-    rowp = torch.empty((2, planes, rows, dp), **bf16)  # u, dy0
-    hplanes = torch.empty((2, planes, rows, hp), **bf16)  # dh, gd
-    scratch = (x2, ln_w, ln_b, w1, b1, w2, dy, dx, grads, part_dx, part_dw, wplanes, rowp,
-               hplanes)
-    tail = (rows, dim, hidden, slices, _build.DTYPE_CODES[x2.dtype], float(eps),
-            thresh or 0, float(inv_keep), s0, s1, int(thresh is not None),
-            _build.stream_ptr(x2))
+    args = (x2, ln_w, ln_b, w1, b1, w2, dy, dx)
+    tail = (_build.DTYPE_CODES[x2.dtype], float(eps), thresh or 0, float(inv_keep), s0, s1,
+            int(thresh is not None), _build.stream_ptr(x2))
     if fused:
-        err = _bwd_lib().eavit_fused_ffn_bwd(*(_build.ptr(t) for t in scratch), *tail)
+        tiles = (rows + _ROW_TILE - 1) // _ROW_TILE
+        slices = min(_BWD_SLICES, (rows + 31) // 32)  # no more slices than 32-row steps
+        f32 = dict(dtype=torch.float32, device=x2.device)
+        bf16 = dict(dtype=torch.bfloat16, device=x2.device)
+        planes = 2 if x2.dtype == torch.float32 else 1  # hi + lo, or the rounded value
+        grads = torch.empty(2 * hp * dp + hp + 3 * dp, **f32)
+        scratch = (grads,
+                   torch.empty((tiles, hp + 3 * dp), **f32),  # db1, dln_w, dln_b, db2
+                   torch.empty((slices, 2 * hp * dp), **f32),  # dW1, dW2 by row slice
+                   torch.empty((2, planes, hp * dp), **bf16),  # W1, W2
+                   torch.empty((2, planes, rows, dp), **bf16),  # u, dy0
+                   torch.empty((2, planes, rows, hp), **bf16))  # dh, gd
+        err = _bwd_lib().eavit_fused_ffn_bwd(*(_build.ptr(t) for t in args + scratch),
+                                             rows, dim, hidden, slices, *tail)
     else:
-        fbuf = torch.empty((2, rows, max(hp, dp)), **f32)  # fc1 then du; dgd
-        stats = torch.empty((2, rows), **f32)  # mu, rstd
+        scratch = [torch.empty(shape, dtype=dt, device=x2.device)
+                   for _, shape, dt in split_scratch(rows, dim, hidden, x2.dtype, False)]
+        grads = scratch[0]
         err = _bwd_lib().eavit_fused_ffn_bwd_wide(
-            *(_build.ptr(t) for t in scratch + (fbuf, stats)), *tail)
+            *(_build.ptr(t) for t in (*args, *scratch)), rows, dim, hidden, *tail)
     _build.check(err, "fused_ffn_bwd")
     launches["fused_ffn_bwd"] += 1
     dw1, dw2, db1, dln_w, dln_b, db2 = grads.split([hp * dp, dp * hp, hp, dp, dp, dp])

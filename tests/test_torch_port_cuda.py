@@ -71,7 +71,8 @@ the true width; only Dh above 128 raises. K2f and K2b run at every dim and
 hidden width: the fused kernels where dim % 32 == 0, dim <= 256 and hidden
 % 32 == 0, the split path (ffn_wide.cuh) elsewhere, held to their plain
 versions at (40, 100), (384, 1,536), (768, 3,072), (1,024, 4,096), (1,280,
-5,120) and (1,031, 100) too, with equal bits twice, K2f with zeros exactly
+5,120) and (1,031, 100) too, and at the HF flavour's (1,024, 3,072) on its
+act and minibatch rows (3,264 and 13,056), with equal bits twice, K2f with zeros exactly
 where K2r's mask2 drops. The network's loss and backward, run twice on the
 same inputs, gives every kernel output the same bits.
 """
@@ -180,6 +181,8 @@ def _ffn_inputs(rows, dim, hidden, device, dtype):
     (256, 1024, 4096),       # the HF flavour's width
     (256, 1280, 5120),       # wider than any model the JAX package names
     (37, 1031, 100),         # an odd dim past 1,024
+    (64 * 51, 1024, 3072),   # the HF flavour's act rows (64 frames of 51 tokens)
+    (256 * 51, 1024, 3072),  # and its minibatch
 ])
 def test_fused_ffn_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     """K2f on the tensor cores (the fused kernel at dim 256, the split path
@@ -274,6 +277,8 @@ K2B_NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
     (256, 1024, 4096),
     (256, 1280, 5120),
     (37, 1031, 100),
+    (64 * 51, 1024, 3072),   # the HF flavour's act rows
+    (256 * 51, 1024, 3072),  # and its minibatch
 ])
 def test_fused_ffn_bwd_kernel_matches_plain(cuda, rows, dim, hidden, dtype, rate):
     x, params = _ffn_inputs(rows, dim, hidden, cuda, dtype)

@@ -7,8 +7,9 @@ of ``eavit_tpu.ops.fused_ffn.fused_ffn``, which runs the Pallas
 ``_bwd_kernel`` in interpret mode on the CPU, on row counts that fill no
 block (37 and 130), at float32 (1e-5 of each gradient's scale) and bfloat16
 input (2e-2: the roundings of u, gd, dy0, dh and dx to bf16), and at widths
-the fused CUDA kernels do not take, (40, 100) and (384, 1536), with the
-forward too. The JAX weights
+the fused CUDA kernels do not take, (40, 100) to (1,280, 5,120) and the HF
+flavour's (1,024, 3,072) (also in bf16), with the forward too. The split
+path's scratch plan holds no float32 hidden activation. The JAX weights
 are ``[in, out]``, the port's ``[out, in]``. At rate 0.1 the explicit plain
 backward must equal torch autograd through the plain forward, which proves
 that it replays both masks (float32, 1e-5). The numerics of the CUDA kernel's
@@ -85,10 +86,11 @@ def test_backward_matches_jax_grad_through_the_kernel(rows, dtype):
         _assert_close(t.grad.float().numpy(), np.asarray(ref[name], np.float32), tol, name)
 
 
-@pytest.mark.parametrize("dim,hidden", [(40, 100), (384, 1536), (1280, 5120), (1031, 100)])
+@pytest.mark.parametrize("dim,hidden", [(40, 100), (384, 1536), (1280, 5120), (1031, 100),
+                                        (1024, 3072)])
 def test_plain_forward_and_backward_match_jax_at_other_widths(dim, hidden):
-    """The widths the fused kernels do not take (ragged, wider than 256, and
-    past 1,024),
+    """The widths the fused kernels do not take (ragged, wider than 256, past
+    1,024, and the HF flavour's (1,024, 3,072)),
     which the JAX kernel takes as one block: the plain forward and all seven
     gradients through the port's Function held to the Pallas kernel and
     ``jax.grad`` of it at float32 (1e-5 of each output's scale)."""
@@ -105,6 +107,56 @@ def test_plain_forward_and_backward_match_jax_at_other_widths(dim, hidden):
     for name, t in zip(NAMES, targs):
         assert t.grad.shape == t.shape
         _assert_close(t.grad.numpy(), np.asarray(ref[name], np.float32), 1e-5, name)
+
+
+def test_plain_forward_and_backward_match_jax_at_the_hg_widths_in_bf16():
+    """The HF flavour's widths (1,024, 3,072) with bf16 input, as its path
+    runs K2: the plain forward and all seven gradients through the port's
+    Function held to the Pallas kernel and ``jax.grad`` of it (2e-2 of each
+    output's scale: the roundings of u, gd, dy0, dh and dx to bf16)."""
+    rows, dim, hidden = 11, 1024, 3072
+    p, g = _inputs(dim + hidden + 1, rows, dim, hidden)
+    ref = _jax_grads(p, g, jnp.bfloat16)
+    jy = jax_ff.fused_ffn(jnp.asarray(p["x"], jnp.bfloat16), jnp.asarray(p["ln_w"]),
+                          jnp.asarray(p["ln_b"]), jnp.asarray(p["w1"].T), jnp.asarray(p["b1"]),
+                          jnp.asarray(p["w2"].T), jnp.asarray(p["b2"]))
+    targs = [torch.tensor(p["x"]).to(torch.bfloat16).requires_grad_()] + [
+        torch.tensor(p[k]).requires_grad_() for k in NAMES[1:]]
+    y = ff.fused_ffn(*targs)
+    assert y.dtype == torch.bfloat16
+    _assert_close(y.detach().float().numpy(), np.asarray(jy, np.float32), 2e-2, "y")
+    y.backward(torch.tensor(g).to(torch.bfloat16))
+    for name, t in zip(NAMES, targs):
+        assert t.grad.shape == t.shape
+        _assert_close(t.grad.float().numpy(), np.asarray(ref[name], np.float32), 2e-2, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dim,hidden", [(13056, 1024, 3072), (3264, 1024, 3072),
+                                             (37, 40, 100), (37, 1031, 100)])
+def test_split_path_keeps_the_hidden_activations_out_of_float32_scratch(rows, dim, hidden,
+                                                                         dtype):
+    """The scratch the split path's wrappers allocate (``split_scratch``, a
+    pure function of the shape and dtype): the forward holds no float32
+    buffer at all (no H, no Y), the backward none of a row by hidden unit (no
+    H, no G) and only the float32 du, the row statistics, the partial column
+    sums and the gradients; gd and dh are bf16 planes, two per value in
+    float32 (hi + lo), one in bf16."""
+    dp, hp = -(-dim // 32) * 32, -(-hidden // 32) * 32
+    planes = 2 if dtype == torch.float32 else 1
+    tiles = -(-rows // 64)
+    fwd = {name: (shape, dt) for name, shape, dt in ff.split_scratch(rows, dim, hidden, dtype,
+                                                                    True)}
+    assert all(dt == torch.bfloat16 for _, dt in fwd.values())
+    assert fwd["gd"] == ((planes, rows, hp), torch.bfloat16)
+    bwd = {name: (shape, dt) for name, shape, dt in ff.split_scratch(rows, dim, hidden, dtype,
+                                                                    False)}
+    assert {name: shape for name, (shape, dt) in bwd.items() if dt == torch.float32} == {
+        "grads": (2 * hp * dp + hp + 3 * dp,), "part_dx": (tiles, hp + 3 * dp),
+        "du": (rows, dp), "stats": (2, rows)}
+    assert bwd["hidden"] == ((2, planes, rows, hp), torch.bfloat16)  # dh, gd
+    assert bwd["rows"] == ((2, planes, rows, dp), torch.bfloat16)  # u, dy0
+    assert bwd["wplanes"] == ((3, planes, hp * dp), torch.bfloat16)  # W1, W2^T, W1^T
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
