@@ -12,6 +12,7 @@ packages, and importing the port pulls in neither JAX nor ``eavit_tpu``.
 """
 
 import dataclasses
+import functools
 import glob
 import os
 import subprocess
@@ -89,6 +90,16 @@ def test_dual_token_vit_matches_jax(shared, dtype):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL[dtype])
 
 
+@functools.lru_cache(maxsize=None)
+def _actor_critic_variables(dtype):
+    """The JAX ActorCritic's init on ``_img(2)``, shared by both routes: the
+    XLA twin has the same parameter tree."""
+    cfg = jax_config.Config(vit=jax_config.ViTConfig(**TINY), shared_patch_stream=True,
+                            compute_dtype=dtype, attention_impl="xla", fused_ffn=False)
+    return JaxActorCritic(cfg=cfg, output_size=5).init(jax.random.PRNGKey(1),
+                                                       jnp.asarray(_img(2)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("route", ["kernel", "plain"])
 def test_actor_critic_matches_jax(route, dtype):
@@ -98,9 +109,7 @@ def test_actor_critic_matches_jax(route, dtype):
     jcfg = jax_config.Config(**{**kw, "vit": jax_config.ViTConfig(**TINY)})
     pcfg = port_config.Config(**{**kw, "vit": port_config.ViTConfig(**TINY)})
     img = _img(2)
-    init_cfg = jcfg.replace(attention_impl="xla", fused_ffn=False)  # same tree
-    variables = JaxActorCritic(cfg=init_cfg, output_size=5).init(
-        jax.random.PRNGKey(1), jnp.asarray(img))
+    variables = _actor_critic_variables(dtype)
     ref = JaxActorCritic(cfg=jcfg, output_size=5).apply(variables, jnp.asarray(img))
 
     net = ActorCritic(pcfg, 5)
