@@ -158,24 +158,30 @@ def test_evaluate_from_the_checkpoint(trained, tmp_path):
 
 
 def _cli(args, cwd):
+    """The CLI started in a subprocess (no GPU visible); ``.communicate()``
+    waits for it."""
     env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    return subprocess.run([sys.executable, "-m", "eavit_tpu_torch", *args], cwd=cwd,
-                          env=env, capture_output=True, text=True, timeout=300)
+    return subprocess.Popen([sys.executable, "-m", "eavit_tpu_torch", *args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
 
 
 def test_cli_trains_on_cpu_and_refuses_a_silent_cpu_run(tmp_path):
     common = ["--train", "--config_path", str(REPO / "configs" / "synthetic_demo.conf"),
               "--debug_params", "--total_updates", "2", "--log_name", "cli",
               "--save_model_path", str(tmp_path / "ck")]
-    ok = _cli(common + ["--device", "cpu"], tmp_path)
-    assert ok.returncode == 0, ok.stderr[-2000:]
-    assert "update 2 | global_step 128" in ok.stdout
+    (tmp_path / "bad").mkdir()
+    # both runs at once: each is mostly interpreter and import start-up
+    ok, bad = _cli(common + ["--device", "cpu"], tmp_path), _cli(common, tmp_path / "bad")
+    ok_out, ok_err = ok.communicate(timeout=300)
+    bad_out, bad_err = bad.communicate(timeout=300)
+    assert ok.returncode == 0, ok_err[-2000:]
+    assert "update 2 | global_step 128" in ok_out
     assert (tmp_path / "ck" / "cli.pt").exists()
     # no GPU and no --device: a clear error, not a CPU run
-    bad = _cli(common, tmp_path)
     assert bad.returncode != 0
-    assert "no CUDA device" in bad.stderr and "update 1" not in bad.stdout
+    assert "no CUDA device" in bad_err and "update 1" not in bad_out
 
 
 def test_unported_run_options_raise(tmp_path):
