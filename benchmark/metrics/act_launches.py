@@ -1,0 +1,7 @@
+"""Median kernel-launch calls inside one ``eavit.act``."""
+
+from benchmark.metrics._spans import median_launches
+
+
+def read(run):
+    return median_launches(run, "eavit.act")

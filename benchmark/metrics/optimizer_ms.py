@@ -1,0 +1,11 @@
+"""Summed ``eavit.optimizer`` span time in the profiled iteration: the
+global norm, the clip and Adam's step.
+
+Profiled host time, about twice the untraced time: compare it only
+with the same metric read in another ``--trace 1`` run."""
+
+from benchmark.metrics._spans import total_ms
+
+
+def read(run):
+    return total_ms(run, "eavit.optimizer")

@@ -1657,13 +1657,15 @@ def device_activity(prof, per: int):
     """What a ``torch.profiler`` trace ran on the card: ``(window ms, busy
     share of the window, {kernel: device ms})``, the times over ``per``; None
     when it recorded no device activity."""
-    def on_card(e, name):
-        # kernels and copies, not the ranges that annotate them ("Optimizer.step#...";
-        # a kernel's own name has "#" only inside its template arguments)
-        return str(e.device_type).endswith("CUDA") and "#" not in _kernel_name(name)
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if on_card(e, e.name))
+    events = prof.events()
+    # kernels, copies and fills, not the host ranges ("Optimizer.step#...",
+    # the program's "eavit.*" spans) that the profiler mirrors onto the
+    # card's timeline as annotations
+    annotations = {e.name for e in events
+                   if e.is_user_annotation and not str(e.device_type).endswith("CUDA")}
+    on_card = [e for e in events if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation and e.name not in annotations]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in on_card)
     if not spans:
         return None
     busy, (cur_s, cur_e) = 0.0, spans[0]
@@ -1676,10 +1678,9 @@ def device_activity(prof, per: int):
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
     by_kernel = {}
-    for e in prof.key_averages():
-        if on_card(e, e.key):
-            name = _kernel_name(e.key)
-            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / per
+    for e in on_card:
+        name = _kernel_name(e.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / per
     return window / 1e3 / per, busy / window, by_kernel
 
 

@@ -88,6 +88,7 @@ from eavit_tpu_torch.rl.ppo import (
     sample_categorical,
     sample_normal,
 )
+from eavit_tpu_torch.utils.trace import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -512,26 +513,31 @@ class RNDAgent:
         agent.py:553-571); with a process group on the gradients averaged
         over the ranks."""
         cfg = self.cfg
-        for p in params:
-            p.grad = None
-        loss, aux = self._loss(batch, idx, rng)
-        loss.backward()
-        for p in params:  # a parameter the loss does not reach gets zeros
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if cfg.freeze_shared_backbone:
-            for p in self.network.feature.parameters():
-                p.grad.zero_()
-        grads = [p.grad for p in params]
-        dp.all_reduce_mean_(grads, self.process_group)
-        norm_unclipped = global_grad_norm(grads)
-        aux["train/grad_norm_unclipped"] = norm_unclipped
-        if cfg.use_grad_clipping:
-            clip_by_global_norm_(grads, norm_unclipped, cfg.max_grad_norm)
-        self.optimizer.step()
-        if self.ssl is not None:
-            self.ssl.update_target(self.ssl_target, self.network.feature)
-        return aux
+        with span("eavit.minibatch"):
+            for p in params:
+                p.grad = None
+            with span("eavit.forward"):
+                loss, aux = self._loss(batch, idx, rng)
+            with span("eavit.backward"):
+                loss.backward()
+                for p in params:  # a parameter the loss does not reach gets zeros
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if cfg.freeze_shared_backbone:
+                    for p in self.network.feature.parameters():
+                        p.grad.zero_()
+            grads = [p.grad for p in params]
+            with span("eavit.allreduce"):
+                dp.all_reduce_mean_(grads, self.process_group)
+            with span("eavit.optimizer"):
+                norm_unclipped = global_grad_norm(grads)
+                aux["train/grad_norm_unclipped"] = norm_unclipped
+                if cfg.use_grad_clipping:
+                    clip_by_global_norm_(grads, norm_unclipped, cfg.max_grad_norm)
+                self.optimizer.step()
+                if self.ssl is not None:
+                    self.ssl.update_target(self.ssl_target, self.network.feature)
+            return aux
 
     def _named_grads(self) -> Dict[str, Dict[str, torch.Tensor]]:
         out = {"policy": {n: p.grad.clone() for n, p in self.network.named_parameters()}}
@@ -551,32 +557,34 @@ class RNDAgent:
         tensors on the device; ``_grads`` holds the last minibatch's
         gradients under ``verbose_logging``), averaged over the ranks of the
         process group."""
-        cfg = self.cfg
-        state, batch, metrics = self.prepare_batch(state, rollout)
-        num_samples = batch.adv.shape[0]
-        merge = max(1, cfg.minibatch_merge)
-        if cfg.mini_batch % merge:
-            raise ValueError(f"MiniBatch {cfg.mini_batch} is not a multiple of "
-                             f"MiniBatchMerge {merge}")
-        n_mb = cfg.mini_batch // merge
-        batch_size = num_samples // n_mb
-        params = self.trainable_parameters()
+        with span("eavit.update"):
+            cfg = self.cfg
+            with span("eavit.prepare_batch"):
+                state, batch, metrics = self.prepare_batch(state, rollout)
+            num_samples = batch.adv.shape[0]
+            merge = max(1, cfg.minibatch_merge)
+            if cfg.mini_batch % merge:
+                raise ValueError(f"MiniBatch {cfg.mini_batch} is not a multiple of "
+                                 f"MiniBatchMerge {merge}")
+            n_mb = cfg.mini_batch // merge
+            batch_size = num_samples // n_mb
+            params = self.trainable_parameters()
 
-        epoch_means: List[Dict[str, torch.Tensor]] = []
-        for _ in range(cfg.epoch):
-            perm = self._permutation(rng, num_samples)[: n_mb * batch_size]
-            auxs = [self._minibatch_step(batch, idx, rng, params)
-                    for idx in perm.reshape(n_mb, batch_size)]
-            epoch_means.append({k: torch.stack([a[k] for a in auxs]).mean()
-                                for k in auxs[0]})
-        if epoch_means:
-            metrics.update({k: torch.stack([e[k] for e in epoch_means]).mean()
-                            for k in epoch_means[0]})
-            if cfg.verbose_logging:
-                metrics["_grads"] = self._named_grads()
-        # every rank's metrics averaged (agent.py:599-601)
-        dp.all_reduce_mean_(dp.flatten_tensors(metrics), self.process_group)
-        new_state = state._replace(
-            global_step=state.global_step + num_samples,
-            global_update=state.global_update + 1)
-        return new_state, metrics
+            epoch_means: List[Dict[str, torch.Tensor]] = []
+            for _ in range(cfg.epoch):
+                perm = self._permutation(rng, num_samples)[: n_mb * batch_size]
+                auxs = [self._minibatch_step(batch, idx, rng, params)
+                        for idx in perm.reshape(n_mb, batch_size)]
+                epoch_means.append({k: torch.stack([a[k] for a in auxs]).mean()
+                                    for k in auxs[0]})
+            if epoch_means:
+                metrics.update({k: torch.stack([e[k] for e in epoch_means]).mean()
+                                for k in epoch_means[0]})
+                if cfg.verbose_logging:
+                    metrics["_grads"] = self._named_grads()
+            # every rank's metrics averaged (agent.py:599-601)
+            dp.all_reduce_mean_(dp.flatten_tensors(metrics), self.process_group)
+            new_state = state._replace(
+                global_step=state.global_step + num_samples,
+                global_update=state.global_update + 1)
+            return new_state, metrics

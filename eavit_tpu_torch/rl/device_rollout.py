@@ -47,6 +47,7 @@ from eavit_tpu_torch.config import Config
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
 from eavit_tpu_torch.rl.rollout import RolloutCollector
+from eavit_tpu_torch.utils.trace import span
 
 
 class _Half:
@@ -116,18 +117,19 @@ class DeviceRolloutCollector(RolloutCollector):
         """Fold the lane's last outcome, then act on its stack at step ``t``
         (at ``T`` only the bootstrap values). Returns the actions on the
         device; queues work and reads nothing back."""
-        if lane.pending is not None:
-            self._fold(buf, lane, t - 1)
-        sl = slice(lane.lo, lane.hi)
-        actions, v_ext, v_int, policy = self.agent.act(lane.stack, lane.rng)
-        buf.value_ext[t, sl] = v_ext
-        buf.value_int[t, sl] = v_int
-        if t == self.cfg.num_step:
-            return None
-        buf.states[t, sl] = lane.stack
-        buf.actions[t, sl] = actions
-        buf.policy[t, sl] = policy
-        return actions
+        with span("eavit.act"):
+            if lane.pending is not None:
+                self._fold(buf, lane, t - 1)
+            sl = slice(lane.lo, lane.hi)
+            actions, v_ext, v_int, policy = self.agent.act(lane.stack, lane.rng)
+            buf.value_ext[t, sl] = v_ext
+            buf.value_int[t, sl] = v_int
+            if t == self.cfg.num_step:
+                return None
+            buf.states[t, sl] = lane.stack
+            buf.actions[t, sl] = actions
+            buf.policy[t, sl] = policy
+            return actions
 
     def _record(self, lane: _Half, out) -> np.ndarray:
         states_u8, rewards, dones, truns, infos = out
@@ -158,25 +160,29 @@ class DeviceRolloutCollector(RolloutCollector):
         device stacks it left; any other array, or that one with its newest
         frames changed, is uploaded. The stacks are not checked frame by
         frame: change none of the older frames of the returned array."""
-        states_u8 = np.asarray(states_u8)
-        buf = self._buffers(states_u8.shape)
-        if self.pipelined:
-            rngs = [Rng(int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng.host)),
-                        self.agent.device) for _ in range(2)]
-            lanes = self._lanes(states_u8, rngs)
-            states_u8 = self._collect_pipelined(buf, lanes)
-        else:
-            (lane,) = lanes = self._lanes(states_u8, [rng])
-            for t in range(self.cfg.num_step):
-                actions = self._act(buf, lane, t).cpu().numpy()
-                states_u8 = self._record(lane, self.env.step(actions))
-                if self.renderer is not None:
-                    self.renderer.render(states_u8[:, -1:])
-            self._act(buf, lane, self.cfg.num_step)  # bootstrap (train.py:701-704)
-        self._stacks = [lane.stack for lane in lanes]
-        self._states_out = states_u8
-        self._last_frames = states_u8[:, -1].copy()
-        return buf, states_u8
+        with span("eavit.collect"):
+            states_u8 = np.asarray(states_u8)
+            buf = self._buffers(states_u8.shape)
+            if self.pipelined:
+                rngs = [Rng(int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng.host)),
+                            self.agent.device) for _ in range(2)]
+                lanes = self._lanes(states_u8, rngs)
+                states_u8 = self._collect_pipelined(buf, lanes)
+            else:
+                (lane,) = lanes = self._lanes(states_u8, [rng])
+                for t in range(self.cfg.num_step):
+                    actions = self._act(buf, lane, t)
+                    with span("eavit.act_sync"):
+                        actions = actions.cpu().numpy()
+                    with span("eavit.env_step"):
+                        states_u8 = self._record(lane, self.env.step(actions))
+                    if self.renderer is not None:
+                        self.renderer.render(states_u8[:, -1:])
+                self._act(buf, lane, self.cfg.num_step)  # bootstrap (train.py:701-704)
+            self._stacks = [lane.stack for lane in lanes]
+            self._states_out = states_u8
+            self._last_frames = states_u8[:, -1].copy()
+            return buf, states_u8
 
     def _collect_pipelined(self, buf: Rollout, lanes: List[_Half]) -> np.ndarray:
         """Half-fleet rollout (``device_rollout.py:501-600``). Per step::
@@ -193,15 +199,17 @@ class DeviceRolloutCollector(RolloutCollector):
             lane = lanes[i]
             if lane.actions is None:
                 return
-            states[i] = self._record(
-                lane, self.env.step_slice(lane.lo, lane.hi, lane.actions))
+            with span("eavit.env_step"):
+                states[i] = self._record(
+                    lane, self.env.step_slice(lane.lo, lane.hi, lane.actions))
             lane.actions = None
 
         for t in range(T):
             for i in (0, 1):
                 actions = self._act(buf, lanes[i], t)
                 host_step(1 - i)  # overlaps the card's act of lane i
-                lanes[i].actions = actions.cpu().numpy()
+                with span("eavit.act_sync"):
+                    lanes[i].actions = actions.cpu().numpy()
         for i in (0, 1):  # the last env steps and the bootstrap passes
             host_step(i)
             self._act(buf, lanes[i], T)

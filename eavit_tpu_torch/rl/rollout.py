@@ -21,6 +21,7 @@ import torch
 from eavit_tpu_torch.config import Config, TrainMethod
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.rl.agent import AgentState, RNDAgent, Rollout
+from eavit_tpu_torch.utils.trace import span
 
 
 class EpisodeStats:
@@ -131,51 +132,57 @@ class RolloutCollector:
     def collect(self, states_u8: np.ndarray, rng: Rng) -> Tuple[Rollout, np.ndarray]:
         """One n-step rollout (rollout.py:125-190). Returns the time-major
         Rollout on the agent's device and the final host states."""
-        T, N = self.cfg.num_step, self.env.num_envs
-        dev = self.agent.device
-        states_buf = np.empty((T, N) + states_u8.shape[1:], np.uint8)
-        next_obs_buf = np.empty((T, N) + self._next_obs_of(states_u8).shape[1:], np.uint8)
-        rewards_buf = np.empty((T, N), np.float32)
-        dones_buf = np.empty((T, N), np.bool_)
-        A = self.agent.output_size
-        if self.agent.discrete:
-            actions_dev = torch.empty((T, N), dtype=torch.int64, device=dev)
-            policy_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
-        else:  # actions [T, N, A] and their log-probs (rollout.py:144-149)
-            actions_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
-            policy_dev = torch.empty((T, N, 1), dtype=torch.float32, device=dev)
-        value_ext_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
-        value_int_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
+        with span("eavit.collect"):
+            T, N = self.cfg.num_step, self.env.num_envs
+            dev = self.agent.device
+            states_buf = np.empty((T, N) + states_u8.shape[1:], np.uint8)
+            next_obs_buf = np.empty((T, N) + self._next_obs_of(states_u8).shape[1:], np.uint8)
+            rewards_buf = np.empty((T, N), np.float32)
+            dones_buf = np.empty((T, N), np.bool_)
+            A = self.agent.output_size
+            if self.agent.discrete:
+                actions_dev = torch.empty((T, N), dtype=torch.int64, device=dev)
+                policy_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
+            else:  # actions [T, N, A] and their log-probs (rollout.py:144-149)
+                actions_dev = torch.empty((T, N, A), dtype=torch.float32, device=dev)
+                policy_dev = torch.empty((T, N, 1), dtype=torch.float32, device=dev)
+            value_ext_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
+            value_int_dev = torch.empty((T + 1, N), dtype=torch.float32, device=dev)
 
-        for t in range(T):
-            actions, v_ext, v_int, policy = self.agent.act(states_u8, rng)
-            states_buf[t] = states_u8
-            actions_dev[t] = actions
-            value_ext_dev[t] = v_ext
-            value_int_dev[t] = v_int
-            policy_dev[t] = policy
-            states_u8, rewards, dones, _truns, infos = self.env.step(actions.cpu().numpy())
-            rewards_buf[t] = rewards
-            dones_buf[t] = dones
-            next_obs_buf[t] = self._next_obs_of(states_u8)
-            for info in infos:
-                self.stats.add(info)
-            if self.renderer is not None:
-                self.renderer.render(states_u8[:, -1:])
+            for t in range(T):
+                with span("eavit.act"):
+                    actions, v_ext, v_int, policy = self.agent.act(states_u8, rng)
+                    states_buf[t] = states_u8
+                    actions_dev[t] = actions
+                    value_ext_dev[t] = v_ext
+                    value_int_dev[t] = v_int
+                    policy_dev[t] = policy
+                with span("eavit.act_sync"):
+                    actions = actions.cpu().numpy()
+                with span("eavit.env_step"):
+                    states_u8, rewards, dones, _truns, infos = self.env.step(actions)
+                    rewards_buf[t] = rewards
+                    dones_buf[t] = dones
+                    next_obs_buf[t] = self._next_obs_of(states_u8)
+                    for info in infos:
+                        self.stats.add(info)
+                if self.renderer is not None:
+                    self.renderer.render(states_u8[:, -1:])
 
-        # bootstrap value (reference train.py:701-704)
-        _, v_ext, v_int, _ = self.agent.act(states_u8, rng)
-        value_ext_dev[T] = v_ext
-        value_int_dev[T] = v_int
+            # bootstrap value (reference train.py:701-704)
+            with span("eavit.act"):
+                _, v_ext, v_int, _ = self.agent.act(states_u8, rng)
+                value_ext_dev[T] = v_ext
+                value_int_dev[T] = v_int
 
-        rollout = Rollout(
-            states=torch.from_numpy(states_buf).to(dev),
-            actions=actions_dev,
-            rewards=torch.from_numpy(rewards_buf).to(dev),
-            dones=torch.from_numpy(dones_buf).to(dev),
-            next_obs=torch.from_numpy(next_obs_buf).to(dev),
-            value_ext=value_ext_dev,
-            value_int=value_int_dev,
-            policy=policy_dev,
-        )
-        return rollout, states_u8
+            rollout = Rollout(
+                states=torch.from_numpy(states_buf).to(dev),
+                actions=actions_dev,
+                rewards=torch.from_numpy(rewards_buf).to(dev),
+                dones=torch.from_numpy(dones_buf).to(dev),
+                next_obs=torch.from_numpy(next_obs_buf).to(dev),
+                value_ext=value_ext_dev,
+                value_int=value_int_dev,
+                policy=policy_dev,
+            )
+            return rollout, states_u8

@@ -35,6 +35,7 @@ from eavit_tpu_torch.envs.device_env import (
 from eavit_tpu_torch.models.layers import Rng
 from eavit_tpu_torch.parallel import dp
 from eavit_tpu_torch.rl.agent import RNDAgent, Rollout
+from eavit_tpu_torch.utils.trace import span
 
 
 class ScanRolloutCollector:
@@ -72,44 +73,50 @@ class ScanRolloutCollector:
         ``RolloutCollector.collect`` returns, the env state after it and the
         episode metrics as 0-d tensors on the device (``scan_rollout.py:
         196-215``, under the same names)."""
-        T = self.cfg.num_step
-        stack = env_state.stack
-        n = stack.shape[0]
-        dev = stack.device
-        obs_shape = tuple(stack.shape[1:])
-        next_shape = (1,) + obs_shape[1:] if self._pixel_rnd else obs_shape
-        states = torch.empty((T, n) + obs_shape, dtype=torch.uint8, device=dev)
-        next_obs = torch.empty((T, n) + next_shape, dtype=torch.uint8, device=dev)
-        actions = torch.empty((T, n), dtype=torch.int64, device=dev)
-        rewards = torch.empty((T, n), dtype=torch.float32, device=dev)
-        dones = torch.empty((T, n), dtype=torch.bool, device=dev)
-        policy = torch.empty((T, n, self.agent.output_size), dtype=torch.float32, device=dev)
-        value_ext = torch.empty((T + 1, n), dtype=torch.float32, device=dev)
-        value_int = torch.empty((T + 1, n), dtype=torch.float32, device=dev)
-
-        for t in range(T):
+        with span("eavit.collect"):
+            T = self.cfg.num_step
             stack = env_state.stack
-            action, v_ext, v_int, logits = self.agent.act(stack, rng)
-            states[t] = stack
-            actions[t] = action
-            value_ext[t] = v_ext
-            value_int[t] = v_int
-            policy[t] = logits
-            env_state, reward, done, _ = device_env_step(self.env_params, env_state, action)
-            rewards[t] = reward
-            dones[t] = done
-            next_obs[t] = env_state.stack[:, -1:] if self._pixel_rnd else env_state.stack
+            n = stack.shape[0]
+            dev = stack.device
+            obs_shape = tuple(stack.shape[1:])
+            next_shape = (1,) + obs_shape[1:] if self._pixel_rnd else obs_shape
+            states = torch.empty((T, n) + obs_shape, dtype=torch.uint8, device=dev)
+            next_obs = torch.empty((T, n) + next_shape, dtype=torch.uint8, device=dev)
+            actions = torch.empty((T, n), dtype=torch.int64, device=dev)
+            rewards = torch.empty((T, n), dtype=torch.float32, device=dev)
+            dones = torch.empty((T, n), dtype=torch.bool, device=dev)
+            policy = torch.empty((T, n, self.agent.output_size), dtype=torch.float32,
+                                 device=dev)
+            value_ext = torch.empty((T + 1, n), dtype=torch.float32, device=dev)
+            value_int = torch.empty((T + 1, n), dtype=torch.float32, device=dev)
 
-        # bootstrap value (reference train.py:701-704)
-        _, v_ext, v_int, _ = self.agent.act(env_state.stack, rng)
-        value_ext[T] = v_ext
-        value_int[T] = v_int
+            for t in range(T):
+                with span("eavit.act"):
+                    stack = env_state.stack
+                    action, v_ext, v_int, logits = self.agent.act(stack, rng)
+                    states[t] = stack
+                    actions[t] = action
+                    value_ext[t] = v_ext
+                    value_int[t] = v_int
+                    policy[t] = logits
+                with span("eavit.env_step"):
+                    env_state, reward, done, _ = device_env_step(self.env_params, env_state,
+                                                                 action)
+                    rewards[t] = reward
+                    dones[t] = done
+                    next_obs[t] = env_state.stack[:, -1:] if self._pixel_rnd \
+                        else env_state.stack
 
-        rollout = Rollout(states=states, actions=actions, rewards=rewards, dones=dones,
-                          next_obs=next_obs, value_ext=value_ext, value_int=value_int,
-                          policy=policy)
-        return rollout, env_state, episode_metrics(env_state, self.group)
+            # bootstrap value (reference train.py:701-704)
+            with span("eavit.act"):
+                _, v_ext, v_int, _ = self.agent.act(env_state.stack, rng)
+                value_ext[T] = v_ext
+                value_int[T] = v_int
 
+            rollout = Rollout(states=states, actions=actions, rewards=rewards, dones=dones,
+                              next_obs=next_obs, value_ext=value_ext, value_int=value_int,
+                              policy=policy)
+            return rollout, env_state, episode_metrics(env_state, self.group)
 
 def episode_metrics(env_state: DeviceEnvState, group=None) -> Dict[str, torch.Tensor]:
     """The device env's episode bookkeeping as 0-d float32 tensors, under

@@ -74,6 +74,7 @@ from eavit_tpu_torch.rl.scan_rollout import ScanRolloutCollector
 from eavit_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from eavit_tpu_torch.utils.logger import Logger
 from eavit_tpu_torch.utils.seed import set_seed
+from eavit_tpu_torch.utils.trace import span
 
 
 def _detect_action_space(env) -> ActionSpaceType:
@@ -259,6 +260,29 @@ def _finish(logger: Logger, agent: RNDAgent, world: int) -> None:
     logger.close()
 
 
+def iteration(collector, agent: RNDAgent, state, env_state, rng: Rng):
+    """One pass of the training loop's body: a rollout from ``collector``
+    (``DeviceRolloutCollector`` over host env states, or
+    ``ScanRolloutCollector`` over a device env state), ``agent.update`` on
+    it, and every metric read back to a host float (with the host fleet's
+    episode stats, or the device env's episode metrics). Returns the new
+    agent state, the new env state, the metrics and the last minibatch's
+    gradients (None unless ``verbose_logging``)."""
+    with span("eavit.iteration"):
+        if isinstance(collector, ScanRolloutCollector):
+            rollout, env_state, env_metrics = collector.collect(env_state, rng)
+        else:
+            rollout, env_state = collector.collect(env_state, rng)
+            env_metrics = None
+        state, metrics = agent.update(state, rollout, rng)
+        with span("eavit.readback"):
+            grads = metrics.pop("_grads", None)
+            if env_metrics is None:
+                env_metrics = collector.stats.summary()
+            metrics = {k: float(v) for k, v in {**metrics, **env_metrics}.items()}
+    return state, env_state, metrics, grads
+
+
 def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates: int,
                       log_dir: str, device, rank: int, world: int) -> Dict[str, Any]:
     """The zero-host training loop over the device env
@@ -321,11 +345,8 @@ def _train_device_env(cfg: Config, total_updates: Optional[int], profile_updates
     logger.log("entering training loop")
     last_metrics: Dict[str, Any] = {}
     while total_updates is None or total_updates < 0 or update < total_updates:
-        rollout, env_state, env_metrics = collector.collect(env_state, rng)
-        state, metrics = agent.update(state, rollout, rng)
+        state, env_state, metrics, grads = iteration(collector, agent, state, env_state, rng)
         update += 1
-        grads = metrics.pop("_grads", None)
-        metrics = {k: float(v) for k, v in {**metrics, **env_metrics}.items()}
         logger.log_scalars(metrics, step=update)
         _log_histograms(cfg, logger, agent, grads)
         last_metrics = metrics
@@ -432,13 +453,8 @@ def train(cfg: Config, total_updates: Optional[int] = None, profile_updates: int
     update = start_update
     last_metrics: Dict[str, Any] = {}
     while total_updates is None or total_updates < 0 or update < total_updates:
-        rollout, states = collector.collect(states, rng)
-        state, metrics = agent.update(state, rollout, rng)
+        state, states, metrics, grads = iteration(collector, agent, state, states, rng)
         update += 1
-
-        grads = metrics.pop("_grads", None)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        metrics.update(collector.stats.summary())
         logger.log_scalars(metrics, step=update)
         _log_histograms(cfg, logger, agent, grads)
         last_metrics = metrics

@@ -75,8 +75,17 @@ versions at (40, 100), (384, 1,536), (768, 3,072), (1,024, 4,096), (1,280,
 act and minibatch rows (3,264 and 13,056), with equal bits twice, K2f with zeros exactly
 where K2r's mask2 drops. The network's loss and backward, run twice on the
 same inputs, gives every kernel output the same bits.
+
+The profiler mirrors every ``record_function`` range, the port's ``eavit.*``
+spans among them, onto the card's timeline as a user annotation. On one
+profiled minibatch step the copies are there, and both readers of device
+time (``chip_smoke.device_activity``, the benchmark's
+``trace.from_profiler``) keep the kernels, copies and fills alone: the same
+events and the same device time as the profiler's Chrome trace files under
+those three kinds.
 """
 
+import json
 import math
 
 import numpy as np
@@ -1558,3 +1567,69 @@ def test_tpu_kernel_check_cases(cuda, case):
         assert _max_err(a, p) <= (_tol(p, dtype) if kernel != "K1" else
                                   _bf16_tol(p) if dtype == torch.bfloat16
                                   else 1e-4 * p.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the port's spans on the card's timeline, and the readers of device time
+# ---------------------------------------------------------------------------
+
+def _profiled_minibatch_step(tmp_path):
+    """One ``_minibatch_step`` of a small agent under the profiler, between
+    the benchmark's three annotations: ``(profiler, Chrome trace events)``."""
+    from eavit_tpu_torch.config import Config, ViTConfig
+    from eavit_tpu_torch.envs.synthetic import SyntheticVectorEnv
+    from eavit_tpu_torch.models.layers import Rng
+    from eavit_tpu_torch.rl.agent import RNDAgent
+    from eavit_tpu_torch.rl.device_rollout import DeviceRolloutCollector
+
+    cfg = Config(vit=ViTConfig(**SMALL_VIT), attention_impl="pallas_qkv", fused_ffn=True,
+                 num_env_per_process=4, num_step=8, compute_dtype="float32",
+                 shared_patch_stream=True, epoch=1, mini_batch=2, obs_norm_step=1,
+                 max_step_per_episode=4, env_type="synthetic", synthetic_grid=4)
+    agent = RNDAgent(cfg, 5, device="cuda")
+    state, rng = agent.init_state(0), Rng(1, agent.device)
+    env = SyntheticVectorEnv(4, seed=2, max_episode_steps=cfg.max_step_per_episode)
+    rollout, _ = DeviceRolloutCollector(cfg, agent, env).collect(env.reset(), rng)
+    _, batch, _ = agent.prepare_batch(state, rollout)
+    n = batch.adv.shape[0]
+    idx = agent._permutation(rng, n).reshape(cfg.mini_batch, n // cfg.mini_batch)[0]
+    params = agent.trainable_parameters()
+    agent._minibatch_step(batch, idx, rng, params)  # warm
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.record_function("collect"):
+            pass
+        with torch.profiler.record_function("update"):
+            agent._minibatch_step(batch, idx, rng, params)
+        with torch.profiler.record_function("readback"):
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    return prof, events
+
+
+def test_readers_keep_the_spans_copies_out_of_device_time(cuda, tmp_path):
+    import chip_smoke as cs
+    from benchmark.harness import trace as bench_trace
+
+    prof, events = _profiled_minibatch_step(tmp_path)
+    # the innermost range over each kernel is mirrored: the leaf spans
+    copies = {e["name"] for e in events if e.get("cat") == "gpu_user_annotation"}
+    assert {"eavit.forward", "eavit.backward", "eavit.optimizer"} <= copies, sorted(copies)
+    work = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert work
+    want_us = sum(float(e["dur"]) for e in work)
+    tol_us = 1e-3 * len(work) + 1e-6 * want_us  # the trace's durations in whole ns
+
+    _, _, by_kernel = cs.device_activity(prof, 1)
+    assert sum(by_kernel.values()) * 1e3 == pytest.approx(want_us, abs=tol_us)
+    assert not any(k in copies for k in by_kernel)
+
+    tr = bench_trace.from_profiler(prof)
+    assert sorted(d.name for d in tr.device) == sorted(e["name"] for e in work)
+    # its intervals hold epoch times as float seconds: each duration rounds by an ulp
+    ulp_us = math.ulp(tr.window[1]) * 1e6
+    got_us = sum(d.end - d.start for d in tr.device) * 1e6
+    assert got_us == pytest.approx(want_us, abs=tol_us + ulp_us * len(work))
